@@ -1,0 +1,298 @@
+"""Smoke test of the PyTorch/CUDA port on one NVIDIA card.
+
+    python3 chip_smoke.py            # needs one CUDA card; exits nonzero without
+
+Phases (any failure exits nonzero and prints no result line):
+  1. CUDA present; the card's name and power limit (nvidia-smi); TF32 off
+     for matrix products and convolutions.
+  2. Build every kernel of the main path from ``speech_diarization_tpu_torch/
+     csrc`` (one nvcc per source, all started together).
+  3. Each kernel against its plain PyTorch version on the card, at the
+     shapes the main path gives it (one 60 s chunk with its margins), in
+     the working dtype: max abs and relative error against the stated
+     tolerance, kernel /
+     plain / library times (CUDA events) and the bound from bytes and
+     operations.
+  4. The port's main path: ``DiarizationPipeline`` as ``bench.py`` runs it
+     with the overlap rescue off (spectral clustering, shipped
+     ``vad_conv_mc.npz`` and ``ecapa_robust_stream.npz`` in bf16) on the
+     bench's 60 s and 600 s generator draws: warm wall, timed wall (min of
+     several), RTF, DER against the generator truth (bar: the JAX
+     pipeline's DER on the same files on the CPU plus one point), and each
+     kernel's launch count over the run (must be >= 1).
+  5. Reference agreement on a small input: the same pipeline (float32
+     encoder) on the card and on the CPU (plain versions) over a 25 s file
+     cut into three 10 s chunks.
+Then one JSON line listing the kernels, the card's nvidia-smi line, and the
+result line ``{"ok": true, "device": {...}}``.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+HERE = Path(__file__).resolve().parent
+SR = 16000
+
+# DER (%) of the JAX reference on the CPU, overlap off, on the bench draws
+# (scripts/torch_port_der_bar.py); the port must stay within one point.
+JAX_CPU_DER_PCT = {60: 0.0, 600: 0.6243}
+DER_SLACK_PCT = 1.0
+
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and dense rates by type
+PEAK_BYTES_S = 3.35e12
+PEAK_FLOPS = {"bf16_tensor": 989e12, "f32": 67e12}
+
+# tolerances of kernel vs plain version on the card (max abs error over the
+# output, relative to the plain output's largest magnitude).  Both sides
+# accumulate in float32 in another order; K1 also rounds its tanh
+# activations to bf16, where a one-ulp difference in tanh can flip a bf16
+# rounding.
+TOL_REL = {"fused_log_mel": 1e-4, "asp_grid_stats": 2e-3}
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def cuda_time_ms(fn, iters: int = 20) -> float:
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(iters):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / iters
+
+
+def bound(bytes_moved: float, ops: dict[str, float]) -> tuple[float, str]:
+    """Least time for the work: the larger of bytes over the memory rate
+    and, for each operation type, its count over that type's peak."""
+    t_bytes = bytes_moved / PEAK_BYTES_S
+    t_ops = max(n / PEAK_FLOPS[k] for k, n in ops.items())
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def main() -> int:
+    import torch
+
+    # ---------------------------------------------------------- phase 1 ----
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(HERE))
+    import speech_diarization_tpu_torch as port
+
+    if Path(port.__file__).resolve().parents[1] != HERE:
+        raise RuntimeError(f"imported the port from {port.__file__}, not from "
+                           f"this checkout {HERE}")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kind = torch.cuda.get_device_name(0)
+    log(f"[1] card: {smi}; torch {torch.__version__} cuda {torch.version.cuda}; "
+        f"allow_tf32 matmul={torch.backends.cuda.matmul.allow_tf32} "
+        f"cudnn={torch.backends.cudnn.allow_tf32}")
+    dev = torch.device("cuda")
+
+    from speech_diarization_tpu_torch.config import (
+        ClusterConfig, DiarizationConfig, EmbedConfig, OverlapConfig,
+    )
+    from speech_diarization_tpu_torch.dsp.mel import (
+        _kernel_constants, _log_mel_1d, fused_log_mel,
+    )
+    from speech_diarization_tpu_torch.metrics.der import diarization_error_rate
+    from speech_diarization_tpu_torch.models.ecapa import (
+        _asp_grid_stats_plain, asp_grid_stats,
+    )
+    from speech_diarization_tpu_torch.models.layers import sliding_mean_time
+    from speech_diarization_tpu_torch.models.port import (
+        load_speaker_encoder, load_vad,
+    )
+    from speech_diarization_tpu_torch.ops import kernels
+    from speech_diarization_tpu_torch.pipelines.diarize import DiarizationPipeline
+    from speech_diarization_tpu_torch.train.synthetic import make_conversation
+    from speech_diarization_tpu_torch.types import SegmentArray
+
+    # ---------------------------------------------------------- phase 2 ----
+    t0 = time.perf_counter()
+    reports = kernels.build()
+    log(f"[2] kernels built in {time.perf_counter() - t0:.2f} s "
+        f"({', '.join(sorted(kernels.KERNELS))})")
+    for name, text in reports.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"    {name}: {line.strip()}")
+
+    # ---------------------------------------------------------- phase 3 ----
+    wdir = HERE / "weights"
+    enc = load_speaker_encoder(wdir / "ecapa_robust_stream.npz",
+                               dtype=torch.bfloat16).to(dev).eval()
+    vad = load_vad(wdir / "vad_conv_mc.npz").to(dev).eval()
+    # one main-path chunk: 4 s left margin + 60 s core + 5.9 s right margin
+    u, m_l, m_r = 60 * SR, 64000, 94400
+    wave, _ = make_conversation(np.random.default_rng(1), 70.0, n_speakers=3, sr=SR)
+    y = torch.from_numpy(np.clip(wave[:m_l + u + m_r], -0.99, 0.99)
+                         .astype(np.float32)).to(dev)
+    rows = []
+    with torch.inference_mode():
+        # K2: fused log-mel on [1,118,400] float32 -> [6991, 40]
+        out = fused_log_mel(y, n_mels=40)
+        ref = _log_mel_1d(y, n_mels=40)
+        torch.cuda.synchronize()
+        n_frames, n_mels, n_fft, n_bins = out.shape[0], 40, 400, 201
+        err = (out - ref).abs().max().item()
+        ref_max = ref.abs().max().item()
+        tol = TOL_REL["fused_log_mel"] * ref_max
+        cw, sw, fb = _kernel_constants(dev, n_fft, n_mels, 20.0, 7900.0, SR)
+        k2_bytes = 4 * (y.numel() + cw.numel() + sw.numel() + fb.numel()
+                        + out.numel())
+        k2_ops = n_frames * (2 * 2 * n_fft * n_bins + 3 * n_bins
+                             + 2 * n_bins * n_mels + 2 * n_mels)
+        b_ms, b_by = bound(k2_bytes, {"f32": k2_ops})
+        win = torch.hann_window(n_fft, periodic=True, device=dev)
+        rows.append({
+            "name": "fused_log_mel", "route": "cuda",
+            "source": "speech_diarization_tpu_torch/csrc/fused_fbank.cu",
+            "replaces": "speech_diarization_tpu/ops/pallas/fused_fbank.py:146",
+            "max_abs_err": err, "tol": tol, "ref_max": ref_max,
+            "ms": cuda_time_ms(lambda: fused_log_mel(y, n_mels=40)),
+            "plain_ms": cuda_time_ms(lambda: _log_mel_1d(y, n_mels=40)),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": cuda_time_ms(lambda: torch.stft(
+                y, n_fft, 160, window=win, center=True, pad_mode="reflect",
+                return_complex=True)),
+        })
+        # K1: grid ASP stats on the real trunk features of this chunk
+        feats = ref[None]
+        feats = feats - sliding_mean_time(feats.transpose(1, 2), 201).transpose(1, 2)
+        x = enc.net.trunk(feats, se_win=201)[0]                  # [768, 6991] bf16
+        n_w, first_f, hop_f, win_f = u // 1600, m_l // 160, 10, 201
+        args = enc.net.k1_inputs(x, first_f, hop_f, win_f, n_w)
+        out = asp_grid_stats(*args)
+        ref = _asp_grid_stats_plain(*args)
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        ref_max = ref.abs().max().item()
+        tol = TOL_REL["asp_grid_stats"] * ref_max
+        cc, a_dim = x.shape[0], args[2].shape[0]
+        n_rows = (n_w - 1) * hop_f + win_f
+        k1_bytes = (2 * n_rows * cc + 4 * n_w * a_dim + 2 * 2 * a_dim * cc
+                    + 4 * (2 * a_dim + cc) + 4 * out.numel())
+        k1_tensor = 2 * n_rows * cc * a_dim + 2 * n_w * win_f * a_dim * cc
+        # per (window, row, channel): bias, max, sub, exp, sum, p*x (2),
+        # p*x^2 (3) = 10; per (window, row, a): bias, relu, BN fma, tanh = 5
+        k1_f32 = n_w * win_f * (10 * cc + 5 * a_dim)
+        b_ms, b_by = bound(k1_bytes, {"bf16_tensor": k1_tensor, "f32": k1_f32})
+        rows.append({
+            "name": "asp_grid_stats", "route": "cuda",
+            "source": "speech_diarization_tpu_torch/csrc/asp_grid.cu",
+            "replaces": "speech_diarization_tpu/ops/pallas/asp_grid.py:168",
+            "max_abs_err": err, "tol": tol, "ref_max": ref_max,
+            "ms": cuda_time_ms(lambda: asp_grid_stats(*args)),
+            "plain_ms": cuda_time_ms(lambda: _asp_grid_stats_plain(*args), 5),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        })
+    for r in rows:
+        log(f"[3] {r['name']}: max_abs_err {r['max_abs_err']:.3e} (tol "
+            f"{r['tol']:.3e}), max_rel_err {r['max_abs_err'] / r['ref_max']:.3e} "
+            f"(tol {TOL_REL[r['name']]:.0e}); kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}), library {r['library_ms']} ms")
+        if not r["max_abs_err"] <= r["tol"]:
+            raise AssertionError(f"{r['name']} disagrees with its plain version")
+
+    # ---------------------------------------------------------- phase 4 ----
+    cfg = DiarizationConfig(
+        cluster=ClusterConfig(method="spectral", max_speakers=8),
+        embed=EmbedConfig(grid_backend="auto"),
+        overlap=OverlapConfig(enabled=False))
+    pipe = DiarizationPipeline(cfg, encoder=enc, vad=vad)
+    launches = {}
+    for dur in (60, 600):
+        wave, truth = make_conversation(np.random.default_rng(0), float(dur),
+                                        n_speakers=3, sr=SR)
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = pipe((wave, SR))
+        warm = time.perf_counter() - t0
+        launches[dur] = dict(kernels.LAUNCHES)
+        walls = []
+        for _ in range(4):
+            t0 = time.perf_counter()
+            pipe((wave, SR))
+            walls.append(time.perf_counter() - t0)
+        der = 100.0 * diarization_error_rate(SegmentArray(*truth), res.segments).der
+        bar = JAX_CPU_DER_PCT[dur] + DER_SLACK_PCT
+        log(f"[4] {dur} s: warm {warm:.3f} s, timed {min(walls):.4f} s "
+            f"(walls {[round(w, 4) for w in walls]}) -> RTF "
+            f"{dur / min(walls):.1f}x; {len(res.segments)} segments, "
+            f"{res.num_speakers} speakers, DER {der:.4f} % (bar {bar:.4f} %); "
+            f"launches {launches[dur]}")
+        probs = res.diagnostics["vad_probs"]
+        grid = res.diagnostics["window_embeddings"]
+        if not (np.isfinite(probs).all() and np.isfinite(grid).all()):
+            raise AssertionError("non-finite VAD probabilities or embeddings")
+        if probs.shape != (dur * 100 + 1,) or grid.shape[1] != 128:
+            raise AssertionError(f"bad shapes {probs.shape} {grid.shape}")
+        for name, n in launches[dur].items():
+            if n < 1:
+                raise AssertionError(f"kernel {name} was not launched on the "
+                                     "main path")
+        if not der <= bar:
+            raise AssertionError(f"DER {der:.4f} % above the bar {bar:.4f} %")
+
+    # ---------------------------------------------------------- phase 5 ----
+    enc32 = load_speaker_encoder(wdir / "ecapa_robust_stream.npz")
+    wave, truth = make_conversation(np.random.default_rng(3), 25.0, n_speakers=3,
+                                    sr=SR)
+    outs = {}
+    for where in ("cuda", "cpu"):
+        p = DiarizationPipeline(cfg, encoder=enc32, vad=load_vad(
+            wdir / "vad_conv_mc.npz"), device=where)
+        p._PAD_BUCKET_S = 10.0
+        outs[where] = p(wave)
+    g_c = outs["cuda"].diagnostics["window_embeddings"]
+    g_p = outs["cpu"].diagnostics["window_embeddings"]
+    cos = float(((g_c * g_p).sum(1) / np.linalg.norm(g_c, axis=1)
+                 / np.linalg.norm(g_p, axis=1)).min())
+    perr = float(np.abs(outs["cuda"].diagnostics["vad_probs"]
+                        - outs["cpu"].diagnostics["vad_probs"]).max())
+    ders = {k: 100.0 * diarization_error_rate(SegmentArray(*truth),
+                                              v.segments).der
+            for k, v in outs.items()}
+    log(f"[5] card vs CPU, 25 s / three chunks, float32 encoder: grid min cos "
+        f"{cos:.6f} (bar 0.9999), VAD probs max err {perr:.2e} (bar 1e-3), "
+        f"DER {ders['cuda']:.4f} % vs {ders['cpu']:.4f} %, speakers "
+        f"{outs['cuda'].num_speakers} vs {outs['cpu'].num_speakers}")
+    if not (cos > 0.9999 and perr < 1e-3
+            and abs(ders["cuda"] - ders["cpu"]) <= 1.0
+            and outs["cuda"].num_speakers == outs["cpu"].num_speakers):
+        raise AssertionError("the card disagrees with the CPU reference")
+
+    for r in rows:
+        r["launches"] = launches[600][r["name"]]
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

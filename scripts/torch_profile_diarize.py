@@ -1,0 +1,160 @@
+"""Where the time goes in the PyTorch port's diarizer, on one CUDA card.
+
+Runs the port's main path as ``chip_smoke.py`` does (bench configuration,
+overlap off, shipped VAD and bf16 encoder) on the bench's 600 s generator
+draw, after a warm-up, and reports:
+
+* host wall of each phase: dispatch (quantize, pinned upload, SNR probe,
+  per-chunk programs queued), the wait for the device and the packed copy,
+  and each host-tail stage (from the pipeline's stage timers);
+* from ``torch.profiler`` over one run: device time by kernel and the
+  device's busy share of the wall (sum of kernel times over the wall; the
+  port uses one stream).
+
+    python3 scripts/torch_profile_diarize.py [--seconds 600]
+
+Prints a table and one JSON line.  Needs a CUDA card.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import logging
+import re
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+SR = 16000
+
+
+class _StageLog(logging.Handler):
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.walls: dict[str, float] = {}
+
+    def emit(self, record):
+        m = re.match(r"stage=(\S+) wall_s=([0-9.]+)", record.getMessage())
+        if m:
+            self.walls[m.group(1)] = float(m.group(2))
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--seconds", type=float, default=600.0)
+    args = ap.parse_args()
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if not torch.cuda.is_available():
+        print("needs a CUDA card", file=sys.stderr)
+        return 2
+    from speech_diarization_tpu_torch.config import (
+        ClusterConfig, DiarizationConfig, EmbedConfig, OverlapConfig,
+    )
+    from speech_diarization_tpu_torch.models.port import load_speaker_encoder, load_vad
+    from speech_diarization_tpu_torch.pipelines.diarize import DiarizationPipeline
+    from speech_diarization_tpu_torch.train.synthetic import make_conversation
+    from speech_diarization_tpu_torch.utils.logging import get_logger
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    cfg = DiarizationConfig(cluster=ClusterConfig(method="spectral", max_speakers=8),
+                            embed=EmbedConfig(grid_backend="auto"),
+                            overlap=OverlapConfig(enabled=False))
+    w = ROOT / "weights"
+    pipe = DiarizationPipeline(
+        cfg, encoder=load_speaker_encoder(w / "ecapa_robust_stream.npz",
+                                          dtype=torch.bfloat16),
+        vad=load_vad(w / "vad_conv_mc.npz"))
+    wave, _ = make_conversation(np.random.default_rng(0), args.seconds,
+                                n_speakers=3, sr=SR)
+    pipe(wave)                                   # warm-up (builds kernels)
+
+    logger = get_logger("diarize")
+    handler = _StageLog()
+    logger.addHandler(handler)
+    root = logging.getLogger("sdtpu")
+    old_level = root.level
+    root.setLevel(logging.INFO)
+    phases = []
+    for _ in range(3):
+        handler.walls = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st = pipe.stream_start(wave)
+        t1 = time.perf_counter()
+        st["done"].synchronize()
+        t2 = time.perf_counter()
+        pipe.stream_finish(st)
+        t3 = time.perf_counter()
+        phases.append({"dispatch_s": t1 - t0, "device_wait_s": t2 - t1,
+                       "host_tail_s": t3 - t2, "wall_s": t3 - t0,
+                       **{f"tail_{k}_s": v for k, v in handler.walls.items()}})
+    root.setLevel(old_level)
+    logger.removeHandler(handler)
+    best = min(phases, key=lambda p: p["wall_s"])
+    # the dispatch phase's host pieces, timed alone (best of 3)
+    t_pad = -(-len(wave) // (60 * SR)) * 60 * SR
+    pieces = {"quantize_s": [], "snr_probe_s": [], "pin_s": []}
+    for _ in range(3):
+        t0 = time.perf_counter()
+        q, scale = pipe._quantize_host(wave, t_pad)
+        t1 = time.perf_counter()
+        pipe._host_snr_db(q[:len(wave)].astype(np.float32) * (scale / 32767.0))
+        t2 = time.perf_counter()
+        torch.from_numpy(q).pin_memory()
+        t3 = time.perf_counter()
+        for k, v in zip(pieces, (t1 - t0, t2 - t1, t3 - t2)):
+            pieces[k].append(v)
+    best.update({f"dispatch_{k}": min(v) for k, v in pieces.items()})
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        pipe(wave)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = prof.key_averages()
+
+    from torch.autograd import DeviceType
+
+    # device-side entries only (CPU ops also carry their children's device
+    # time, which would count each kernel twice)
+    kern = []
+    for e in events:
+        if getattr(e, "device_type", None) != DeviceType.CUDA:
+            continue
+        v = getattr(e, "self_device_time_total", None)
+        if v is None:
+            v = getattr(e, "self_cuda_time_total", 0.0)
+        if v and v > 0:
+            kern.append((e.key, float(v), e.count))
+    kern.sort(key=lambda r: -r[1])
+    busy_us = sum(v for _, v, _ in kern)
+    print(f"card: {smi}; {args.seconds:.0f} s file")
+    print(f"best of 3 host phases: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in best.items()))
+    print(f"profiled wall {wall:.4f} s; device busy {busy_us / 1e6:.4f} s "
+          f"({100 * busy_us / 1e6 / wall:.2f} % of the wall)")
+    print(f"{'device time (ms)':>17} {'calls':>6}  name")
+    for name, v, n in kern[:20]:
+        print(f"{v / 1e3:17.3f} {n:6d}  {name[:90]}")
+    print(json.dumps({
+        "card": smi, "seconds": args.seconds, "host_phases_best": best,
+        "profiled_wall_s": wall, "device_busy_s": busy_us / 1e6,
+        "device_busy_share": busy_us / 1e6 / wall,
+        "top_kernels_ms": {name[:80]: v / 1e3 for name, v, _ in kern[:12]},
+    }))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,158 @@
+"""Command-line entry point of the PyTorch port: ``sdtpu-torch diarize``.
+
+    python -m speech_diarization_tpu_torch.cli diarize x.wav --no-overlap --no-reseg
+
+Runs on the card unless ``--cpu`` is given.  The overlap rescue and frame
+reassignment are not ported yet: without ``--no-overlap`` and ``--no-reseg``
+the pipeline refuses to run rather than drop them.  Writes RTTM, JSON, SRT
+and CSV.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+from pathlib import Path
+
+
+def _add_common_config_args(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--config", type=str, default=None,
+                   help="JSON file hydrating the full DiarizationConfig")
+    p.add_argument("--sample-rate", type=int, default=16000)
+    p.add_argument("--target-lufs", type=float, default=-18.0)
+    p.add_argument("--no-loudness-norm", action="store_true")
+    p.add_argument("--vad-on", type=float, default=0.6)
+    p.add_argument("--vad-off", type=float, default=0.4)
+    p.add_argument("--min-speech-ms", type=float, default=250.0)
+    p.add_argument("--min-silence-ms", type=float, default=100.0)
+    p.add_argument("--speech-pad-ms", type=float, default=40.0)
+    p.add_argument("--scd-threshold", type=float, default=1.0)
+    p.add_argument("--no-scd", action="store_true")
+    p.add_argument("--min-speakers", type=int, default=1)
+    p.add_argument("--max-speakers", type=int, default=8)
+    p.add_argument("--no-reseg", action="store_true",
+                   help="frame reassignment off (required: not ported yet)")
+    p.add_argument("--merge-gap-s", type=float, default=0.5)
+    p.add_argument("--merge-max-turn-s", type=float, default=30.0)
+    p.add_argument("--merge-min-cos", type=float, default=0.80)
+    p.add_argument("--enhance", default=None, choices=["gtcrn", "off"],
+                   help="'off' disables the enhancement front-end; by "
+                        "default it engages on noisy files only, and noisy "
+                        "files are refused while it is not ported")
+    p.add_argument("--overlap", action=argparse.BooleanOptionalAction,
+                   default=None,
+                   help="overlap rescue; --no-overlap is required until "
+                        "the detector is ported")
+    p.add_argument("--encoder-weights", type=str, default=None,
+                   help="streaming-trained ECAPA npz checkpoint")
+    p.add_argument("--vad-weights", type=str, default=None,
+                   help="conv VAD npz checkpoint")
+    p.add_argument("--bf16", action="store_true",
+                   help="run the encoder trunk in bfloat16")
+    p.add_argument("--cpu", action="store_true",
+                   help="run on the CPU instead of the card")
+    p.add_argument("--verbose", "-v", action="store_true")
+
+
+def build_config(args: argparse.Namespace):
+    from .config import (
+        AudioConfig, ClusterConfig, DiarizationConfig, EnhanceConfig,
+        MergeConfig, OverlapConfig, ResegConfig, ScdConfig, VadConfig,
+        config_from_dict,
+    )
+
+    if args.config:
+        with open(args.config) as f:
+            return config_from_dict(json.load(f))
+    return DiarizationConfig(
+        enhance=EnhanceConfig(enabled=args.enhance != "off"),
+        audio=AudioConfig(
+            sample_rate=args.sample_rate,
+            target_lufs=None if args.no_loudness_norm else args.target_lufs,
+        ),
+        vad=VadConfig(
+            on_threshold=args.vad_on, off_threshold=args.vad_off,
+            min_speech_ms=args.min_speech_ms, min_silence_ms=args.min_silence_ms,
+            speech_pad_ms=args.speech_pad_ms,
+        ),
+        scd=ScdConfig(enabled=not args.no_scd, peak_z_threshold=args.scd_threshold),
+        cluster=ClusterConfig(method="spectral", min_speakers=args.min_speakers,
+                              max_speakers=args.max_speakers),
+        reseg=ResegConfig(enabled=not args.no_reseg),
+        merge=MergeConfig(max_gap_s=args.merge_gap_s,
+                          max_turn_s=args.merge_max_turn_s,
+                          min_cos=args.merge_min_cos),
+        overlap=OverlapConfig(**({} if args.overlap is None
+                                 else {"enabled": args.overlap})),
+    )
+
+
+def build_pipeline_kwargs(args: argparse.Namespace) -> dict:
+    import torch
+
+    from .models.port import load_speaker_encoder, load_vad
+    from .utils.weights import ENCODER_PREFERENCE, VAD_PREFERENCE, prefer_weights
+
+    enc_w = args.encoder_weights or prefer_weights(ENCODER_PREFERENCE)
+    vad_w = args.vad_weights or prefer_weights(VAD_PREFERENCE)
+    if enc_w is None or vad_w is None:
+        raise SystemExit("no encoder/VAD weights: pass --encoder-weights and "
+                         "--vad-weights")
+    encoder = load_speaker_encoder(enc_w,
+                                   dtype=torch.bfloat16 if args.bf16 else None)
+    encoder.sample_rate = args.sample_rate
+    vad = load_vad(vad_w)
+    vad.sample_rate = args.sample_rate
+    return {"encoder": encoder, "vad": vad,
+            "device": "cpu" if args.cpu else None}
+
+
+def cmd_diarize(args) -> int:
+    from .io.writers import relabel_speakers, save_csv, save_json, save_srt, write_rttm
+    from .pipelines.diarize import DiarizationPipeline
+
+    cfg = build_config(args)
+    pipe = DiarizationPipeline(cfg, **build_pipeline_kwargs(args))
+    result = pipe(args.audio)
+    segs = result.segments
+
+    out_dir = Path(args.out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    stem = Path(args.audio).stem
+    fmts = {"rttm", "json", "srt", "csv"} if args.format == "all" else {args.format}
+    if "rttm" in fmts:
+        write_rttm(out_dir / f"{stem}.rttm", segs, uri=stem)
+    if "json" in fmts:
+        save_json(out_dir / f"{stem}.json", segs)
+    if "srt" in fmts:
+        save_srt(out_dir / f"{stem}.srt", segs)
+    if "csv" in fmts:
+        save_csv(out_dir / f"{stem}.csv", segs)
+
+    print(f"segments: {len(segs)}; speakers: {result.num_speakers}")
+    for i, seg in enumerate(relabel_speakers(segs)[:20], 1):
+        print(f"{i:02d}  {seg['start']:.2f}-{seg['end']:.2f}  {seg['speaker']}")
+    return 0
+
+
+def main(argv: list[str] | None = None) -> int:
+    parser = argparse.ArgumentParser(
+        prog="sdtpu-torch", description="speaker diarization (PyTorch/CUDA)")
+    sub = parser.add_subparsers(dest="command", required=True)
+    p = sub.add_parser("diarize", help="diarize one file")
+    p.add_argument("audio")
+    p.add_argument("--out-dir", default="out")
+    p.add_argument("--format", default="all",
+                   choices=["rttm", "json", "srt", "csv", "all"])
+    _add_common_config_args(p)
+    p.set_defaults(fn=cmd_diarize)
+    args = parser.parse_args(argv)
+    if args.verbose:
+        import os
+
+        os.environ["SDTPU_LOG_LEVEL"] = "INFO"
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

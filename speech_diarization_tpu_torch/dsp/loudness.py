@@ -1,0 +1,106 @@
+"""ITU-R BS.1770-4 integrated loudness, on the tensor's device.
+
+The K-weighting cascade (high-shelf + RLB high-pass biquads) runs as its
+truncated impulse response: a causal 2048-tap FIR applied with one float32
+``conv1d``.  The RLB pole decays below 1e-6 within ~1500 samples at 16 kHz,
+so the truncation error is ~1e-5 on the filtered signal, far inside the
+0.01 LU bar against the exact IIR scan of the JAX package.  TF32 must be off
+for this convolution (``utils.device.disable_tf32``): its 2048-term sums in
+TF32 would lose about three digits.  Gating follows BS.1770-4: 400 ms
+blocks, 75 % overlap, -70 LUFS absolute gate, -10 LU relative gate.
+"""
+from __future__ import annotations
+
+from functools import lru_cache
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+
+def _high_shelf_coeffs(fs: float, g_db: float = 4.0, fc: float = 1681.9744509555319,
+                       q: float = 0.7071752369554196) -> tuple[np.ndarray, np.ndarray]:
+    """Stage-1 'spherical head' high-shelf (BS.1770 / pyloudnorm parametrization)."""
+    a = 10.0 ** (g_db / 40.0)
+    w0 = 2.0 * np.pi * fc / fs
+    alpha = np.sin(w0) / (2.0 * q)
+    cw = np.cos(w0)
+    sa = 2.0 * np.sqrt(a) * alpha
+    b = np.array([
+        a * ((a + 1) + (a - 1) * cw + sa),
+        -2.0 * a * ((a - 1) + (a + 1) * cw),
+        a * ((a + 1) + (a - 1) * cw - sa),
+    ])
+    aa = np.array([(a + 1) - (a - 1) * cw + sa,
+                   2.0 * ((a - 1) - (a + 1) * cw),
+                   (a + 1) - (a - 1) * cw - sa])
+    return b / aa[0], aa / aa[0]
+
+
+def _high_pass_coeffs(fs: float, fc: float = 38.13547087602444,
+                      q: float = 0.5003270373238773) -> tuple[np.ndarray, np.ndarray]:
+    """Stage-2 RLB high-pass."""
+    w0 = 2.0 * np.pi * fc / fs
+    alpha = np.sin(w0) / (2.0 * q)
+    cw = np.cos(w0)
+    b = np.array([(1 + cw) / 2.0, -(1 + cw), (1 + cw) / 2.0])
+    aa = np.array([1 + alpha, -2.0 * cw, 1 - alpha])
+    return b / aa[0], aa / aa[0]
+
+
+def k_weighting_coeffs(fs: float) -> list[tuple[np.ndarray, np.ndarray]]:
+    return [_high_shelf_coeffs(fs), _high_pass_coeffs(fs)]
+
+
+@lru_cache(maxsize=16)
+def _k_fir_taps(fs: int) -> np.ndarray:
+    """Causal FIR truncation of the biquad cascade's impulse response."""
+    from scipy import signal as sps
+
+    n_taps = 2048 if fs <= 24000 else 4096
+    h = np.zeros(n_taps)
+    h[0] = 1.0
+    for b, a in k_weighting_coeffs(float(fs)):
+        h = sps.lfilter(b, a, h)
+    return h.astype(np.float32)
+
+
+_TAPS: dict = {}
+
+
+def k_weight(y: torch.Tensor, fs: int) -> torch.Tensor:
+    """K-weight a [T] float32 waveform (zero initial state)."""
+    key = (fs, str(y.device))
+    if key not in _TAPS:   # once per device: no host copy inside the program
+        _TAPS[key] = torch.from_numpy(_k_fir_taps(fs)[::-1].copy()).to(y.device)
+    h = _TAPS[key]
+    t = y.shape[-1]
+    out = F.conv1d(y.reshape(1, 1, t), h.reshape(1, 1, -1),
+                   padding=h.shape[0] - 1)           # causal: first t outputs
+    return out.reshape(-1)[:t]
+
+
+def integrated_loudness(y: torch.Tensor, fs: int) -> torch.Tensor:
+    """Gated integrated loudness (LUFS) of a mono [T] waveform, as a 0-d
+    tensor on ``y``'s device.  Silence (no block passes the absolute gate)
+    returns the -200 sentinel."""
+    z = k_weight(y.float(), fs)
+    block = int(round(0.400 * fs))
+    hop = int(round(0.100 * fs))
+    if z.shape[-1] < block:
+        ms = torch.mean(z * z)
+        return -0.691 + 10.0 * torch.log10(torch.clamp(ms, min=1e-20))
+    frames = z.unfold(-1, block, hop)                 # [n, block]
+    msq = torch.mean(frames * frames, dim=-1)
+    lb = -0.691 + 10.0 * torch.log10(torch.clamp(msq, min=1e-20))
+
+    abs_gate = lb > -70.0
+    n_abs = abs_gate.sum()
+    mean_abs = torch.where(abs_gate, msq, 0.0).sum() / torch.clamp(n_abs, min=1)
+    rel_thresh = -0.691 + 10.0 * torch.log10(torch.clamp(mean_abs, min=1e-20)) - 10.0
+
+    gate = abs_gate & (lb > rel_thresh)
+    n_g = gate.sum()
+    mean_g = torch.where(gate, msq, 0.0).sum() / torch.clamp(n_g, min=1)
+    lufs = -0.691 + 10.0 * torch.log10(torch.clamp(mean_g, min=1e-20))
+    return torch.where(n_g > 0, lufs, torch.full_like(lufs, -200.0))

@@ -1,0 +1,340 @@
+"""ECAPA-TDNN speaker embedder on the streaming grid, and kernel K1.
+
+``EcapaTdnn`` keeps the JAX package's math and cast points: weights stay
+float32 and are cast to the compute dtype at each convolution
+(``_conv_bn_apply`` and the SE gate); BatchNorm scale/shift are computed in
+float32 and cast to the activation dtype; pooling statistics are float32.
+
+Holds kernel K1 and its plain version:
+
+* :func:`_asp_grid_stats_plain` — the plain PyTorch version of the per-window
+  attentive statistics, with the kernel's arithmetic (bf16 operands, float32
+  accumulation, folded inference BatchNorm).
+* :func:`asp_grid_stats` — the wrapper of ``csrc/asp_grid.cu`` (the port of
+  the Pallas ``asp_grid_stats``).  On a CPU tensor it returns the plain
+  version; on a CUDA tensor it launches the kernel or raises.
+
+``EcapaTdnn.asp_head_grid`` is the decomposed grid head in the net's dtype,
+which is what the JAX package runs on the CPU; ``asp_head_grid_kernel``
+goes through K1 (bf16 operands even for a float32 net, as the Pallas
+kernel), which is what runs on the card.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ..ops import kernels
+from .layers import batch_norm_apply, conv1d_torch, sliding_mean_time
+
+
+def _param(*shape) -> nn.Parameter:
+    return nn.Parameter(torch.zeros(*shape), requires_grad=False)
+
+
+class ConvBN(nn.Module):
+    """SpeechBrain TDNNBlock: conv (reflect 'same' padding) -> ReLU -> BN."""
+
+    def __init__(self, c_in: int, c_out: int, k: int):
+        super().__init__()
+        self.w = _param(c_out, c_in, k)
+        self.b = _param(c_out)
+        self.bn_gamma = _param(c_out)
+        self.bn_beta = _param(c_out)
+        self.bn_mean = _param(c_out)
+        self.bn_var = _param(c_out)
+
+    def forward(self, x: torch.Tensor, dilation: int = 1, padding: int = 0,
+                act: bool = True) -> torch.Tensor:
+        if padding > 0:
+            x = F.pad(x, (padding, padding), mode="reflect")
+        # cast point: weights to the activation dtype at every conv
+        x = conv1d_torch(x, self.w.to(x.dtype), self.b.to(x.dtype),
+                         dilation=dilation)
+        if act:
+            x = F.relu(x)
+        return batch_norm_apply(x, self.bn_mean, self.bn_var, self.bn_gamma,
+                                self.bn_beta)
+
+
+class BNStats(nn.Module):
+    def __init__(self, c: int):
+        super().__init__()
+        self.gamma = _param(c)
+        self.beta = _param(c)
+        self.mean = _param(c)
+        self.var = _param(c)
+
+
+class SERes2Block(nn.Module):
+    def __init__(self, c: int, scale: int, se_channels: int):
+        super().__init__()
+        width = c // scale
+        self.scale = scale
+        self.conv1 = ConvBN(c, c, 1)
+        self.res2 = nn.ModuleList(ConvBN(width, width, 3) for _ in range(scale - 1))
+        self.conv2 = ConvBN(c, c, 1)
+        self.se_w1 = _param(se_channels, c, 1)
+        self.se_b1 = _param(se_channels)
+        self.se_w2 = _param(c, se_channels, 1)
+        self.se_b2 = _param(c)
+
+    def forward(self, x: torch.Tensor, dilation: int,
+                se_win: int | None = None) -> torch.Tensor:
+        residual = x
+        y = self.conv1(x)
+        groups = torch.chunk(y, self.scale, dim=1)
+        outs = [groups[0]]
+        prev = None
+        for i in range(1, self.scale):
+            inp = groups[i] if prev is None else groups[i] + prev
+            prev = self.res2[i - 1](inp, dilation=dilation, padding=dilation)
+            outs.append(prev)
+        y = self.conv2(torch.cat(outs, dim=1))
+        # squeeze-excitation: utterance mean, or in streaming mode a sliding
+        # mean so each frame's gate matches an isolated se_win crop
+        dt = y.dtype
+        zm = y.mean(dim=2, keepdim=True) if se_win is None \
+            else sliding_mean_time(y, se_win)
+        z = F.relu(conv1d_torch(zm, self.se_w1.to(dt), self.se_b1.to(dt)))
+        z = torch.sigmoid(conv1d_torch(z, self.se_w2.to(dt), self.se_b2.to(dt)))
+        return residual + y * z
+
+
+class EcapaTdnn(nn.Module):
+    """ECAPA-TDNN: fbank [B, T, n_mels] -> [B, 3C, T] trunk features ->
+    per-window attentive-stats embeddings."""
+
+    def __init__(self, n_mels: int = 80, channels: int = 512, emb_dim: int = 192,
+                 scale: int = 8, se_channels: int = 128, att_channels: int = 128,
+                 dilations: tuple[int, ...] = (2, 3, 4),
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.n_mels = n_mels
+        self.channels = channels
+        self.emb_dim = emb_dim
+        self.scale = scale
+        self.se_channels = se_channels
+        self.att_channels = att_channels
+        self.dilations = tuple(dilations)
+        self.dtype = dtype
+        self.cat_channels = cc = channels * len(self.dilations)
+        a = att_channels
+        self.stem = ConvBN(n_mels, channels, 5)
+        self.block = nn.ModuleList(SERes2Block(channels, scale, se_channels)
+                                   for _ in self.dilations)
+        self.mfa = ConvBN(cc, cc, 1)
+        self.att_w1 = _param(a, 3 * cc, 1)
+        self.att_b1 = _param(a)
+        self.att_bn = BNStats(a)
+        self.att_w2 = _param(cc, a, 1)
+        self.att_b2 = _param(cc)
+        self.post_bn = BNStats(2 * cc)
+        self.fc_w = _param(emb_dim, 2 * cc, 1)
+        self.fc_b = _param(emb_dim)
+
+    def trunk(self, feats: torch.Tensor, se_win: int | None = None) -> torch.Tensor:
+        """feats [B, T, n_mels] -> [B, 3C, T] post-MFA features (compute
+        dtype).  Shift-invariant when ``se_win`` is set (streaming mode)."""
+        x = feats.transpose(1, 2).to(self.dtype)
+        x = self.stem(x, padding=2)
+        outs = []
+        for blk, d in zip(self.block, self.dilations):
+            x = blk(x, d, se_win=se_win)
+            outs.append(x)
+        return self.mfa(torch.cat(outs, dim=1))
+
+    def _stats_to_emb(self, stats: torch.Tensor) -> torch.Tensor:
+        pb = self.post_bn
+        stats = batch_norm_apply(stats, pb.mean, pb.var, pb.gamma, pb.beta)
+        return conv1d_torch(stats[:, :, None], self.fc_w, self.fc_b)[:, :, 0].float()
+
+    def _window_context(self, x: torch.Tensor, first_f: int, hop_f: int,
+                        win_f: int, n_windows: int):
+        """Per-window global-context mean/std [W, CC] from two float32
+        prefix sums over the frames."""
+        eps = 1e-12
+        x32 = x.float()
+        starts = first_f + hop_f * torch.arange(n_windows, device=x.device)
+        cs1 = F.pad(torch.cumsum(x32, dim=-1), (1, 0))
+        cs2 = F.pad(torch.cumsum(x32 * x32, dim=-1), (1, 0))
+        s1 = cs1[:, starts + win_f] - cs1[:, starts]
+        s2 = cs2[:, starts + win_f] - cs2[:, starts]
+        mu_g = s1.T / win_f
+        sd_g = torch.sqrt(torch.clamp(s2.T / win_f - mu_g * mu_g, min=eps))
+        return mu_g, sd_g, starts
+
+    def asp_head_grid(self, x: torch.Tensor, first_f: int, hop_f: int,
+                      win_f: int, n_windows: int) -> torch.Tensor:
+        """Decomposed sliding-grid ASP in the net's dtype: x [CC, T_f] ->
+        [W, emb_dim].  The JAX package's ``asp_head_grid``."""
+        eps = 1e-12
+        cc = x.shape[0]
+        dt = self.dtype
+        mu_g, sd_g, starts = self._window_context(x, first_f, hop_f, win_f,
+                                                  n_windows)
+        w1 = self.att_w1[..., 0]
+        w1x, w1m, w1s = w1[:, :cc], w1[:, cc:2 * cc], w1[:, 2 * cc:]
+        hx = w1x.to(dt) @ x.to(dt)                                  # [A, T_f]
+        bw = (mu_g.to(dt) @ w1m.to(dt).T + sd_g.to(dt) @ w1s.to(dt).T
+              + self.att_b1.to(dt))                                 # [W, A]
+        idx = starts[:, None] + torch.arange(win_f, device=x.device)[None, :]
+        a = F.relu(hx[:, idx].permute(1, 0, 2) + bw[:, :, None])    # [W, A, win]
+        ab = self.att_bn
+        a = torch.tanh(batch_norm_apply(a, ab.mean, ab.var, ab.gamma, ab.beta))
+        # logits with float32 accumulation and output (operands in dt)
+        w2 = self.att_w2[..., 0].to(dt).float()
+        e = torch.einsum("ca,wat->wct", w2, a.float())
+        e = e + self.att_b2.float()[None, :, None]
+        p = torch.softmax(e, dim=2)                                 # [W, CC, win]
+        xw = x[:, idx].permute(1, 0, 2).float()
+        mu = (p * xw).sum(-1)
+        m2 = (p * xw * xw).sum(-1)
+        sd = torch.sqrt(torch.clamp(m2 - mu * mu, min=eps))
+        return self._stats_to_emb(torch.cat([mu, sd], dim=1))
+
+    def k1_inputs(self, x: torch.Tensor, first_f: int, hop_f: int, win_f: int,
+                  n_windows: int) -> tuple:
+        """The arguments :meth:`asp_head_grid_kernel` hands K1: per-window
+        stats bias ``bw`` [W, A] float32 (global-context window mean/std
+        through the mean/std parts of the attention pre-projection), the
+        pre-projection's feature part, inference BN folded to a float32
+        scale/shift, and the logits projection."""
+        cc = x.shape[0]
+        mu_g, sd_g, _ = self._window_context(x, first_f, hop_f, win_f, n_windows)
+        w1 = self.att_w1[..., 0].float()
+        w1x, w1m, w1s = w1[:, :cc], w1[:, cc:2 * cc], w1[:, 2 * cc:]
+        bw = mu_g @ w1m.T + sd_g @ w1s.T + self.att_b1.float()      # [W, A]
+        ab = self.att_bn
+        inv = torch.rsqrt(ab.var.float() + 1e-5)
+        s_bn = ab.gamma.float() * inv
+        t_bn = ab.beta.float() - ab.mean.float() * s_bn
+        return (x, bw, w1x, s_bn, t_bn, self.att_w2[..., 0], self.att_b2,
+                first_f, hop_f, win_f, n_windows)
+
+    def asp_head_grid_kernel(self, x: torch.Tensor, first_f: int, hop_f: int,
+                             win_f: int, n_windows: int) -> torch.Tensor:
+        """Sliding-grid ASP through K1 (:func:`asp_grid_stats`): the JAX
+        package's ``asp_head_grid_pallas``."""
+        stats = asp_grid_stats(*self.k1_inputs(x, first_f, hop_f, win_f,
+                                               n_windows))
+        return self._stats_to_emb(stats)
+
+
+def _rows_from(x: torch.Tensor, first_f: int, n_rows: int) -> torch.Tensor:
+    """Time-major rows [first_f, first_f + n_rows) of x [CC, T_f], zero
+    rows past the end."""
+    xt = x.t()[first_f:first_f + n_rows]
+    if xt.shape[0] < n_rows:
+        xt = F.pad(xt, (0, 0, 0, n_rows - xt.shape[0]))
+    return xt
+
+
+def _asp_grid_stats_plain(x, bw, w1x, s_bn, t_bn, w2, b2, first_f: int,
+                          hop_f: int, win_f: int, n_windows: int) -> torch.Tensor:
+    """Plain version of K1: per-window attentive stats [W, 2*CC] float32
+    (mu ++ sd), with the kernel's arithmetic: bf16 operands (features, w1x,
+    the tanh activations, w2) and float32 accumulation and softmax."""
+    n_rows = (n_windows - 1) * hop_f + win_f
+    bf = torch.bfloat16
+    xt = _rows_from(x, first_f, n_rows).to(bf).float()              # [R, CC]
+    hx = xt @ w1x.to(bf).float().T                                  # [R, A]
+    idx = (hop_f * torch.arange(n_windows, device=x.device)[:, None]
+           + torch.arange(win_f, device=x.device)[None, :])         # [W, win]
+    h = hx[idx] + bw.float()[:, None, :]
+    a = torch.tanh(F.relu(h) * s_bn.float() + t_bn.float()).to(bf).float()
+    e = a @ w2.to(bf).float().T + b2.float()                        # [W, win, CC]
+    p = torch.softmax(e, dim=1)
+    xw = xt[idx]
+    mu = (p * xw).sum(1)
+    m2 = (p * xw * xw).sum(1)
+    sd = torch.sqrt(torch.clamp(m2 - mu * mu, min=1e-12))
+    return torch.cat([mu, sd], dim=1)
+
+
+def asp_grid_stats(x: torch.Tensor, bw: torch.Tensor, w1x: torch.Tensor,
+                   s_bn: torch.Tensor, t_bn: torch.Tensor, w2: torch.Tensor,
+                   b2: torch.Tensor, first_f: int, hop_f: int, win_f: int,
+                   n_windows: int) -> torch.Tensor:
+    """K1: x [CC, T_f] (any float dtype), bw [W, A] float32, w1x [A, CC],
+    s_bn/t_bn [A], w2 [CC, A], b2 [CC] -> [W, 2*CC] float32.  CPU tensor:
+    the plain version.  CUDA tensor: ``csrc/asp_grid.cu`` (two launches of
+    one C entry, counted once), or an exception."""
+    if x.device.type == "cpu":
+        return _asp_grid_stats_plain(x, bw, w1x, s_bn, t_bn, w2, b2, first_f,
+                                     hop_f, win_f, n_windows)
+    cc = x.shape[0]
+    a_dim = w1x.shape[0]
+    if a_dim != 64:
+        raise NotImplementedError(
+            f"asp_grid_stats kernel: attention width {a_dim} (built for 64)")
+    if win_f * a_dim * 4 > 227 * 1024:
+        raise ValueError(f"asp_grid_stats kernel: win_f={win_f} exceeds "
+                         "shared memory")
+    n_rows = (n_windows - 1) * hop_f + win_f
+    dev = x.device
+    x_t = _rows_from(x, first_f, n_rows).to(torch.bfloat16).contiguous()
+    bw = bw.float().contiguous()
+    w1x_b = w1x.to(torch.bfloat16).contiguous()
+    w2_b = w2.to(torch.bfloat16).contiguous()
+    s_bn, t_bn, b2 = (v.float().contiguous() for v in (s_bn, t_bn, b2))
+    for name, t, dt, shape in (("bw", bw, torch.float32, (n_windows, a_dim)),
+                               ("w1x", w1x_b, torch.bfloat16, (a_dim, cc)),
+                               ("s_bn", s_bn, torch.float32, (a_dim,)),
+                               ("t_bn", t_bn, torch.float32, (a_dim,)),
+                               ("w2", w2_b, torch.bfloat16, (cc, a_dim)),
+                               ("b2", b2, torch.float32, (cc,))):
+        kernels.check_cuda_tensor(t, f"asp_grid_stats: {name}", dt, shape)
+    hx = torch.empty((n_rows, a_dim), dtype=torch.float32, device=dev)
+    out = torch.empty((n_windows, 2 * cc), dtype=torch.float32, device=dev)
+    kernels.launch(
+        "asp_grid_stats", x_t.data_ptr(), cc, bw.data_ptr(), w1x_b.data_ptr(),
+        s_bn.data_ptr(), t_bn.data_ptr(), w2_b.data_ptr(), b2.data_ptr(),
+        a_dim, hop_f, win_f, n_windows, n_rows, hx.data_ptr(), out.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    return out
+
+
+class EcapaModel(nn.Module):
+    """Waveform-level wrapper around :class:`EcapaTdnn` for the streaming
+    grid.  ``streaming_trained`` and ``refine_sub_cos`` come from the
+    checkpoint's ``__meta__`` sidecar."""
+
+    def __init__(self, net: EcapaTdnn | None = None, sample_rate: int = 16000):
+        super().__init__()
+        self.net = net or EcapaTdnn()
+        self.sample_rate = sample_rate
+        self.streaming_trained = False
+        self.refine_sub_cos: float | None = None
+
+    def encode_grid_feats(self, feats: torch.Tensor, n_windows: int, margin: int,
+                          win: int, hop: int) -> torch.Tensor:
+        """Streaming sliding-window embeddings from the chunk's log-mel
+        ``feats`` [T_f, n_mels]: sliding fbank mean-norm, ONE trunk pass with
+        sliding SE, then per-window ASP -> [n_windows, emb_dim].  Window
+        ``i`` pools trunk frames from ``(margin + i*hop) / mel_hop``."""
+        mel_hop = int(self.sample_rate * 10 // 1000)
+        if margin % hop or hop % mel_hop or win % mel_hop:
+            raise ValueError("grid geometry must align to the 10 ms mel hop")
+        win_f = win // mel_hop + 1          # frames per window (center=True)
+        hop_f = hop // mel_hop
+        f = feats[None].float()                                    # [1, T_f, M]
+        f = f - sliding_mean_time(f.transpose(1, 2), win_f).transpose(1, 2)
+        x = self.net.trunk(f, se_win=win_f)[0]                      # [CC, T_f]
+        first = margin // mel_hop
+        need_f = first + (n_windows - 1) * hop_f + win_f
+        if x.shape[-1] < need_f:
+            x = F.pad(x, (0, need_f - x.shape[-1]))
+        if x.device.type == "cuda":
+            return self.net.asp_head_grid_kernel(x, first, hop_f, win_f, n_windows)
+        return self.net.asp_head_grid(x, first, hop_f, win_f, n_windows)
+
+    def encode_grid_chunk(self, y: torch.Tensor, n_windows: int, margin: int,
+                          win: int, hop: int) -> torch.Tensor:
+        """[T_chunk] waveform slice incl. margins -> [n_windows, emb_dim]."""
+        from ..dsp.mel import fused_log_mel
+
+        feats = fused_log_mel(y, sample_rate=self.sample_rate,
+                              n_mels=self.net.n_mels)
+        return self.encode_grid_feats(feats, n_windows, margin, win, hop)

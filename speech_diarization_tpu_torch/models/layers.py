@@ -1,0 +1,88 @@
+"""NN primitives with the JAX package's semantics and torch weight layouts."""
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+
+def conv1d_torch(x: torch.Tensor, weight: torch.Tensor,
+                 bias: torch.Tensor | None = None, padding: int = 0,
+                 dilation: int = 1, groups: int = 1) -> torch.Tensor:
+    """``F.conv1d`` (cross-correlation) over [B, C_in, T] with weight
+    [C_out, C_in/groups, K]."""
+    return F.conv1d(x, weight, bias, padding=padding, dilation=dilation,
+                    groups=groups)
+
+
+def batch_norm_apply(x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor,
+                     gamma: torch.Tensor, beta: torch.Tensor, eps: float = 1e-5,
+                     channel_axis: int = 1) -> torch.Tensor:
+    """Inference BatchNorm with running statistics.  Scale and shift are
+    computed from the (float32) parameters and cast to the activation dtype,
+    so a bf16 activation stays bf16 — the JAX package's cast points."""
+    shape = [1] * x.ndim
+    shape[channel_axis] = x.shape[channel_axis]
+    sd = torch.sqrt(var + eps)
+    scale = (gamma / sd).reshape(shape)
+    shift = (beta - mean * gamma / sd).reshape(shape)
+    return x * scale.to(x.dtype) + shift.to(x.dtype)
+
+
+# Per-shape constants live on the device once: a host-to-device copy from
+# pageable memory inside the per-chunk program would make the host wait for
+# the device and serialize dispatch with compute.
+_CONSTS: dict = {}
+
+
+def _band(b: int, h0: int, h1: int, device) -> torch.Tensor:
+    key = ("band", b, h0, h1, str(device))
+    if key not in _CONSTS:
+        k = np.arange(3 * b)[:, None] - b                   # input offset
+        o = np.arange(b)[None, :]                           # output pos
+        band = ((k >= o - h0) & (k <= o + h1)).astype(np.float32)
+        _CONSTS[key] = torch.from_numpy(band).to(device)
+    return _CONSTS[key]
+
+
+def _counts(t: int, h0: int, h1: int, device) -> torch.Tensor:
+    """Window population of each position (clamped at both edges)."""
+    key = ("cnt", t, h0, h1, str(device))
+    if key not in _CONSTS:
+        pos = np.arange(t)
+        cnt = np.clip(pos + h1 + 1, 0, t) - np.clip(pos - h0, 0, t)
+        _CONSTS[key] = torch.from_numpy(cnt.astype(np.float32)).to(device)
+    return _CONSTS[key]
+
+
+def sliding_mean_time(x: torch.Tensor, win: int) -> torch.Tensor:
+    """Centered moving average over the trailing (time) axis, same length.
+
+    Edge positions average over the clamped valid range (a shrinking window):
+    position ``p`` averages ``[p - h0, p + h1]`` with ``h0 = win // 2`` and
+    ``h1 = win - 1 - h0``, divided by the number of those frames that exist.
+    An off-by-one here shifts every embedding near a chunk edge, which shows
+    only in the cross-chunk stitch.
+
+    The sum is the JAX package's banded form (what its main path ran for
+    half-widths up to 512): blocks of ``B`` frames contract a [3B, B] 0/1
+    band matrix in float32 (TF32 off on the card).  Returns ``x.dtype``.
+    """
+    t = x.shape[-1]
+    h0 = win // 2
+    h1 = win - 1 - h0
+    if max(h0, h1) > 512:
+        raise NotImplementedError("sliding_mean_time: half-width above 512 "
+                                  "(the cumsum form) is not ported")
+    cnt = _counts(t, h0, h1, x.device)
+    b = max(128, -(-max(h0, h1, 1) // 128) * 128)
+    n = -(-t // b)
+    xp = F.pad(x.float(), (0, n * b - t))
+    xb = xp.reshape(*x.shape[:-1], n, b)
+    zero = torch.zeros_like(xb[..., :1, :])
+    prev = torch.cat([zero, xb[..., :-1, :]], dim=-2)
+    nxt = torch.cat([xb[..., 1:, :], zero], dim=-2)
+    x3 = torch.cat([prev, xb, nxt], dim=-1)                 # [..., n, 3B]
+    s = x3 @ _band(b, h0, h1, x.device)
+    s = s.reshape(*x.shape[:-1], n * b)[..., :t]
+    return (s / cnt).to(x.dtype)

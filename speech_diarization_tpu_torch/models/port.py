@@ -1,0 +1,102 @@
+"""Weights carried across: flat numpy arrays + architecture meta -> module.
+
+The checkpoint format is the JAX package's flat npz (``'/'``-separated keys,
+floats possibly stored as float16, architecture in the ``__meta__`` JSON
+sidecar).  :func:`params_from_numpy` also takes a JAX params pytree
+flattened to numpy the same way, so any JAX-initialised net can be carried
+across.  Float16 arrays are upcast to float32; the compute dtype is a
+property of the net, not of the stored weights.
+"""
+from __future__ import annotations
+
+import json
+import re
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from .ecapa import EcapaModel, EcapaTdnn
+from .vad import VadConvNet, VadModel
+
+_DTYPES = {None: torch.float32, "float32": torch.float32,
+           "bfloat16": torch.bfloat16, torch.float32: torch.float32,
+           torch.bfloat16: torch.bfloat16}
+
+
+def load_params_npz(path: str | Path) -> dict[str, np.ndarray]:
+    """Flat arrays of a checkpoint, float16 upcast to float32."""
+    out = {}
+    with np.load(str(path)) as data:
+        for k in data.files:
+            if k == "__meta__":
+                continue
+            a = data[k]
+            out[k] = a.astype(np.float32) if a.dtype == np.float16 else a
+    return out
+
+
+def load_params_meta(path: str | Path) -> dict:
+    """The ``__meta__`` sidecar of a checkpoint ({} when absent)."""
+    with np.load(str(path)) as data:
+        if "__meta__" not in data.files:
+            return {}
+        return json.loads(bytes(data["__meta__"]).decode())
+
+
+def _state_key(flat_key: str) -> str:
+    # 'block0/conv1/w' -> 'block.0.conv1.w'; 'res2/1/b' -> 'res2.1.b'
+    return re.sub(r"^block(\d+)/", r"block.\1/", flat_key).replace("/", ".")
+
+
+def params_from_numpy(flat: dict[str, np.ndarray], arch_meta: dict,
+                      kind: str | None = None, dtype=None) -> torch.nn.Module:
+    """Rebuild a net from its architecture meta and load ``flat`` into it.
+
+    ``kind``: 'vad' (conv TCN, ``arch_meta['arch'] == 'conv'``) or 'ecapa';
+    inferred from the meta when None.  ``dtype`` is the ECAPA compute dtype
+    (weights stay float32).  Every parameter of the net must be present and
+    every array must be used (the classifier head of a training checkpoint
+    is dropped), or this raises."""
+    if kind is None:
+        kind = "vad" if arch_meta.get("arch") == "conv" else "ecapa"
+    net_cfg = dict(arch_meta.get("net", {}))
+    if "dilations" in net_cfg:
+        net_cfg["dilations"] = tuple(net_cfg["dilations"])
+    if kind == "vad":
+        if arch_meta.get("arch") not in (None, "conv"):
+            raise NotImplementedError(
+                f"VAD arch {arch_meta.get('arch')!r} is not ported (conv only)")
+        model = VadModel(VadConvNet(**net_cfg))
+        net = model.net
+    elif kind == "ecapa":
+        net = EcapaTdnn(**net_cfg, dtype=_DTYPES[dtype])
+        model = EcapaModel(net)
+        model.streaming_trained = bool(arch_meta.get("streaming_stats", False))
+        rsc = arch_meta.get("refine_sub_cos")
+        model.refine_sub_cos = float(rsc) if rsc is not None else None
+    else:
+        raise ValueError(f"unknown kind {kind!r}")
+    state = {}
+    for k, v in flat.items():
+        if k.startswith("classifier/"):
+            continue
+        a = np.asarray(v)
+        if a.dtype == np.float16:
+            a = a.astype(np.float32)
+        state[_state_key(k)] = torch.from_numpy(np.array(a))
+    net.load_state_dict(state, strict=True)
+    return model
+
+
+def load_vad(path: str | Path) -> VadModel:
+    """Shipped VAD checkpoint -> :class:`VadModel` (conv TCN only)."""
+    return params_from_numpy(load_params_npz(path), load_params_meta(path),
+                             kind="vad")
+
+
+def load_speaker_encoder(path: str | Path, dtype=None) -> EcapaModel:
+    """Shipped speaker-encoder checkpoint -> :class:`EcapaModel`; ``dtype``
+    (None = float32, or torch.bfloat16) is the trunk's compute dtype."""
+    return params_from_numpy(load_params_npz(path), load_params_meta(path),
+                             kind="ecapa", dtype=dtype)

@@ -1,0 +1,404 @@
+"""The flagship diarizer on its streamed ingest, in PyTorch.
+
+read -> quantize to int16 -> 60 s chunks with neighbour context -> ONE
+per-chunk device program (dequantize, loudness gain metered on the chunk's
+core, DC, pre-emphasis, log-mel, VAD probabilities, frame energy, streaming
+ECAPA grid) -> one packed device-to-host copy -> host tail (VAD post, SCD,
+segment embeddings, spectral clustering, window refine, conservative merge,
+adjacent merge).
+
+The counterpart of the JAX package's ``pipelines/diarize.py`` streamed path
+(``__call__`` -> ``_streamed_start`` -> ``_streamed_collect`` ->
+``stream_finish`` -> ``_segments_from_grid``).  Not ported yet, and refused
+with ``NotImplementedError`` rather than dropped: the overlap rescue, frame
+reassignment, the enhancement front-end (engaged on noisy input), the
+non-streamed (whole-file) path, and clustering methods other than spectral.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Any
+
+import numpy as np
+import torch
+
+from .. import cluster as cluster_mod
+from ..config import DiarizationConfig
+from ..dsp.framing import num_frames
+from ..dsp.loudness import integrated_loudness
+from ..dsp.mel import fused_log_mel
+from ..dsp.preprocess import preemphasis
+from ..io.audio import read_audio
+from ..segment import (
+    conservative_merge,
+    frame_energy_db_chunk,
+    merge_adjacent,
+    scd_split,
+    segment_embeddings_from_grid,
+    vad_segments_from_probs,
+    window_starts,
+)
+from ..types import Segment, SegmentArray
+from ..utils.device import disable_tf32, resolve_device
+from ..utils.logging import get_logger, stage_timer
+
+log = get_logger("diarize")
+
+_NEXT_SLICE = ("is not ported yet (next slice of the PyTorch port, ROADMAP "
+               "Queue 1)")
+
+
+@dataclass
+class DiarizationResult:
+    segments: SegmentArray
+    vad_segments: SegmentArray
+    num_speakers: int
+    diagnostics: dict[str, Any] = field(default_factory=dict)
+
+    def to_segments(self) -> list[Segment]:
+        return self.segments.to_segments()
+
+
+class DiarizationPipeline:
+    """Configurable wav -> segments pipeline on one device.
+
+    Args:
+        cfg: unified config.  ``overlap.enabled`` and ``reseg.enabled`` raise
+            ``NotImplementedError`` (the overlap detector and frame
+            reassignment are the next slice of the port).
+        encoder: a streaming-trained :class:`~..models.ecapa.EcapaModel`;
+            default: the first shipped encoder of ``ENCODER_PREFERENCE``.
+        vad: a :class:`~..models.vad.VadModel`; default: the shipped conv VAD.
+        device: ``None`` (the card; raises without CUDA) or ``"cpu"``.
+    """
+
+    _PAD_BUCKET_S = 60.0   # chunk length of the streamed ingest
+    _SNR_FRAME = 800       # 50 ms @ 16 kHz energy frames of the SNR probe
+
+    def __init__(self, cfg: DiarizationConfig | None = None, encoder=None,
+                 vad=None, device: str | torch.device | None = None):
+        self.cfg = cfg = cfg or DiarizationConfig()
+        if cfg.overlap.enabled:
+            raise NotImplementedError(
+                "the overlap rescue (segmentation-model detector) " + _NEXT_SLICE
+                + "; use OverlapConfig(enabled=False) / --no-overlap")
+        if cfg.reseg.enabled:
+            raise NotImplementedError(
+                "frame reassignment " + _NEXT_SLICE
+                + "; use ResegConfig(enabled=False) / --no-reseg")
+        if cfg.cluster.method != "spectral":
+            raise NotImplementedError(
+                f"clustering method {cfg.cluster.method!r} is not ported "
+                "(spectral only)")
+        if cfg.embed.mode != "grid" or cfg.embed.whiten:
+            raise NotImplementedError("only the grid embedding mode without "
+                                      "whitening is ported")
+        if cfg.embed.grid_backend not in ("auto", "streaming"):
+            raise NotImplementedError("only the streaming grid is ported")
+        self.device = resolve_device(device)
+        if self.device.type == "cuda":
+            disable_tf32()
+        if encoder is None:
+            from ..models.port import load_speaker_encoder
+            from ..utils.weights import ENCODER_PREFERENCE, prefer_weights
+
+            path = prefer_weights(ENCODER_PREFERENCE)
+            if path is None:
+                raise FileNotFoundError("no shipped speaker encoder")
+            encoder = load_speaker_encoder(path)
+        if vad is None:
+            from ..models.port import load_vad
+            from ..utils.weights import VAD_PREFERENCE, prefer_weights
+
+            path = prefer_weights(VAD_PREFERENCE)
+            if path is None:
+                raise FileNotFoundError("no shipped VAD")
+            vad = load_vad(path)
+        if not getattr(encoder, "streaming_trained", False):
+            raise NotImplementedError(
+                "the encoder is not streaming-trained: the windowed grid "
+                "(non-streamed path) is not ported")
+        self.encoder = encoder.to(self.device).eval()
+        self.vad = vad.to(self.device).eval()
+        self._programs: dict = {}
+        self._last_snr_db: float | None = None
+
+    # ------------------------------------------------------------------ io --
+    @staticmethod
+    def _quantize_host(y: np.ndarray, t_pad: int) -> tuple[np.ndarray, float]:
+        """Pad to whole chunks and quantize f32 -> int16 on the host, scaled
+        to the signal's own peak (returned as ``scale``; the device dequant
+        multiplies it back) so quiet or >1.0 sources keep 16-bit resolution
+        and the absolute level is restored before loudness normalization.
+        Halves the bytes of the host-to-device upload."""
+        t = y.shape[-1]
+        peak = float(np.max(np.abs(y))) if t else 0.0
+        scale = peak if peak > 1e-6 else 1.0
+        out = np.zeros(t_pad, np.int16)
+        out[:t] = np.clip(y * (32767.0 / scale), -32768.0, 32767.0).astype(np.int16)
+        return out, scale
+
+    def _host_snr_db(self, x: np.ndarray) -> float:
+        """10*log10(p95/p05) of 50 ms frame energies: the noise probe that
+        gates the enhancement front-end and the refine splitting."""
+        frame = self._SNR_FRAME
+        t = (x.shape[-1] // frame) * frame
+        if t == 0:
+            return float("inf")
+        e = np.mean(np.square(x[:t].reshape(-1, frame)), axis=1)
+        p5, p95 = np.percentile(e, [5.0, 95.0])
+        if not np.isfinite(p95) or p95 <= 0.0:
+            return float("inf")
+        return 10.0 * float(np.log10(p95 / max(p5, 1e-12 * p95 + 1e-30)))
+
+    # ------------------------------------------------------ streamed ingest --
+    def _chunk_program(self, sr: int, u: int, m_l: int, m_r: int):
+        """(prev, cur, next, scale, n_valid) -> (probs, energy|None, grid)
+        over one core chunk of ``u`` samples with ``m_l``/``m_r`` samples of
+        real neighbour context.  Plain eager PyTorch; cached by its full
+        key."""
+        key = (sr, u, m_l, m_r)
+        if key in self._programs:
+            return self._programs[key]
+        cfg = self.cfg
+        acfg = cfg.audio
+        hop_v = int(round(cfg.vad.hop_ms / 1000.0 * sr))
+        grid_win = int(round(cfg.reseg.win_s * sr))
+        grid_hop = int(round(cfg.reseg.hop_s * sr))
+        wpc = u // grid_hop
+        f0, f1 = m_l // hop_v, m_l // hop_v + u // hop_v
+        want_energy = cfg.vad.energy_floor_db is not None
+        vad, enc = self.vad, self.encoder
+        # the VAD and the ECAPA read the same log-mel (40 mels, 25 ms / 10 ms
+        # on the same preprocessed chunk): computed once per chunk when so
+        shared = (vad.net.n_mels == enc.net.n_mels and vad.win_ms == 25.0
+                  and vad.hop_ms == 10.0 and vad.sample_rate == enc.sample_rate)
+
+        def program(c_prev, c_cur, c_next, scale: float, n_valid: float):
+            y3 = torch.cat([c_prev[-m_l:], c_cur, c_next[:m_r]])
+            y3 = y3.float() * float(np.float32(scale) / np.float32(32767.0))
+            if acfg.target_lufs is not None:
+                # loudness metered per chunk on its CORE samples
+                lufs = integrated_loudness(y3[m_l:m_l + u], sr)
+                gain = 10.0 ** ((acfg.target_lufs - lufs) / 20.0)
+                gain = torch.where(lufs <= -199.0, torch.ones_like(gain), gain)
+                y3 = torch.clamp(y3 * gain, -0.99, 0.99)
+            if acfg.remove_dc:
+                y3 = y3 - y3[m_l:m_l + u].sum() / max(n_valid, 1.0)
+            if acfg.preemphasis is not None:
+                y3 = preemphasis(y3, acfg.preemphasis)
+            y3 = torch.clamp(y3, -0.99, 0.99)
+            # u//hop + 1 frames per chunk: frame f1 (= frame 0 of the next
+            # chunk's core) is dropped for interior chunks at pack time
+            feats_v = fused_log_mel(y3, sample_rate=sr, n_mels=vad.net.n_mels,
+                                    win_ms=vad.win_ms, hop_ms=vad.hop_ms)
+            feats_e = feats_v if shared else fused_log_mel(
+                y3, sample_rate=enc.sample_rate, n_mels=enc.net.n_mels)
+            probs = vad.probs_from_feats(feats_v)[f0:f1 + 1]
+            energy = (frame_energy_db_chunk(y3, hop=hop_v, n_extra=1)[f0:f1 + 1]
+                      if want_energy else None)
+            grid = enc.encode_grid_feats(feats_e, wpc, m_l, grid_win, grid_hop)
+            return probs, energy, grid
+
+        self._programs[key] = program
+        return program
+
+    def _geometry(self, sr: int) -> tuple[int, int, int, int, int]:
+        """-> (u, m_l, m_r, grid_win, grid_hop); raises when the config's
+        geometry cannot take the streamed path."""
+        cfg = self.cfg
+        mel_hop = sr * 10 // 1000
+        grid_win = int(round(cfg.reseg.win_s * sr))
+        grid_hop = int(round(cfg.reseg.hop_s * sr))
+        hop_v = int(round(cfg.vad.hop_ms / 1000.0 * sr))
+        u = int(self._PAD_BUCKET_S * sr)
+        m_l = 4 * sr  # >= trunk receptive field + sliding-stat window
+        m_l = -(-m_l // grid_hop) * grid_hop
+        m_r = m_l + grid_win - grid_hop
+        if (grid_win % mel_hop or grid_hop % mel_hop or u % grid_hop
+                or u % hop_v or m_l % hop_v or u < m_r):
+            raise NotImplementedError(
+                "this grid/chunk geometry cannot take the streamed path, and "
+                "the non-streamed path is not ported")
+        return u, m_l, m_r, grid_win, grid_hop
+
+    def _streamed_start(self, y: np.ndarray, sr: int) -> dict:
+        """Dispatch phase: pinned-memory chunk uploads, one program per
+        chunk, and the device-side pack into one flat tensor whose copy to
+        pinned host memory is queued — nothing here waits for the device."""
+        cfg = self.cfg
+        dev = self.device
+        u, m_l, m_r, grid_win, grid_hop = self._geometry(sr)
+        hop_v = int(round(cfg.vad.hop_ms / 1000.0 * sr))
+        t = int(y.shape[-1])
+        n_chunks = max(1, -(-t // u))
+        q, scale = self._quantize_host(np.asarray(y, np.float32), n_chunks * u)
+        q_host = torch.from_numpy(q)
+        if dev.type == "cuda":
+            q_host = q_host.pin_memory()
+        chunks = [q_host[i * u:(i + 1) * u].to(dev, non_blocking=True)
+                  for i in range(n_chunks)]
+        zero = torch.zeros(u, dtype=torch.int16, device=dev)
+
+        # host probe under the uploads: gates the enhancement front-end and
+        # the noise-sensitive refine splitting
+        x = q[:t].astype(np.float32) * (scale / 32767.0)
+        self._last_snr_db = self._host_snr_db(x)
+        ecfg = cfg.enhance
+        if ecfg.enabled and (ecfg.scope != "auto"
+                             or self._last_snr_db < ecfg.auto_snr_db):
+            raise NotImplementedError(
+                f"the enhancement front-end (engaged: scope {ecfg.scope!r}, "
+                f"est SNR {self._last_snr_db:.1f} dB) " + _NEXT_SLICE
+                + "; use EnhanceConfig(enabled=False) to diarize without it")
+
+        program = self._chunk_program(sr, u, m_l, m_r)
+        want_energy = cfg.vad.energy_floor_db is not None
+        probs, energy, grids = [], [], []
+        with torch.inference_mode():
+            for i in range(n_chunks):
+                prev = chunks[i - 1] if i > 0 else zero
+                nxt = chunks[i + 1] if i + 1 < n_chunks else zero
+                p, e, g = program(prev, chunks[i], nxt, scale,
+                                  float(min(u, t - i * u)))
+                last = i + 1 == n_chunks
+                probs.append(p if last else p[:-1])
+                if want_energy:
+                    energy.append(e if last else e[:-1])
+                grids.append(g)
+            # ONE device-side pack + ONE device-to-host copy
+            parts = [torch.cat(probs)]
+            if want_energy:
+                parts.append(torch.cat(energy))
+            grid = torch.cat(grids)
+            parts.append(grid.reshape(-1).float())
+            flat_dev = torch.cat(parts)
+        if dev.type == "cuda":
+            flat = torch.empty(flat_dev.shape, dtype=flat_dev.dtype,
+                               pin_memory=True)
+            flat.copy_(flat_dev, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record()
+        else:
+            flat, done = flat_dev, None
+        emb_dim = grid.shape[-1]
+        return {
+            "flat": flat, "done": done, "q_host": q_host,
+            "n_frames": t // hop_v + 1,
+            "w_total": num_frames(t, grid_win, grid_hop, pad_tail=True),
+            "n_probs": n_chunks * (u // hop_v) + 1,
+            "want_energy": want_energy,
+            "emb_dim": emb_dim,
+            "grid_len": n_chunks * (u // grid_hop) * emb_dim,
+            "starts_s": window_starts(t, sr, cfg.reseg.win_s, cfg.reseg.hop_s) / sr,
+            "t": t, "sr": sr,
+            "snr_db": self._last_snr_db,
+        }
+
+    def _streamed_collect(self, st: dict):
+        """Pull phase: wait for the one packed copy, then host slicing."""
+        if st["done"] is not None:
+            st["done"].synchronize()
+        flat = st["flat"].numpy()
+        self._last_snr_db = st["snr_db"]
+        n_frames, n_probs = st["n_frames"], st["n_probs"]
+        probs = flat[:n_probs][:n_frames]
+        off = n_probs
+        energy = None
+        if st["want_energy"]:
+            energy = flat[off:off + n_probs][:n_frames]
+            off += n_probs
+        grid = (flat[off:off + st["grid_len"]]
+                .reshape(-1, st["emb_dim"])[:st["w_total"]])
+        return probs, energy, grid, st["starts_s"], st["t"] / st["sr"]
+
+    # ---------------------------------------------------------------- main --
+    def _host_array(self, source) -> np.ndarray:
+        sr = self.cfg.audio.sample_rate
+        if isinstance(source, np.ndarray):
+            return source
+        y, _ = read_audio(source, target_sr=sr, mono=True)
+        return y
+
+    def stream_start(self, source) -> dict:
+        """Dispatch a file's streamed ingest without waiting for the device;
+        finish it with :meth:`stream_finish`."""
+        self._last_snr_db = None
+        y = np.asarray(self._host_array(source), np.float32)
+        return self._streamed_start(y, self.cfg.audio.sample_rate)
+
+    def stream_finish(self, st: dict) -> DiarizationResult:
+        """One packed pull + VAD post + clustering/segments."""
+        cfg = self.cfg
+        probs, energy_db, win_embs, starts_s, total_s = self._streamed_collect(st)
+        with stage_timer(log, "vad-post"):
+            speech = vad_segments_from_probs(probs, cfg.vad,
+                                             frame_energy_db=energy_db)
+        if len(speech) == 0:
+            empty = SegmentArray.from_pairs([])
+            return DiarizationResult(empty, empty, 0)
+        return self._segments_from_grid(speech, probs, win_embs, starts_s)
+
+    def __call__(self, source) -> DiarizationResult:
+        with stage_timer(log, "streamed-ingest"):
+            st = self.stream_start(source)
+        return self.stream_finish(st)
+
+    def _segments_from_grid(self, speech, probs, win_embs, starts_s) -> DiarizationResult:
+        """SCD -> segment embeddings -> cluster -> refine -> conservative
+        merge -> adjacent merge, on the host."""
+        cfg = self.cfg
+        grid_win_s = cfg.reseg.win_s
+        grid_hop_s = cfg.reseg.hop_s
+        speech2 = speech
+        if cfg.scd.enabled:
+            stride = max(1, int(round(cfg.scd.hop_ms / 1000.0 / grid_hop_s)))
+            with stage_timer(log, "scd"):
+                speech2 = scd_split(
+                    speech, win_embs[::stride], starts_s[::stride], grid_win_s,
+                    grid_hop_s * stride, z_threshold=cfg.scd.peak_z_threshold,
+                    min_speech_s=cfg.scd.min_speech_ms / 1000.0)
+        log.info("segments: vad=%d scd=%d", len(speech), len(speech2))
+
+        with stage_timer(log, "segment-embeddings"):
+            seg_embs = segment_embeddings_from_grid(win_embs, starts_s,
+                                                    grid_win_s, speech2)
+        with stage_timer(log, "cluster"):
+            labels = self._cluster(seg_embs)
+            refine_thr = cfg.cluster.refine_sub_cos
+            if refine_thr is None:
+                refine_thr = getattr(self.encoder, "refine_sub_cos", None)
+            if refine_thr is None:
+                from ..cluster.spectral import _SPLIT_MAX_CENT_COS
+
+                refine_thr = _SPLIT_MAX_CENT_COS
+            snr = self._last_snr_db
+            snr_floor = cfg.cluster.refine_min_snr_db
+            snr_ok = snr is None or snr_floor is None or snr >= snr_floor
+            if (cfg.cluster.refine_splits and refine_thr > 0
+                    and len(speech2) > 1 and snr_ok):
+                labels = cluster_mod.refine_labels_by_windows(
+                    labels, speech2, win_embs, starts_s, grid_win_s,
+                    cfg.cluster.max_speakers, sub_cos_thr=refine_thr,
+                    seg_embs=seg_embs)
+        speech2 = SegmentArray(speech2.starts, speech2.ends, labels)
+        with stage_timer(log, "merge"):
+            speech3, _ = conservative_merge(
+                speech2, seg_embs, max_gap_s=cfg.merge.max_gap_s,
+                max_turn_s=cfg.merge.max_turn_s, min_cos=cfg.merge.min_cos)
+        final = merge_adjacent(speech3, cfg.merge.max_gap_s)
+        num_speakers = len({int(k) for k in final.spks if k >= 0})
+        return DiarizationResult(final, speech, num_speakers,
+                                 {"vad_probs": probs, "window_embeddings": win_embs})
+
+    def _cluster(self, embs: np.ndarray) -> np.ndarray:
+        c = self.cfg.cluster
+        n = embs.shape[0]
+        if n <= 1:
+            return np.zeros((n,), dtype=np.int32)
+        labels = cluster_mod.spectral_cluster(
+            embs, min_speakers=c.min_speakers, max_speakers=c.max_speakers,
+            p_percentile=c.p_percentile)
+        if (labels < 0).all():
+            labels = np.zeros_like(labels)
+        return labels.astype(np.int32)

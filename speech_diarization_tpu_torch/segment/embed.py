@@ -1,0 +1,63 @@
+"""Grid geometry and segment embeddings over the dense window grid.
+
+Every downstream consumer (SCD distances, segment embeddings, the refine
+bisection) reads the same [W, D] window-embedding matrix computed once per
+file by the per-chunk device program; this module is host numpy.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+from ..dsp.framing import num_frames
+from ..types import SegmentArray
+
+
+def window_starts(n_samples: int, sr: int, win_s: float, hop_s: float) -> np.ndarray:
+    """Start sample index of each grid window (host ints)."""
+    win = int(round(win_s * sr))
+    hop = int(round(hop_s * sr))
+    n = num_frames(n_samples, win, hop, pad_tail=True)
+    return np.arange(n) * hop
+
+
+def segment_embeddings_from_grid(
+    win_embs: np.ndarray,  # [W, D]
+    win_starts_s: np.ndarray,  # [W]
+    win_s: float,
+    segs: SegmentArray,
+    min_overlap_s: float = 0.25,
+) -> np.ndarray:
+    """Segment embeddings as overlap-weighted means of grid-window embeddings
+    (one [S,W]@[W,D] matmul).  Segments too short to fully cover a window fall
+    back to the single best-overlapping window — the analog of the reference's
+    context padding for short segments (``anti_stick_diarize.py:155-161``)."""
+    n = len(segs)
+    if n == 0 or win_embs.shape[0] == 0:
+        return np.zeros((n, win_embs.shape[1] if win_embs.size else 1), np.float32)
+    # Per-segment LOCAL window ranges instead of the dense [S, W] weight
+    # matrix: a segment only overlaps windows starting in
+    # (start - win_s, end), ~dozens at the 100 ms grid — the dense version
+    # allocated 200+ MB and took 32 s of host time at hour scale.  Same
+    # math exactly (overlap-seconds weights, sliver threshold, best-window
+    # fallback), tested equal in tests/test_segment.py.
+    ws = np.asarray(win_starts_s, np.float64)
+    starts = np.asarray(segs.starts, np.float64)
+    ends = np.asarray(segs.ends, np.float64)
+    a_idx = np.searchsorted(ws, starts - win_s, side="right")
+    b_idx = np.searchsorted(ws, ends, side="left")
+    out = np.zeros((n, win_embs.shape[1]), np.float32)
+    for i in range(n):
+        a, b = int(a_idx[i]), int(b_idx[i])
+        if b <= a:  # no window starts inside: nearest window wins
+            j = min(max(a, 0), len(ws) - 1)
+            out[i] = win_embs[j]
+            continue
+        local = ws[a:b]
+        ov = np.minimum(ends[i], local + win_s) - np.maximum(starts[i], local)
+        w = np.where(ov >= min_overlap_s, ov, 0.0)
+        tot = w.sum()
+        if tot < 1e-9:  # all slivers: single best-overlapping window
+            out[i] = win_embs[a + int(np.argmax(ov))]
+            continue
+        out[i] = (w / tot) @ win_embs[a:b]
+    return out

@@ -1,0 +1,73 @@
+"""Guards on the PyTorch port: it imports neither JAX nor the JAX package,
+its kernel wrappers take the plain version only for CPU tensors, and its
+kernel sources and launch counters are in place."""
+from __future__ import annotations
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "speech_diarization_tpu_torch"
+SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                        ROOT / "scripts" / "torch_profile_diarize.py"]
+
+
+def _imports(path: Path) -> set[str]:
+    tree = ast.parse(path.read_text())
+    out = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            out.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            out.add(node.module)
+    return out
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_jax_package_import(path):
+    for mod in _imports(path):
+        top = mod.split(".")[0]
+        assert top not in ("jax", "jaxlib", "flax", "optax", "chex"), (path, mod)
+        assert top != "speech_diarization_tpu", (path, mod)
+    text = path.read_text()
+    assert "import jax" not in text and "from jax" not in text
+
+
+def test_port_imports_without_jax_in_a_fresh_process():
+    code = ("import sys, importlib, pkgutil\n"
+            "import speech_diarization_tpu_torch as p\n"
+            "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
+            "    importlib.import_module(m.name)\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'speech_diarization_tpu')]\n"
+            "assert not bad, bad\n")
+    subprocess.run([sys.executable, "-c", code], check=True, cwd=ROOT,
+                   timeout=120)
+
+
+@pytest.mark.parametrize("name", ["asp_grid.cu", "fused_fbank.cu"])
+def test_kernel_sources_carry_their_note(name):
+    text = (PORT / "csrc" / name).read_text()
+    head = text[:text.index("#include")]
+    assert "Replaces: speech_diarization_tpu/ops/pallas/" in head
+    assert "What bounds it on the H100" in head
+    assert "Design" in head
+
+
+def test_launch_counters_do_not_move_on_the_cpu():
+    from speech_diarization_tpu_torch.dsp.mel import fused_log_mel
+    from speech_diarization_tpu_torch.ops import kernels
+
+    kernels.reset_launches()
+    fused_log_mel(torch.randn(4000), n_mels=40)
+    assert kernels.LAUNCHES == {"asp_grid_stats": 0, "fused_log_mel": 0}
+
+
+def test_build_directory_is_ignored_by_git():
+    text = (ROOT / ".gitignore").read_text().split()
+    assert "speech_diarization_tpu_torch/build/" in text
