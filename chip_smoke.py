@@ -12,7 +12,10 @@ Phases (any failure exits nonzero and prints no result line):
      the working dtype: max abs and relative error against the stated
      tolerance, kernel /
      plain / library times (CUDA events) and the bound from bytes and
-     operations.
+     operations.  Then a correctness-only sweep of each kernel against
+     its plain version at ragged shapes that reach every pad and mask
+     (partial frame tiles, window rows below and off the 8-row tiles, grids
+     that run past the end of the features), at the same tolerances.
   4. The port's main path: ``DiarizationPipeline`` as ``bench.py`` runs it
      with the overlap rescue off (spectral clustering, shipped
      ``vad_conv_mc.npz`` and ``ecapa_robust_stream.npz`` in bf16) on the
@@ -83,6 +86,62 @@ def bound(bytes_moved: float, ops: dict[str, float]) -> tuple[float, str]:
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def ragged_sweep(enc, dev) -> None:
+    """Each kernel against its plain version at shapes that reach every pad
+    and mask; raises on the first miss of the main-path tolerances."""
+    import torch
+
+    from speech_diarization_tpu_torch.dsp.mel import _log_mel_1d, fused_log_mel
+    from speech_diarization_tpu_torch.models.ecapa import (
+        _asp_grid_stats_plain, asp_grid_stats,
+    )
+
+    def check(name, what, out, ref):
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        tol = TOL_REL[name] * ref.abs().max().item()
+        if out.shape != ref.shape or not err <= tol:
+            raise AssertionError(f"{name} at {what}: shape {tuple(out.shape)} vs "
+                                 f"{tuple(ref.shape)}, max abs err {err:.3e} "
+                                 f"above {tol:.3e}")
+        return err / tol
+
+    g = torch.Generator().manual_seed(7)
+    worst = {"fused_log_mel": 0.0, "asp_grid_stats": 0.0}
+    # K2: exactly one 64-frame tile, one frame more, a length off the hop
+    # grid, and the shortest input the reflect pad takes
+    for t in (63 * 160, 64 * 160, 8000 + 37, 10 * SR + 77, 201):
+        # a loud tone over noise 30 dB below it: the quiet mel bands see
+        # the loud bins' rounding error
+        n = torch.arange(t, dtype=torch.float32)
+        y = (0.6 * torch.sin(2 * torch.pi * 440.0 / SR * n)
+             + 2e-2 * torch.randn(t, generator=g)).to(dev)
+        worst["fused_log_mel"] = max(worst["fused_log_mel"], check(
+            "fused_log_mel", f"T={t}", fused_log_mel(y, n_mels=40),
+            _log_mel_1d(y, n_mels=40)))
+    # K1: window rows on, below and off the 8-row tiles (301 takes the
+    # kernel's build for long windows), odd hops, odd first rows and T_f,
+    # and one grid per shape whose last rows run past T_f
+    n_grids = 0
+    for n_w in (1, 7, 100):
+        for win_f in (201, 64, 37, 301):
+            for hop_f in (10, 3):
+                first_f = 3 + n_w % 5
+                need = first_f + (n_w - 1) * hop_f + win_f
+                x = torch.randn(768, need + 5, generator=g).to(dev).to(torch.bfloat16)
+                args = enc.net.k1_inputs(x, first_f, hop_f, win_f, n_w)
+                for cut in (0, 9):       # cut: the grid overruns T_f by 4 rows
+                    a = (x[:, :x.shape[1] - cut].contiguous(), *args[1:])
+                    worst["asp_grid_stats"] = max(worst["asp_grid_stats"], check(
+                        "asp_grid_stats",
+                        f"W={n_w} win_f={win_f} hop_f={hop_f} T_f={a[0].shape[1]}",
+                        asp_grid_stats(*a), _asp_grid_stats_plain(*a)))
+                    n_grids += 1
+    log(f"[3] ragged sweep: 5 lengths of fused_log_mel, {n_grids} grids of "
+        f"asp_grid_stats within tolerance (worst share of it: "
+        f"{worst['fused_log_mel']:.3f}, {worst['asp_grid_stats']:.3f})")
+
+
 def main() -> int:
     import torch
 
@@ -110,9 +169,7 @@ def main() -> int:
     from speech_diarization_tpu_torch.config import (
         ClusterConfig, DiarizationConfig, EmbedConfig, OverlapConfig,
     )
-    from speech_diarization_tpu_torch.dsp.mel import (
-        _kernel_constants, _log_mel_1d, fused_log_mel,
-    )
+    from speech_diarization_tpu_torch.dsp.mel import _log_mel_1d, fused_log_mel
     from speech_diarization_tpu_torch.metrics.der import diarization_error_rate
     from speech_diarization_tpu_torch.models.ecapa import (
         _asp_grid_stats_plain, asp_grid_stats,
@@ -156,8 +213,9 @@ def main() -> int:
         err = (out - ref).abs().max().item()
         ref_max = ref.abs().max().item()
         tol = TOL_REL["fused_log_mel"] * ref_max
-        cw, sw, fb = _kernel_constants(dev, n_fft, n_mels, 20.0, 7900.0, SR)
-        k2_bytes = 4 * (y.numel() + cw.numel() + sw.numel() + fb.numel()
+        # the function's inputs: waveform, the two windowed [n_fft, n_bins]
+        # DFT bases and the mel filterbank, whatever form a kernel stores
+        k2_bytes = 4 * (y.numel() + 2 * n_fft * n_bins + n_bins * n_mels
                         + out.numel())
         k2_ops = n_frames * (2 * 2 * n_fft * n_bins + 3 * n_bins
                              + 2 * n_bins * n_mels + 2 * n_mels)
@@ -213,6 +271,10 @@ def main() -> int:
             f"({r['bound_by']}), library {r['library_ms']} ms")
         if not r["max_abs_err"] <= r["tol"]:
             raise AssertionError(f"{r['name']} disagrees with its plain version")
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        ragged_sweep(enc, dev)
+    log(f"    sweep took {time.perf_counter() - t0:.2f} s")
 
     # ---------------------------------------------------------- phase 4 ----
     cfg = DiarizationConfig(

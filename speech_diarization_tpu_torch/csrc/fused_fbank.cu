@@ -7,129 +7,282 @@
 //
 // What bounds it on the H100: the main-path call (one 60 s chunk with its
 // margins, 1,118,400 samples -> 6,991 frames of 40 mels) moves 4.5 MB of
-// waveform in and 1.1 MB of features out (1.7 us at 3.35 TB/s) but does
-// 2.37 GFLOP, almost all in the 400-tap x 201-bin windowed DFT.  In float32
-// on the CUDA cores (67 TFLOP/s) that is 35 us, so the work is bound by
-// operations, not bytes; on bf16 tensor cores it would be ~2.4 us, which is
-// why a later version may move the DFT to wgmma.
+// waveform in and 1.1 MB of features out but contracts every frame's 400
+// taps against 201 cos and 201 sin bins: bound by operations, not bytes.
+// The result feeds a log, and a quiet mel band sees the rounding error of
+// the loud bins, so the products need float32 accuracy: one TF32 or bf16
+// pass does not hold the 1e-4 tolerance (tests/test_torch_dsp.py shows it).
 //
-// Design: one block per tile of 32 frames.  The tile's waveform
-// (32*hop + n_fft - hop samples, 21 KB) is staged once in shared memory,
-// reflect-padded on the fly, so the [N, 400] frame tensor never exists.
-// One thread per DFT bin keeps the tile's 32 real and 32 imaginary sums in
-// registers and walks the 400 taps four at a time: per step it reads four
-// cos and four sin basis values (coalesced across the bins, L1/L2-resident:
-// the two bases are 640 KB together, too large for shared memory) and one
-// float4 of samples per frame (a shared-memory broadcast), then issues 256
-// FMAs.  The power spectrum goes to shared memory; the mel product and the
-// log run in the same block.  Everything accumulates in float32.
+// Design.
+//  * Half the work, exactly.  The periodic Hann window and the cosine basis
+//    are symmetric about tap n_fft/2 and the sine basis is antisymmetric,
+//    and the window is 0 at tap 0.  Each frame is folded once in shared
+//    memory, e[n] = x[n] + x[n_fft-n] and o[n] = x[n] - x[n_fft-n] for
+//    n = 1..n_fft/2-1 (tap n_fft/2 stands alone), and 200 taps are
+//    contracted against cos and 200 (one a zero pad) against sin.
+//  * Tensor cores at float32 accuracy: 3xTF32 through mma.sync.m16n8k8.
+//    Both operands are split into a TF32 high part and a TF32 low part of
+//    the remainder; lo*hi + hi*lo + hi*hi accumulate in float32 (the
+//    dropped lo*lo term is 2^-22 of the product).  The basis is split once
+//    on the host; the folded frames are split as their fragments are read.
+//    mma.sync, not wgmma: the split needs the A operand in registers
+//    anyway, a block's tile is 64 x 208 x 400, and at that size the
+//    descriptors and the warpgroup fences buy nothing.
+//  * The basis (cos|sin, hi|lo: 650 KB) is stored by the host in the order
+//    the B fragments are read, so a lane gets (hi k, hi k+4, lo k, lo k+4)
+//    of its bin with one conflict-free 128-bit shared-memory load.  One
+//    8-tap slice of it (26 KB) is one stage of a three-stage cp.async ring.
+//  * One block per 64 frames (110 blocks on the main path, one wave on 132
+//    SMs), so the basis crosses L2 -> shared memory 110 times, not 219.
+//    Eight warps: (real | imaginary) x two 32-frame halves x two 104-bin
+//    halves; a warp holds 2 x 13 accumulator tiles and reuses every B
+//    fragment for two frame tiles.  The tile's waveform (42 KB) is staged
+//    once with the reflect pad built on the fly, so no [N, 400] frame
+//    tensor exists.
+//  * The tile's samples are fetched with 4-byte cp.async, all in flight at
+//    once (a plain loop of dependent-latency loads cost as much as the
+//    whole product).
+//  * Power goes to shared memory (real warps write re^2, imaginary warps
+//    add im^2); the mel product walks only each filter's nonzero bins
+//    (triangular filters: ~10 of 201, weights packed by the host and kept
+//    in shared memory) in float32 FMAs, then log.
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int TILE = 32;      // frames per block
-constexpr int THREADS = 256;  // >= n_bins (201 on the main path)
+constexpr int TILE_M = 64;      // frames per block
+constexpr int THREADS = 256;    // 8 warps
+constexpr int N_TILES = 26;     // 8-bin tiles: n_bins <= 208
+constexpr int WARP_NT = 13;     // bin tiles per warp
+constexpr int STAGES = 3;
+// one 8-tap slice of the fragment-ordered basis: [part][bin tile][lane][4]
+constexpr int STAGE_FLOATS = 2 * N_TILES * 32 * 4;
+constexpr int PW_STRIDE = 216;  // floats per power row: conflict-free float2
 
-__global__ void __launch_bounds__(THREADS)
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const uint32_t s = (uint32_t)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(s), "l"(gmem)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const uint32_t s = (uint32_t)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(s), "l"(gmem)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
 fused_log_mel_kernel(const float* __restrict__ y, int t,
-                     const float* __restrict__ cosw,   // [n_fft, n_bins]
-                     const float* __restrict__ sinw,   // [n_fft, n_bins]
-                     const float* __restrict__ mel,    // [n_bins, n_mels]
-                     int n_fft, int hop, int n_bins, int n_mels, float eps,
+                     const float* __restrict__ basis,  // [nks] x STAGE_FLOATS
+                     int nks,                          // 8-tap slices
+                     const int* __restrict__ mel_idx,  // [3, n_mels]: first
+                                                       // bin, end bin, offset
+                     const float* __restrict__ mel_w,  // [nnz] packed weights
+                     int nnz, int n_fft, int hop, int n_mels, float eps,
                      float* __restrict__ out,          // [n_frames, n_mels]
                      int n_frames) {
   extern __shared__ __align__(16) float smem[];
-  const int span = TILE * hop + (n_fft - hop);
-  const int span4 = (span + 3) & ~3;
-  float* ys = smem;             // [span4] reflect-padded samples of the tile
-  float* pw = smem + span4;     // [TILE, n_bins] power spectrum
-  const int f0 = blockIdx.x * TILE;
-  const int pad = n_fft / 2;
+  const int kp = nks * 8;                 // padded taps per part
+  const int a_stride = kp + 4;            // 204: rows 12 banks apart
+  const int span = TILE_M * hop + (n_fft - hop);
+  float* As = smem;                              // [2][TILE_M][a_stride]
+  float* Bs = As + 2 * TILE_M * a_stride;        // [STAGES][STAGE_FLOATS]
+  float* ys = Bs + STAGES * STAGE_FLOATS;        // [span] padded samples
+  int* mi = reinterpret_cast<int*>(ys + span);   // [3][n_mels]
+  float* mw = reinterpret_cast<float*>(mi + 3 * n_mels);   // [nnz]
+  float* pw = Bs;                                // [TILE_M][PW_STRIDE], after
+  const int tid = threadIdx.x;
+  const int f0 = blockIdx.x * TILE_M;
+  const int half = n_fft / 2;
 
-  // padded index p = f0*hop + i holds sample g = p - pad, reflected at both
-  // ends (numpy/torch 'reflect': the edge sample is not repeated)
-  for (int i = threadIdx.x; i < span4; i += blockDim.x) {
-    long long g = (long long)f0 * hop + i - pad;
-    float v = 0.f;
-    if (i < span) {
-      if (g < 0) g = -g;
-      if (g >= t) g = 2LL * (t - 1) - g;
-      if (g >= 0 && g < t) v = y[g];
-    }
-    ys[i] = v;
+  auto load_stage = [&](int ks) {
+    const float* src = basis + (size_t)ks * STAGE_FLOATS;
+    float* dst = Bs + (ks % STAGES) * STAGE_FLOATS;
+    for (int i = tid; i < STAGE_FLOATS / 4; i += THREADS)
+      cp_async16(dst + 4 * i, src + 4 * i);
+  };
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nks) load_stage(s);
+    cp_async_commit();
   }
-  __syncthreads();
 
-  const int k = threadIdx.x;
-  if (k < n_bins) {
-    float re[TILE], im[TILE];
-#pragma unroll
-    for (int f = 0; f < TILE; ++f) {
-      re[f] = 0.f;
-      im[f] = 0.f;
+  // padded index p = f0*hop + i holds sample g = p - half, reflected at both
+  // ends (numpy/torch 'reflect': the edge sample is not repeated)
+  for (int i = tid; i < span; i += THREADS) {
+    long long g = (long long)f0 * hop + i - half;
+    if (g < 0) g = -g;
+    if (g >= t) g = 2LL * (t - 1) - g;
+    if (g >= 0 && g < t) cp_async4(ys + i, y + g);
+    else ys[i] = 0.f;
+  }
+  for (int i = tid; i < 3 * n_mels; i += THREADS) cp_async4(mi + i, mel_idx + i);
+  for (int i = tid; i < nnz; i += THREADS) cp_async4(mw + i, mel_w + i);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  const int warp = tid >> 5, lane = tid & 31;
+  // fold: column j holds tap n = j + 1
+  for (int m = warp; m < TILE_M; m += THREADS / 32)
+    for (int j = lane; j < kp; j += 32) {
+      const int n = j + 1;
+      float e = 0.f, o = 0.f;
+      if (n < half) {
+        const float a = ys[m * hop + n], b = ys[m * hop + n_fft - n];
+        e = a + b;
+        o = a - b;
+      } else if (n == half) {
+        e = ys[m * hop + half];
+      }
+      As[m * a_stride + j] = e;
+      As[(TILE_M + m) * a_stride + j] = o;
     }
-    for (int s = 0; s < n_fft; s += 4) {
-      const float c0 = __ldg(cosw + (s + 0) * n_bins + k);
-      const float c1 = __ldg(cosw + (s + 1) * n_bins + k);
-      const float c2 = __ldg(cosw + (s + 2) * n_bins + k);
-      const float c3 = __ldg(cosw + (s + 3) * n_bins + k);
-      const float s0 = __ldg(sinw + (s + 0) * n_bins + k);
-      const float s1 = __ldg(sinw + (s + 1) * n_bins + k);
-      const float s2 = __ldg(sinw + (s + 2) * n_bins + k);
-      const float s3 = __ldg(sinw + (s + 3) * n_bins + k);
+
+  const int g = lane >> 2, tq = lane & 3;
+  const int part = warp >> 2, mh = (warp >> 1) & 1, nh = warp & 1;
+  const float* Aw = As + (part * TILE_M + mh * 32 + g) * a_stride + tq;
+  float acc[2][WARP_NT][4];
 #pragma unroll
-      for (int f = 0; f < TILE; ++f) {
-        const float4 v = *reinterpret_cast<const float4*>(ys + f * hop + s);
-        float r = re[f], m = im[f];
-        r = fmaf(v.x, c0, r);
-        m = fmaf(v.x, s0, m);
-        r = fmaf(v.y, c1, r);
-        m = fmaf(v.y, s1, m);
-        r = fmaf(v.z, c2, r);
-        m = fmaf(v.z, s2, m);
-        r = fmaf(v.w, c3, r);
-        m = fmaf(v.w, s3, m);
-        re[f] = r;
-        im[f] = m;
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int i = 0; i < WARP_NT; ++i)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[mt][i][q] = 0.f;
+
+  for (int ks = 0; ks < nks; ++ks) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();   // slice ks landed; slice ks-1's buffer is free
+    if (ks + STAGES - 1 < nks) load_stage(ks + STAGES - 1);
+    cp_async_commit();
+
+    uint32_t ahi[2][4], alo[2][4];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+      const float* p = Aw + mt * 16 * a_stride + ks * 8;
+      const float v[4] = {p[0], p[8 * a_stride], p[4], p[8 * a_stride + 4]};
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        ahi[mt][q] = tf32_rna(v[q]);
+        alo[mt][q] = tf32_rna(v[q] - __uint_as_float(ahi[mt][q]));
       }
     }
+    const float4* Bw = reinterpret_cast<const float4*>(
+                           Bs + (ks % STAGES) * STAGE_FLOATS) +
+                       (part * N_TILES + nh * WARP_NT) * 32 + lane;
+    // bin tiles in groups of up to 4: each accumulator takes its three
+    // products (small terms first) with the group's other accumulators in
+    // between, so no mma waits on the one before it
 #pragma unroll
-    for (int f = 0; f < TILE; ++f)
-      pw[f * n_bins + k] = re[f] * re[f] + im[f] * im[f];
+    for (int i0 = 0; i0 < WARP_NT; i0 += 4) {
+      float4 b[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (i0 + i < WARP_NT) b[i] = Bw[(i0 + i) * 32];
+#pragma unroll
+      for (int pass = 0; pass < 3; ++pass)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          if (i0 + i < WARP_NT) {
+            const uint32_t b0 = __float_as_uint(pass == 1 ? b[i].z : b[i].x);
+            const uint32_t b1 = __float_as_uint(pass == 1 ? b[i].w : b[i].y);
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt)
+              mma_tf32(acc[mt][i0 + i], pass == 0 ? alo[mt] : ahi[mt], b0, b1);
+          }
+    }
   }
-  __syncthreads();
+  cp_async_wait<0>();
+  __syncthreads();   // every warp is done with the ring: pw may overwrite it
 
-  for (int idx = threadIdx.x; idx < TILE * n_mels; idx += blockDim.x) {
+  // power: real warps write re^2, then imaginary warps add im^2
+#pragma unroll
+  for (int pass = 0; pass < 2; ++pass) {
+    if (part == pass) {
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int i = 0; i < WARP_NT; ++i) {
+          const int row = mh * 32 + mt * 16 + g;
+          const int col = (nh * WARP_NT + i) * 8 + 2 * tq;
+          float2* p0 = reinterpret_cast<float2*>(pw + row * PW_STRIDE + col);
+          float2* p1 = reinterpret_cast<float2*>(pw + (row + 8) * PW_STRIDE + col);
+          const float* c = acc[mt][i];
+          float2 v0 = make_float2(c[0] * c[0], c[1] * c[1]);
+          float2 v1 = make_float2(c[2] * c[2], c[3] * c[3]);
+          if (pass == 1) {
+            const float2 r0 = *p0, r1 = *p1;
+            v0.x += r0.x; v0.y += r0.y; v1.x += r1.x; v1.y += r1.y;
+          }
+          *p0 = v0;
+          *p1 = v1;
+        }
+    }
+    __syncthreads();
+  }
+
+  for (int idx = tid; idx < TILE_M * n_mels; idx += THREADS) {
     const int f = idx / n_mels;
     const int m = idx - f * n_mels;
     if (f0 + f >= n_frames) continue;
-    float acc = 0.f;
-    for (int b = 0; b < n_bins; ++b)
-      acc = fmaf(pw[f * n_bins + b], __ldg(mel + b * n_mels + m), acc);
-    out[(long long)(f0 + f) * n_mels + m] = logf(acc + eps);
+    float s = 0.f;
+    const int lo = mi[m], hi = mi[n_mels + m];
+    const float* w = mw + mi[2 * n_mels + m] - lo;
+    for (int b = lo; b < hi; ++b) s = fmaf(pw[f * PW_STRIDE + b], w[b], s);
+    out[(long long)(f0 + f) * n_mels + m] = logf(s + eps);
   }
 }
 
 }  // namespace
 
 // C entry point: launches on `stream`, does not synchronise, returns
-// cudaGetLastError().  Requires n_fft % 4 == 0, hop % 4 == 0,
-// n_bins <= 256 and t > n_fft / 2 (checked by the Python wrapper).
-extern "C" int sdt_fused_log_mel(const float* y, int t, const float* cosw,
-                                 const float* sinw, const float* mel,
-                                 int n_fft, int hop, int n_bins, int n_mels,
-                                 float eps, float* out, int n_frames,
-                                 void* stream) {
-  const int span = TILE * hop + (n_fft - hop);
-  const int span4 = (span + 3) & ~3;
-  const size_t smem = (size_t)(span4 + TILE * n_bins) * sizeof(float);
+// cudaGetLastError().  `basis` is the folded, split, fragment-ordered basis
+// of dsp/mel.py::_basis_fragments with `nks` 8-tap slices; `mel_idx` and
+// `mel_w` are the packed filterbank of dsp/mel.py::_mel_sparse.  Requires n_fft
+// even, n_fft/2 + 1 <= 208 bins, nks*8 >= n_fft/2 and t > n_fft/2 (checked
+// by the Python wrapper); cudaErrorInvalidValue when the tile does not fit
+// shared memory.
+extern "C" int sdt_fused_log_mel(const float* y, int t, const float* basis,
+                                 int nks, const int* mel_idx,
+                                 const float* mel_w, int nnz, int n_fft,
+                                 int hop, int n_mels, float eps, float* out,
+                                 int n_frames, void* stream) {
+  if (n_fft % 2 || n_fft / 2 + 1 > N_TILES * 8 || nks * 8 < n_fft / 2)
+    return (int)cudaErrorInvalidValue;
+  const int span = TILE_M * hop + (n_fft - hop);
+  const size_t smem = sizeof(float) * ((size_t)2 * TILE_M * (nks * 8 + 4) +
+                                       STAGES * STAGE_FLOATS + span +
+                                       3 * n_mels + nnz);
+  if (smem > 232448) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       fused_log_mel_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const int blocks = (n_frames + TILE - 1) / TILE;
+  const int blocks = (n_frames + TILE_M - 1) / TILE_M;
   fused_log_mel_kernel<<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
-      y, t, cosw, sinw, mel, n_fft, hop, n_bins, n_mels, eps, out, n_frames);
+      y, t, basis, nks, mel_idx, mel_w, nnz, n_fft, hop, n_mels, eps, out,
+      n_frames);
   return (int)cudaGetLastError();
 }

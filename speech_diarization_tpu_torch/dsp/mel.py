@@ -12,6 +12,10 @@ Holds kernel K2 and its plain version:
   ``csrc/fused_fbank.cu`` (the port of the Pallas ``fused_log_mel``).  On a
   CPU tensor it returns the plain version; on a CUDA tensor it launches the
   kernel or raises.
+* :func:`_log_mel_folded` — the kernel's arithmetic in plain PyTorch: the
+  even/odd fold of each frame that halves the DFT, and optionally the
+  split of both operands into TF32 parts (one pass, or the three-product
+  error-compensated scheme the kernel runs on the tensor cores).
 
 The reflect pad needs ``T > n_fft // 2`` samples; shorter inputs raise (the
 JAX path clamps its pad without a word there).
@@ -124,17 +128,134 @@ def _log_mel_1d(y: torch.Tensor, sample_rate: int = 16000, n_mels: int = 80,
     return torch.log(power @ fb + eps)
 
 
+# fragment geometry of the kernel (csrc/fused_fbank.cu): 8-tap slices, 26
+# tiles of 8 bins
+_K_STEP, _N_TILE, _N_TILES = 8, 8, 26
+
+
+@lru_cache(maxsize=8)
+def _folded_basis(n_fft: int) -> tuple[np.ndarray, np.ndarray]:
+    """The windowed DFT basis after the even/odd fold: two [n_fft//2, n_bins]
+    matrices whose row ``j`` is tap ``j + 1``.  The window and the cosine
+    basis are symmetric about tap ``n_fft//2`` and the sine basis is
+    antisymmetric, so ``re = e @ ce`` and ``im = o @ so`` with
+    ``e[n] = x[n] + x[n_fft-n]``, ``o[n] = x[n] - x[n_fft-n]`` (tap
+    ``n_fft//2`` alone; tap 0 has window weight 0)."""
+    cw, sw = _windowed_dft(n_fft)
+    half = n_fft // 2
+    if n_fft % 2 or cw[0].any() or sw[0].any():
+        raise ValueError(f"the fold needs an even n_fft and a window that is "
+                         f"0 at tap 0, got n_fft={n_fft}")
+    ce = cw[1:half + 1].copy()
+    so = sw[1:half + 1].copy()
+    so[half - 1] = 0.0
+    return ce, so
+
+
+def _tf32_round(a: np.ndarray) -> np.ndarray:
+    """float32 -> the nearest TF32 value (10 mantissa bits, ties away from
+    zero, as ``cvt.rna.tf32.f32``), still stored as float32."""
+    u = np.ascontiguousarray(a, np.float32).view(np.uint32)
+    return ((u + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _tf32_split(a: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """``a ~= hi + lo`` with both parts TF32 values: the operands of the
+    error-compensated three-product scheme."""
+    hi = _tf32_round(a)
+    return hi, _tf32_round(a.astype(np.float32) - hi)
+
+
+def _basis_fragments(n_fft: int) -> np.ndarray:
+    """The folded basis, split into TF32 hi and lo parts and laid out in the
+    order the kernel's ``mma.sync.m16n8k8`` B fragments are read:
+    ``[k_step, part (cos, sin), bin tile, lane, 4]`` float32, where lane
+    ``4*g + t`` holds ``(hi[k, n], hi[k+4, n], lo[k, n], lo[k+4, n])`` for
+    tap row ``k = 8*k_step + t`` and bin ``n = 8*tile + g``.  Taps are
+    zero-padded to a multiple of 8 and bins to 208."""
+    ce, so = _folded_basis(n_fft)
+    half, n_bins = ce.shape
+    n_ks = -(-half // _K_STEP)
+    if n_bins > _N_TILE * _N_TILES:
+        raise ValueError(f"fused_log_mel kernel: {n_bins} bins exceed "
+                         f"{_N_TILE * _N_TILES}")
+    out = np.zeros((n_ks, 2, _N_TILES, 8, 4, 4), np.float32)   # [.., g, t, 4]
+    for part, mat in enumerate((ce, so)):
+        padded = np.zeros((n_ks * _K_STEP, _N_TILES * _N_TILE), np.float32)
+        padded[:half, :n_bins] = mat
+        for j, piece in enumerate(_tf32_split(padded)):
+            # [k_step, (k | k+4), t, tile, g] -> [k_step, tile, g, t, (k | k+4)]
+            v = piece.reshape(n_ks, 2, 4, _N_TILES, _N_TILE).transpose(0, 3, 4, 2, 1)
+            out[:, part, :, :, :, 2 * j:2 * j + 2] = v
+    return out.reshape(n_ks, 2, _N_TILES, 32, 4)
+
+
+def _mel_sparse(fb: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """The filterbank [n_bins, n_mels] without its zeros, as the kernel
+    reads it: ``idx`` int32 [3, n_mels] (first nonzero bin, one past the
+    last, offset into ``w``) and ``w`` float32 [nnz], filter ``m``'s weights
+    for bins ``idx[0, m] .. idx[1, m] - 1`` packed one filter after the
+    other.  An all-zero filter gets an empty range."""
+    nz = fb != 0
+    some = nz.any(0)
+    lo = np.where(some, nz.argmax(0), 0)
+    hi = np.where(some, fb.shape[0] - nz[::-1].argmax(0), 0)
+    off = np.concatenate([[0], np.cumsum(hi - lo)[:-1]])
+    w = np.concatenate([fb[lo[m]:hi[m], m] for m in range(fb.shape[1])])
+    return (np.stack([lo, hi, off]).astype(np.int32),
+            np.ascontiguousarray(w, np.float32))
+
+
+def _log_mel_folded(y: torch.Tensor, sample_rate: int = 16000, n_mels: int = 80,
+                    win_ms: float = 25.0, hop_ms: float = 10.0,
+                    f_min: float = 20.0, f_max: float | None = None,
+                    eps: float = 1e-6, split: str = "none") -> torch.Tensor:
+    """K2's arithmetic in plain PyTorch (float32): frames folded about tap
+    ``n_fft//2``, contracted against :func:`_folded_basis`.  ``split``:
+    ``"none"`` float32 products; ``"tf32"`` one pass with both operands
+    rounded to TF32; ``"3xtf32"`` the kernel's scheme, ``lo*hi + hi*lo +
+    hi*hi`` with float32 accumulation."""
+    n_fft, hop, f_max = _frame_params(sample_rate, win_ms, hop_ms, f_max)
+    _check_length(y.shape[0], n_fft)
+    half = n_fft // 2
+    frames = _reflect_pad(y.float(), half).unfold(0, n_fft, hop)    # [N, n_fft]
+    head, tail = frames[:, 1:half], frames[:, half + 1:].flip(1)
+    mid = frames[:, half:half + 1]
+    e = torch.cat([head + tail, mid], 1)                            # [N, half]
+    o = torch.cat([head - tail, torch.zeros_like(mid)], 1)
+    ce, so = _folded_basis(n_fft)
+
+    def product(a: torch.Tensor, b: np.ndarray) -> torch.Tensor:
+        if split == "none":
+            return a @ torch.from_numpy(b).to(a.device)
+        a_hi, a_lo = (torch.from_numpy(p).to(a.device)
+                      for p in _tf32_split(a.cpu().numpy()))
+        b_hi, b_lo = (torch.from_numpy(p).to(a.device) for p in _tf32_split(b))
+        if split == "tf32":
+            return a_hi @ b_hi
+        if split == "3xtf32":
+            return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
+        raise ValueError(f"unknown split {split!r}")
+
+    real, imag = product(e, ce), product(o, so)
+    fb = torch.from_numpy(
+        _mel_filterbank_np(half + 1, f_min, f_max, n_mels, sample_rate)
+    ).to(y.device)
+    return torch.log((real * real + imag * imag) @ fb + eps)
+
+
 _KERNEL_CONSTS: dict = {}
 
 
 def _kernel_constants(device, n_fft, n_mels, f_min, f_max, sample_rate):
+    """Device constants of the kernel, made once per geometry: the
+    fragment-ordered split basis and the packed mel filterbank."""
     key = (str(device), n_fft, n_mels, f_min, f_max, sample_rate)
     if key not in _KERNEL_CONSTS:
-        cw, sw = _windowed_dft(n_fft)
         fb = _mel_filterbank_np(n_fft // 2 + 1, f_min, f_max, n_mels, sample_rate)
         _KERNEL_CONSTS[key] = tuple(
             torch.from_numpy(np.ascontiguousarray(a)).to(device)
-            for a in (cw, sw, fb))
+            for a in (_basis_fragments(n_fft), *_mel_sparse(fb)))
     return _KERNEL_CONSTS[key]
 
 
@@ -144,8 +265,8 @@ def fused_log_mel(y: torch.Tensor, sample_rate: int = 16000, n_mels: int = 80,
                   eps: float = 1e-6) -> torch.Tensor:
     """K2: [T] float32 waveform -> [T//hop + 1, n_mels] log-mel, center=True
     reflect padding.  CPU tensor: the plain version.  CUDA tensor: one
-    launch of ``csrc/fused_fbank.cu`` (reflect pad done in the kernel's
-    staging loop), or an exception."""
+    launch of ``csrc/fused_fbank.cu`` (reflect pad and fold done in the
+    kernel's staging loops), or an exception."""
     if y.ndim != 1:
         raise ValueError(f"expected a [T] waveform, got {tuple(y.shape)}")
     if y.device.type == "cpu":
@@ -155,16 +276,21 @@ def fused_log_mel(y: torch.Tensor, sample_rate: int = 16000, n_mels: int = 80,
     t = y.shape[0]
     _check_length(t, n_fft)
     kernels.check_cuda_tensor(y, "fused_log_mel: y", torch.float32)
-    n_bins = n_fft // 2 + 1
-    if n_fft % 4 or hop % 4 or n_bins > 256 or n_mels > 256:
-        raise ValueError(f"fused_log_mel kernel: unsupported geometry "
-                         f"n_fft={n_fft} hop={hop} n_mels={n_mels}")
-    cw, sw, fb = _kernel_constants(y.device, n_fft, n_mels, f_min, f_max,
-                                   sample_rate)
+    if n_fft % 2 or n_fft // 2 + 1 > _N_TILE * _N_TILES:
+        raise ValueError(f"fused_log_mel kernel: unsupported n_fft={n_fft}")
+    basis, mel_idx, mel_w = _kernel_constants(y.device, n_fft, n_mels, f_min,
+                                              f_max, sample_rate)
+    # shared memory: folded tile + basis ring + the tile's samples + mel
+    smem = 4 * (2 * 64 * (basis.shape[0] * _K_STEP + 4) + 3 * 2 * _N_TILES * 128
+                + 63 * hop + n_fft + mel_idx.numel() + mel_w.numel())
+    if smem > 232448:
+        raise ValueError(f"fused_log_mel kernel: n_fft={n_fft} hop={hop} "
+                         f"n_mels={n_mels} need {smem} bytes of shared memory")
     n_frames = t // hop + 1
     out = torch.empty((n_frames, n_mels), dtype=torch.float32, device=y.device)
     kernels.launch(
-        "fused_log_mel", y.data_ptr(), t, cw.data_ptr(), sw.data_ptr(),
-        fb.data_ptr(), n_fft, hop, n_bins, n_mels, float(eps), out.data_ptr(),
-        n_frames, torch.cuda.current_stream(y.device).cuda_stream)
+        "fused_log_mel", y.data_ptr(), t, basis.data_ptr(), basis.shape[0],
+        mel_idx.data_ptr(), mel_w.data_ptr(), mel_w.numel(), n_fft, hop,
+        n_mels, float(eps), out.data_ptr(), n_frames,
+        torch.cuda.current_stream(y.device).cuda_stream)
     return out

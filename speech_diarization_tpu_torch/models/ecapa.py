@@ -253,6 +253,58 @@ def _asp_grid_stats_plain(x, bw, w1x, s_bn, t_bn, w2, b2, first_f: int,
     return torch.cat([mu, sd], dim=1)
 
 
+# K1's tile geometry (csrc/asp_grid.cu): window rows are padded to a multiple
+# of 8 and the kernel is built for 26 and 40 such tiles
+_K1_MAX_WIN_F = 320
+_K1_CHANNEL_TILE = 64
+
+
+def _k1_features(x: torch.Tensor, first_f: int, n_rows: int) -> torch.Tensor:
+    """The feature map as K1 reads it: channel-major [CC, T_f] bf16,
+    contiguous, with zero columns appended where the grid's rows
+    ``[first_f, first_f + n_rows)`` run past ``T_f`` (the zero rows of
+    :func:`_rows_from`).  No copy when ``x`` already is all that; the
+    kernel's first launch makes the time-major copy its second one reads."""
+    xb = x.to(torch.bfloat16)
+    if first_f + n_rows > xb.shape[1]:
+        xb = F.pad(xb, (0, first_f + n_rows - xb.shape[1]))
+    return xb.contiguous()
+
+
+def _asp_grid_stats_tiled(x, bw, w1x, s_bn, t_bn, w2, b2, first_f: int,
+                          hop_f: int, win_f: int, n_windows: int) -> torch.Tensor:
+    """K1's data flow in plain PyTorch, for the CPU tests: channel-major
+    features from :func:`_k1_features`, window rows padded to a multiple of
+    8 with zero activations and their logits masked to -inf, the logits
+    transposed ([W, CC, rows]), no ``b2`` (constant over a channel's rows,
+    so the softmax cancels it), one ``exp2`` per element with log2(e)
+    folded in, and ``sum p x / sum p`` in place of a normalised ``p``."""
+    del b2
+    n_rows = (n_windows - 1) * hop_f + win_f
+    rows = -(-win_f // 8) * 8
+    bf = torch.bfloat16
+    xb = _k1_features(x, first_f, n_rows).float()                   # [CC, T_f]
+    hx = w1x.to(bf).float() @ xb[:, first_f:first_f + n_rows]       # [A, R]
+    hx = F.pad(hx, (0, rows - win_f))
+    idx = (hop_f * torch.arange(n_windows, device=x.device)[:, None]
+           + torch.arange(rows, device=x.device)[None, :])          # [W, rows]
+    valid = torch.arange(rows, device=x.device) < win_f
+    h = hx[:, idx].permute(1, 2, 0) + bw.float()[:, None, :]        # [W, rows, A]
+    a = torch.tanh(F.relu(h) * s_bn.float() + t_bn.float())
+    a = torch.where(valid[None, :, None], a, 0.0).to(bf).float()
+    e = w2.to(bf).float() @ a.transpose(1, 2)                       # [W, CC, rows]
+    e = e.masked_fill(~valid, float("-inf"))
+    log2e = 1.4426950408889634
+    p = torch.exp2(e * log2e - e.amax(-1, keepdim=True) * log2e)
+    xw = F.pad(xb, (0, rows))[:, first_f + idx].permute(1, 0, 2)    # [W, CC, rows]
+    xw = torch.where(valid, xw, 0.0)
+    z = p.sum(-1)
+    mu = (p * xw).sum(-1) / z
+    m2 = (p * xw * xw).sum(-1) / z
+    sd = torch.sqrt(torch.clamp(m2 - mu * mu, min=1e-12))
+    return torch.cat([mu, sd], dim=1)
+
+
 def asp_grid_stats(x: torch.Tensor, bw: torch.Tensor, w1x: torch.Tensor,
                    s_bn: torch.Tensor, t_bn: torch.Tensor, w2: torch.Tensor,
                    b2: torch.Tensor, first_f: int, hop_f: int, win_f: int,
@@ -266,32 +318,41 @@ def asp_grid_stats(x: torch.Tensor, bw: torch.Tensor, w1x: torch.Tensor,
                                      hop_f, win_f, n_windows)
     cc = x.shape[0]
     a_dim = w1x.shape[0]
-    if a_dim != 64:
+    if a_dim != 64 or cc % _K1_CHANNEL_TILE:
         raise NotImplementedError(
-            f"asp_grid_stats kernel: attention width {a_dim} (built for 64)")
-    if win_f * a_dim * 4 > 227 * 1024:
-        raise ValueError(f"asp_grid_stats kernel: win_f={win_f} exceeds "
-                         "shared memory")
+            f"asp_grid_stats kernel: attention width {a_dim} (built for 64), "
+            f"{cc} channels (built for multiples of {_K1_CHANNEL_TILE})")
+    if not 1 <= win_f <= _K1_MAX_WIN_F:
+        raise ValueError(f"asp_grid_stats kernel: win_f={win_f} outside "
+                         f"1..{_K1_MAX_WIN_F} (accumulator tiles)")
     n_rows = (n_windows - 1) * hop_f + win_f
     dev = x.device
-    x_t = _rows_from(x, first_f, n_rows).to(torch.bfloat16).contiguous()
+    xb = _k1_features(x, first_f, n_rows)
     bw = bw.float().contiguous()
     w1x_b = w1x.to(torch.bfloat16).contiguous()
     w2_b = w2.to(torch.bfloat16).contiguous()
+    if w2_b.data_ptr() % 16:          # its rows are copied 16 bytes at a time
+        w2_b = w2_b.clone()
     s_bn, t_bn, b2 = (v.float().contiguous() for v in (s_bn, t_bn, b2))
-    for name, t, dt, shape in (("bw", bw, torch.float32, (n_windows, a_dim)),
+    for name, t, dt, shape in (("x", xb, torch.bfloat16, (cc, xb.shape[1])),
+                               ("bw", bw, torch.float32, (n_windows, a_dim)),
                                ("w1x", w1x_b, torch.bfloat16, (a_dim, cc)),
                                ("s_bn", s_bn, torch.float32, (a_dim,)),
                                ("t_bn", t_bn, torch.float32, (a_dim,)),
                                ("w2", w2_b, torch.bfloat16, (cc, a_dim)),
                                ("b2", b2, torch.float32, (cc,))):
         kernels.check_cuda_tensor(t, f"asp_grid_stats: {name}", dt, shape)
+    # scratch the first launch fills for the second: the grid's rows
+    # time-major, and their pre-projection
+    x_t = torch.empty((n_rows, cc), dtype=torch.bfloat16, device=dev)
     hx = torch.empty((n_rows, a_dim), dtype=torch.float32, device=dev)
     out = torch.empty((n_windows, 2 * cc), dtype=torch.float32, device=dev)
+    # b2 shifts all of a channel's logits alike: the softmax cancels it
     kernels.launch(
-        "asp_grid_stats", x_t.data_ptr(), cc, bw.data_ptr(), w1x_b.data_ptr(),
-        s_bn.data_ptr(), t_bn.data_ptr(), w2_b.data_ptr(), b2.data_ptr(),
-        a_dim, hop_f, win_f, n_windows, n_rows, hx.data_ptr(), out.data_ptr(),
+        "asp_grid_stats", xb.data_ptr(), xb.shape[1], first_f, cc,
+        bw.data_ptr(), w1x_b.data_ptr(), s_bn.data_ptr(), t_bn.data_ptr(),
+        w2_b.data_ptr(), a_dim, hop_f, win_f, n_windows, n_rows,
+        x_t.data_ptr(), hx.data_ptr(), out.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     return out
 

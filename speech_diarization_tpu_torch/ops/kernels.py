@@ -34,14 +34,15 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # kernel name -> (source file, C entry point, ctypes argument types)
 KERNELS = {
     "asp_grid_stats": ("asp_grid.cu", "sdt_asp_grid_stats",
-                       # x_t, cc, bw, w1x, s_bn, t_bn, w2, b2, a_dim, hop_f,
-                       # win_f, n_windows, n_rows, hx, out, stream
-                       [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                        _P, _P, _P]),
+                       # x, t_f, first_f, cc, bw, w1x, s_bn, t_bn, w2, a_dim,
+                       # hop_f, win_f, n_windows, n_rows, x_t, hx, out, stream
+                       [_P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                        _I, _P, _P, _P, _P]),
     "fused_log_mel": ("fused_fbank.cu", "sdt_fused_log_mel",
-                      # y, t, cosw, sinw, mel, n_fft, hop, n_bins, n_mels,
-                      # eps, out, n_frames, stream
-                      [_P, _I, _P, _P, _P, _I, _I, _I, _I, _F, _P, _I, _P]),
+                      # y, t, basis, n_ksteps, mel_idx, mel_w, nnz, n_fft,
+                      # hop, n_mels, eps, out, n_frames, stream
+                      [_P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _F, _P, _I,
+                       _P]),
 }
 
 LAUNCHES: dict[str, int] = {name: 0 for name in KERNELS}

@@ -1,5 +1,11 @@
 """The PyTorch port's DSP front against the JAX package.
 
+The host-side pieces of kernel K2 (even/odd fold, TF32 split, fragment
+order of the basis, mel bin ranges) are held against the plain version
+here: folded log-mel 1e-5 against ``_log_mel_1d``; the three-product TF32
+scheme inside the card tolerance (1e-4 of the largest magnitude) on a
+loud-plus-quiet signal where a single TF32 pass is outside it.
+
 Inputs come from numpy seeds.  Bars: log-mel atol 2e-3 (the fused-fbank bar
 of tests/test_pallas_fbank.py); framing and pre-emphasis 1e-6; loudness
 0.01 LU against the exact IIR meter of the JAX package (the port's FIR
@@ -23,8 +29,13 @@ from speech_diarization_tpu.train.synthetic import make_conversation
 from speech_diarization_tpu_torch.dsp.framing import frame_signal, num_frames
 from speech_diarization_tpu_torch.dsp.loudness import integrated_loudness
 from speech_diarization_tpu_torch.dsp.mel import (
+    _basis_fragments,
+    _folded_basis,
     _log_mel_1d,
+    _log_mel_folded,
     _mel_filterbank_np,
+    _mel_sparse,
+    _tf32_split,
     fused_log_mel,
 )
 from speech_diarization_tpu_torch.dsp.preprocess import preemphasis
@@ -106,3 +117,103 @@ def test_chunk_loudness_matches_jax(case):
         assert out == ref == -200.0
     else:
         assert abs(out - ref) < 0.01, (out, ref)
+
+
+@pytest.mark.parametrize("n_samples", [16000, 63 * 160, 80000, 201])
+def test_folded_log_mel_matches_plain_and_jax(n_samples):
+    """The even/odd fold is exact in real arithmetic.  In float32, at the
+    main path's 40 mels on white noise, it agrees with the blocked DFT to
+    1e-5 and with the JAX package to its 2e-3."""
+    y = (0.3 * np.random.default_rng(n_samples).standard_normal(n_samples)
+         ).astype(np.float32)
+    out = _log_mel_folded(torch.from_numpy(y), n_mels=40).numpy()
+    plain = _log_mel_1d(torch.from_numpy(y), n_mels=40).numpy()
+    assert out.shape == plain.shape == (n_samples // 160 + 1, 40)
+    np.testing.assert_allclose(out, plain, atol=1e-5)
+    ref = np.asarray(jlog_mel(jnp.asarray(y)[None], sample_rate=SR, n_mels=40))[0]
+    np.testing.assert_allclose(out, ref, atol=2e-3)
+
+
+@pytest.mark.parametrize("seed,n_mels", [(0, 40), (1, 40), (0, 80), (2, 80)])
+def test_folded_log_mel_on_speech_within_the_card_tolerance(seed, n_mels):
+    """Speech has quiet bands next to loud ones, where two float32
+    summation orders differ by more than 1e-5 in the log; the fold stays
+    inside the kernel's tolerance on the card (1e-4 of the largest
+    magnitude) with room to spare, and inside the JAX bar."""
+    y = _speech(3.0, seed)
+    out = _log_mel_folded(torch.from_numpy(y), n_mels=n_mels).numpy()
+    plain = _log_mel_1d(torch.from_numpy(y), n_mels=n_mels).numpy()
+    assert np.abs(out - plain).max() <= 0.3 * 1e-4 * np.abs(plain).max()
+    ref = np.asarray(jlog_mel(jnp.asarray(y)[None], sample_rate=SR,
+                              n_mels=n_mels))[0]
+    np.testing.assert_allclose(out, ref, atol=2e-3)
+
+
+def _loud_plus_quiet(seed: int, tone_hz: float) -> np.ndarray:
+    """A loud tone over noise 36 dB below it: most mel bands sit far under
+    the tone's bins and see their rounding error.  (At 60 dB two float32
+    evaluations already differ by more than the card tolerance.)"""
+    n = np.arange(2 * SR)
+    rng = np.random.default_rng(seed)
+    return (0.6 * np.sin(2 * np.pi * tone_hz / SR * n)
+            + 1e-2 * rng.standard_normal(n.size)).astype(np.float32)
+
+
+@pytest.mark.parametrize("seed,tone_hz", [(0, 440.0), (1, 173.0), (2, 1000.0),
+                                          (3, 3000.0), (4, 60.0)])
+def test_three_tf32_products_hold_the_card_tolerance_one_pass_does_not(
+        seed, tone_hz):
+    y = torch.from_numpy(_loud_plus_quiet(seed, tone_hz))
+    plain = _log_mel_1d(y, n_mels=40)
+    tol = 1e-4 * plain.abs().max().item()
+    err3 = (_log_mel_folded(y, n_mels=40, split="3xtf32") - plain).abs().max().item()
+    err1 = (_log_mel_folded(y, n_mels=40, split="tf32") - plain).abs().max().item()
+    assert err3 <= tol, (err3, tol)
+    assert err1 > 10 * tol, (err1, tol)
+
+
+@pytest.mark.parametrize("scale", [1.0, 1e-4, 37.5])
+def test_tf32_split_parts(scale):
+    a = (scale * np.random.default_rng(3).standard_normal(4096)).astype(np.float32)
+    hi, lo = _tf32_split(a)
+    for part in (hi, lo):       # TF32: the low 13 mantissa bits are zero
+        assert not (part.view(np.uint32) & np.uint32(0x1FFF)).any()
+    assert np.abs(hi - a).max() <= 2.0 ** -11 * np.abs(a).max()
+    assert np.abs(hi.astype(np.float64) + lo - a).max() <= 2.0 ** -21 * np.abs(a).max()
+
+
+@pytest.mark.parametrize("n_fft", [400, 200])
+def test_basis_fragments_follow_the_mma_b_fragment_order(n_fft):
+    """Reading the packed basis the way the kernel's lanes do gives back
+    the split folded basis, zero-padded in taps and bins."""
+    frag = _basis_fragments(n_fft)
+    n_ks = -(-(n_fft // 2) // 8)
+    assert frag.shape == (n_ks, 2, 26, 32, 4) and frag.dtype == np.float32
+    for part, mat in enumerate(_folded_basis(n_fft)):
+        half, n_bins = mat.shape
+        hi, lo = (np.pad(p, ((0, n_ks * 8 - half), (0, 208 - n_bins)))
+                  for p in _tf32_split(mat))
+        lane = np.arange(32)
+        g, t = lane >> 2, lane & 3
+        for ks in range(n_ks):
+            for tile in (0, 7, 25):
+                k, n = 8 * ks + t, 8 * tile + g
+                want = np.stack([hi[k, n], hi[k + 4, n], lo[k, n], lo[k + 4, n]], 1)
+                np.testing.assert_array_equal(frag[ks, part, tile], want)
+
+
+@pytest.mark.parametrize("n_mels,f_max", [(40, 7900.0), (80, 7900.0), (64, 8000.0)])
+def test_packed_mel_filterbank_keeps_every_nonzero_weight(n_mels, f_max):
+    fb = _mel_filterbank_np(201, 20.0, f_max, n_mels, SR)
+    idx, w = _mel_sparse(fb)
+    assert idx.dtype == np.int32 and idx.shape == (3, n_mels)
+    assert w.dtype == np.float32 and w.shape == ((idx[1] - idx[0]).sum(),)
+    dense = np.zeros_like(fb)
+    for m, (lo, hi, off) in enumerate(idx.T):
+        dense[lo:hi, m] = w[off:off + hi - lo]
+    np.testing.assert_array_equal(dense, fb)
+    # the walk the kernel makes over a power row gives the dense product
+    power = np.random.default_rng(0).random((5, 201)).astype(np.float32)
+    sparse = np.stack([power[:, lo:hi] @ w[off:off + hi - lo]
+                       for lo, hi, off in idx.T], 1)
+    np.testing.assert_allclose(sparse, power @ fb, rtol=1e-6)

@@ -26,6 +26,9 @@ from speech_diarization_tpu.train.recipes import load_speaker_encoder as jload_e
 from speech_diarization_tpu.train.synthetic import make_conversation
 from speech_diarization_tpu_torch.models.ecapa import (
     _asp_grid_stats_plain,
+    _asp_grid_stats_tiled,
+    _k1_features,
+    _rows_from,
     asp_grid_stats,
 )
 from speech_diarization_tpu_torch.models.layers import sliding_mean_time
@@ -230,3 +233,40 @@ def test_shared_log_mel_serves_vad_and_encoder():
                                           hop, backend="decomposed"))
     cmin, _ = _cos_rel(ref, grid)
     assert cmin > 0.9999, cmin
+
+
+@pytest.mark.parametrize("t_f,first_f,n_rows,dtype", [
+    (64, 3, 40, torch.bfloat16), (61, 0, 61, torch.float32),
+    (50, 7, 55, torch.float32), (33, 30, 20, torch.bfloat16)])
+def test_k1_features_are_channel_major_rows_with_zero_overrun(t_f, first_f,
+                                                              n_rows, dtype):
+    """The kernel's feature map holds the rows ``_rows_from`` hands the
+    plain version, channel-major in bf16, zero where the grid overruns."""
+    x = torch.from_numpy(np.random.default_rng(t_f).standard_normal(
+        (16, t_f)).astype(np.float32)).to(dtype)
+    xb = _k1_features(x, first_f, n_rows)
+    assert xb.dtype == torch.bfloat16 and xb.is_contiguous()
+    assert xb.shape == (16, max(t_f, first_f + n_rows))
+    want = _rows_from(x, first_f, n_rows).to(torch.bfloat16)
+    torch.testing.assert_close(xb[:, first_f:first_f + n_rows].t(), want,
+                               rtol=0, atol=0)
+    if dtype == torch.bfloat16 and first_f + n_rows <= t_f:
+        assert xb.data_ptr() == x.data_ptr()       # no copy on the main path
+
+
+@pytest.mark.parametrize("first_f,hop_f,win_f,n_windows,overrun", [
+    (0, 4, 17, 10, 0), (8, 4, 16, 5, 0), (3, 10, 201, 3, 0), (2, 3, 64, 7, 0),
+    (5, 3, 37, 7, 4), (1, 10, 201, 2, 11), (0, 1, 1, 4, 0)])
+def test_k1_tiled_flow_matches_plain(first_f, hop_f, win_f, n_windows, overrun):
+    """Rows padded to a multiple of 8 and masked to -inf, transposed logits,
+    no b2, exp2 with the scale folded in: the kernel's data flow gives the
+    plain version's stats (1e-5 of the largest; the card bar is 2e-3)."""
+    net, params, _ = _tiny_net()
+    x = _x(net.cat_channels, first_f, hop_f, win_f, n_windows, seed=6)
+    args = _stats_args(net, params, x, first_f, hop_f, win_f, n_windows)
+    args[0] = args[0][:, :x.shape[1] - 3 - overrun]
+    args = [torch.from_numpy(np.ascontiguousarray(a)) for a in args]
+    ref = _asp_grid_stats_plain(*args, first_f, hop_f, win_f, n_windows)
+    out = _asp_grid_stats_tiled(*args, first_f, hop_f, win_f, n_windows)
+    assert out.shape == ref.shape
+    assert (out - ref).abs().max() <= 1e-5 * ref.abs().max()

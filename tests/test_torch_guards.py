@@ -14,7 +14,8 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "speech_diarization_tpu_torch"
 SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                        ROOT / "scripts" / "torch_profile_diarize.py"]
+                                        ROOT / "scripts" / "torch_profile_diarize.py",
+                                        ROOT / "scripts" / "torch_kernel_check.py"]
 
 
 def _imports(path: Path) -> set[str]:
