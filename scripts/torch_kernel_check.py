@@ -1,20 +1,21 @@
 """Build both CUDA kernels of the PyTorch port, print the compiler's report
 (registers, shared memory, spills) and hold each kernel against its plain
-version at the main-path shapes and at ragged ones, with times.  A short
-first call for a new or edited kernel; ``chip_smoke.py`` is the full check.
+version at the main-path shapes and at ragged ones, with times per wrapper
+call (CUDA events) and per ``__global__`` function (``torch.profiler``).  A
+short first call for a new or edited kernel; ``chip_smoke.py`` is the full
+check.
 
-    python3 scripts/torch_kernel_check.py [--no-time] [--sass]
+    python3 scripts/torch_kernel_check.py
 
-``--sass`` also disassembles the built libraries (``cuobjdump -sass``) and
-prints, per ``__global__`` function, its instruction count and the length
-of its longest loop (for K1's window kernel: the per-tile loop).
+It also disassembles the built libraries (``cuobjdump -sass``) and prints,
+per ``__global__`` function, its instruction count and the length of its
+longest loop (for K1's window kernel: the per-tile loop).
 
 Needs a CUDA card.  Inputs are random (seeded); tolerances are
 ``chip_smoke.py``'s.
 """
 from __future__ import annotations
 
-import argparse
 import re
 import subprocess
 import sys
@@ -43,11 +44,6 @@ def sass_report(lib: Path) -> None:
 
 
 def main() -> int:
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--no-time", action="store_true")
-    ap.add_argument("--sass", action="store_true")
-    args = ap.parse_args()
-
     import torch
 
     if not torch.cuda.is_available():
@@ -70,9 +66,8 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "warning" in line:
                 print(f"{name}: {line.strip()}")
-    if args.sass:
-        for name in kernels.KERNELS:
-            sass_report(kernels._lib_path(name))
+    for name in kernels.KERNELS:
+        sass_report(kernels._lib_path(name))
     dev = torch.device("cuda")
     enc = load_speaker_encoder(ROOT / "weights" / "ecapa_robust_stream.npz",
                                dtype=torch.bfloat16).to(dev).eval()
@@ -90,21 +85,21 @@ def main() -> int:
         print(f"asp_grid_stats: max abs err {(out - ref).abs().max().item():.3e} "
               f"of max {ref.abs().max().item():.3f}")
         chip_smoke.ragged_sweep(enc, dev)
-        if not args.no_time:
-            for _ in range(2):
-                print(f"fused_log_mel {chip_smoke.cuda_time_ms(lambda: fused_log_mel(y, n_mels=40), 50):.4f} ms, "
-                      f"asp_grid_stats {chip_smoke.cuda_time_ms(lambda: asp_grid_stats(*a), 50):.4f} ms")
-            from torch.profiler import ProfilerActivity, profile
+        for _ in range(2):
+            k2 = chip_smoke.cuda_time_ms(lambda: fused_log_mel(y, n_mels=40), 50)
+            k1 = chip_smoke.cuda_time_ms(lambda: asp_grid_stats(*a), 50)
+            print(f"fused_log_mel {k2:.4f} ms, asp_grid_stats {k1:.4f} ms")
+        from torch.profiler import ProfilerActivity, profile
 
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                for _ in range(10):
-                    fused_log_mel(y, n_mels=40)
-                    asp_grid_stats(*a)
-                torch.cuda.synchronize()
-            for e in prof.key_averages():
-                if e.count >= 10:
-                    print(f"{e.device_time_total / e.count / 1e3:9.4f} ms  "
-                          f"x{e.count}  {e.key[:70]}")
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                fused_log_mel(y, n_mels=40)
+                asp_grid_stats(*a)
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            if e.count >= 10:
+                print(f"{e.device_time_total / e.count / 1e3:9.4f} ms  "
+                      f"x{e.count}  {e.key[:70]}")
     return 0
 
 

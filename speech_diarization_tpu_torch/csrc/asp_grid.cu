@@ -37,8 +37,8 @@
 //    x_t [rows, CC] that phase 2 wants: every window tile is then rows of
 //    128 aligned bytes, whatever T_f and first_f are.
 //  * Phase 2 (asp_window_kernel): one block of eight warps owns a window.
-//    It computes the window's tanh activations ONCE (rows padded to a
-//    multiple of 8 with zeros, bf16, 30 KB in shared memory; tanh through
+//    It computes the window's tanh activations ONCE (rows padded to 208
+//    with zeros, bf16, 30 KB in shared memory; tanh through
 //    ex2 and a reciprocal), then walks the channels in tiles of 64.  Per
 //    tile the logits are computed transposed, e^T [64 ch, rows] =
 //    w2_tile [64, 64] . a^T: A fragments come from the staged w2 tile, B
@@ -54,6 +54,13 @@
 //    channels (mma row g is channel 2g, row g+8 channel 2g+1).  The two row
 //    halves meet as (max, sum p, sum p x, sum p x^2) in shared memory and
 //    are merged one tile later.
+//  * A window of more than 208 rows is walked in chunks of 208: each chunk
+//    is a window of its own to everything above, and its (max, sum p,
+//    sum p x, sum p x^2) per channel is merged into a running state in
+//    shared memory (16 bytes a channel, asked for only when there is more
+//    than one chunk: it costs the second resident block of an SM).  So one
+//    build takes any win_f; the main path's 201 rows are one chunk and
+//    never touch the state.
 //  * The two warps of a channel group form a pair that copies its own slice
 //    of every tile (16-byte cp.async, the next tile in flight while this one
 //    is computed) and meets only its partner, at a named barrier; the four
@@ -75,6 +82,14 @@ constexpr int A_STRIDE = 72;     // bf16 per staged row of a / w2 (144 B)
 constexpr int CT = 64;           // channels per phase-2 tile
 constexpr int P1_THREADS = 128;  // four warps: 16 rows, a quarter of K each
 constexpr int P2_THREADS = 256;  // eight warps: 4 x 16 channels, 2 row halves
+constexpr int NTW = 13;          // 8-row tiles per warp of phase 2
+constexpr int ROWS = 2 * NTW * 8;   // rows per chunk of a window: 208
+// phase 2's shared memory: activations, two w2 tiles, two x tiles, the row
+// halves' partial stats; past it the running state of a window of several
+// chunks, one float4 a channel
+constexpr size_t P2_SMEM =
+    sizeof(__nv_bfloat16) * (ROWS * A_STRIDE + 2 * CT * A_STRIDE + 2 * ROWS * A_STRIDE) +
+    2 * 2 * CT * sizeof(float4);
 
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
                                          uint32_t b0, uint32_t b1) {
@@ -198,8 +213,7 @@ asp_preproj_kernel(const unsigned short* __restrict__ x,   // [cc, t_f] bf16
   }
 }
 
-template <int NT>   // window rows padded to NT * 8
-__global__ void __launch_bounds__(P2_THREADS, (NT <= 26 ? 2 : 1))
+__global__ void __launch_bounds__(P2_THREADS, 2)
 asp_window_kernel(const __nv_bfloat16* __restrict__ x_t,  // [n_rows, cc]
                   int n_rows, int cc,
                   const float* __restrict__ hx,            // [n_rows, A_DIM]
@@ -209,19 +223,16 @@ asp_window_kernel(const __nv_bfloat16* __restrict__ x_t,  // [n_rows, cc]
                   const __nv_bfloat16* __restrict__ w2,    // [cc, A_DIM]
                   int hop_f, int win_f,
                   float* __restrict__ out) {               // [W, 2*cc]
-  static_assert(NT % 2 == 0, "the window's row tiles are split over two warps");
   static_assert(P2_THREADS == 2 * 32 * (CT / 16), "a pair of warps per 16 channels");
-  constexpr int NTW = NT / 2;      // row tiles per warp
-  constexpr int ROWS = NT * 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* a_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [ROWS][A_STRIDE]
   __nv_bfloat16* w2_s = a_s + ROWS * A_STRIDE;                      // [2][CT][A_STRIDE]
   __nv_bfloat16* x_s = w2_s + 2 * CT * A_STRIDE;                    // [2][ROWS][A_STRIDE]
   // per tile buffer, row half and channel: (max, sum p, sum p x, sum p x^2)
   float4* part = reinterpret_cast<float4*>(x_s + 2 * ROWS * A_STRIDE);   // [2][2][CT]
+  float4* state = part + 2 * 2 * CT;   // [cc], only when win_f > ROWS
   const int tid = threadIdx.x;
   const int j = blockIdx.x;
-  const int w_first = j * hop_f;   // window's first row among the grid's
   const int n_ct = cc / CT;
   const float L2E = 1.4426950408889634f;
   const float NEG_INF = __int_as_float(0xff800000);
@@ -234,15 +245,16 @@ asp_window_kernel(const __nv_bfloat16* __restrict__ x_t,  // [n_rows, cc]
   const int g = lane >> 2, tq = lane & 3;
   const int cg = warp >> 1;                 // 16 channels of the tile
   const int rh = warp & 1;                  // row half
-  const int row0 = rh * NTW * 8;            // this warp's first window row
+  const int row0 = rh * NTW * 8;            // this warp's first row of a chunk
   const int pt = rh * 32 + lane;            // thread within the pair
   auto pair_barrier = [&]() {
     asm volatile("bar.sync %0, 64;" ::"r"(1 + cg) : "memory");
   };
 
   // The pair's slice of a tile: w2 rows of its 16 channels (128 B each, two
-  // chunks a thread) and the window's rows of those channels in x_t (32 B a
-  // row, KX chunks a thread).  All but the tile index is fixed per thread.
+  // pieces a thread) and the chunk's rows of those channels in x_t (32 B a
+  // row, KX pieces a thread).  All but the tile and the chunk is fixed per
+  // thread.
   constexpr int KX = (ROWS * 2 + 63) / 64;
   const uint32_t smem_u = (uint32_t)__cvta_generic_to_shared(smem_raw);
   const int w2_row = cg * 16 + (pt >> 3);
@@ -251,73 +263,7 @@ asp_window_kernel(const __nv_bfloat16* __restrict__ x_t,  // [n_rows, cc]
   const int x_r = pt >> 1;
   const int x_col = cg * 16 + (pt & 1) * 8;
   const uint32_t x_dst = smem_u + 2 * ((ROWS + 2 * CT + x_r) * A_STRIDE + x_col);
-  const __nv_bfloat16* x_src = x_t + (size_t)(w_first + x_r) * cc + x_col;
   const size_t x_step = (size_t)32 * cc;
-  auto load_tile = [&](int ct, int buf) {
-    const uint32_t wd = w2_dst + buf * (2 * CT * A_STRIDE);
-    const __nv_bfloat16* ws = w2_src + (size_t)ct * CT * A_DIM;
-    cp_async16s(wd, ws);
-    cp_async16s(wd + 2 * 8 * A_STRIDE, ws + 8 * A_DIM);
-    const uint32_t xd = x_dst + buf * (2 * ROWS * A_STRIDE);
-    const __nv_bfloat16* xs = x_src + ct * CT;
-#pragma unroll
-    for (int k = 0; k < KX; ++k)
-      if (x_r + 32 * k < win_f)
-        cp_async16s(xd + 2 * 32 * k * A_STRIDE, xs + k * x_step);
-    cp_async_commit();
-  };
-  // rows past win_f stay zero in both buffers: with p = 0 there, 0 * x = 0
-#pragma unroll
-  for (int k = 0; k < KX; ++k) {
-    const int r = x_r + 32 * k;
-    if (r >= win_f && r < ROWS) {
-      *reinterpret_cast<uint4*>(x_s + r * A_STRIDE + x_col) = make_uint4(0u, 0u, 0u, 0u);
-      *reinterpret_cast<uint4*>(x_s + (ROWS + r) * A_STRIDE + x_col) =
-          make_uint4(0u, 0u, 0u, 0u);
-    }
-  }
-  // the two row halves of channel tile ct -> that tile's stats
-  auto merge_store = [&](int ct, int buf) {
-    const int ch = cg * 16 + pt;             // pt < 16
-    const float4 p0 = part[(buf * 2 + 0) * CT + ch];
-    const float4 p1 = part[(buf * 2 + 1) * CT + ch];
-    const float m = fmaxf(p0.x, p1.x);       // finite: row 0 is in half 0
-    const float f0 = ex2((p0.x - m) * L2E), f1 = ex2((p1.x - m) * L2E);
-    const float iz = 1.f / (p0.y * f0 + p1.y * f1);
-    const float mu = (p0.z * f0 + p1.z * f1) * iz;
-    const float m2 = (p0.w * f0 + p1.w * f1) * iz;
-    float* o = out + (size_t)j * 2 * cc + ct * CT + ch;
-    o[0] = mu;
-    o[cc] = sqrtf(fmaxf(m2 - mu * mu, 1e-12f));
-  };
-  load_tile(0, 0);
-
-  // the window's activations, once: a_s[r][a], zero rows past win_f.  A
-  // thread keeps its two attention units and walks the rows eight apart.
-  {
-    const int a = (tid & 31) * 2;
-    const float2 b = *reinterpret_cast<const float2*>(bw + (size_t)j * A_DIM + a);
-    const float2 s = *reinterpret_cast<const float2*>(s_bn + a);
-    const float2 sh = *reinterpret_cast<const float2*>(t_bn + a);
-    const float* hw = hx + (size_t)w_first * A_DIM + a;
-#pragma unroll 13
-    for (int r = tid >> 5; r < ROWS; r += P2_THREADS / 32) {
-      float v0 = 0.f, v1 = 0.f;
-      if (r < win_f) {
-        const float2 h = *reinterpret_cast<const float2*>(hw + (size_t)r * A_DIM);
-        v0 = tanh_fast(fmaxf(h.x + b.x, 0.f) * s.x + sh.x);
-        v1 = tanh_fast(fmaxf(h.y + b.y, 0.f) * s.y + sh.y);
-      }
-      *reinterpret_cast<__nv_bfloat162*>(a_s + r * A_STRIDE + a) =
-          __floats2bfloat162_rn(v0, v1);
-    }
-  }
-  __syncthreads();   // a_s is complete; from here on only pairs meet
-
-  // fixed per thread over the tiles: fragment addresses, and which of its
-  // columns lie inside the window (column i*8 + k of this thread is window
-  // row row0 + 2*tq + i*8 + k: inside iff i*8 + k < nv)
-  const int nv = win_f - row0 - 2 * tq;
   // mma row g is channel 2g of the warp's 16, row g+8 channel 2g+1: a
   // thread's two channels are neighbours, one 32-bit word of x_s
   const int ch = cg * 16 + 2 * g;   // first of the two channels, in the tile
@@ -326,110 +272,183 @@ asp_window_kernel(const __nv_bfloat16* __restrict__ x_t,  // [n_rows, cc]
   const uint32_t* xw0 =
       reinterpret_cast<const uint32_t*>(x_s + (row0 + 2 * tq) * A_STRIDE + ch);
 
-  for (int ct = 0; ct < n_ct; ++ct) {
-    const int buf = ct & 1;
-    cp_async_wait_all();
-    pair_barrier();    // the pair's slice of tile ct and its partial stats of
-                       // tile ct-1 are visible; its slice of buffer buf^1 is free
-    if (ct + 1 < n_ct) load_tile(ct + 1, buf ^ 1);
-    if (ct > 0 && pt < 16) merge_store(ct - 1, buf ^ 1);
-
-    // logits e^T[this warp's 16 channels][its NTW*8 rows]
-    const __nv_bfloat16* w2b = w2w + buf * (CT * A_STRIDE);
-    // the accumulators start at 0 inside the window and at -inf outside it,
-    // which is all the masking the softmax needs
-    float acc[NTW][4];
+  // the window's rows in chunks of ROWS: c0 the chunk's first window row, wl
+  // its length.  The main path's windows are one chunk.
+  for (int c0 = 0; c0 < win_f; c0 += ROWS) {
+    const int wl = min(ROWS, win_f - c0);
+    const int c_first = j * hop_f + c0;   // chunk's first row among the grid's
+    if (c0) __syncthreads();   // every warp is done with the chunk before
+    const __nv_bfloat16* x_src = x_t + (size_t)(c_first + x_r) * cc + x_col;
+    auto load_tile = [&](int ct, int buf) {
+      const uint32_t wd = w2_dst + buf * (2 * CT * A_STRIDE);
+      const __nv_bfloat16* ws = w2_src + (size_t)ct * CT * A_DIM;
+      cp_async16s(wd, ws);
+      cp_async16s(wd + 2 * 8 * A_STRIDE, ws + 8 * A_DIM);
+      const uint32_t xd = x_dst + buf * (2 * ROWS * A_STRIDE);
+      const __nv_bfloat16* xs = x_src + ct * CT;
 #pragma unroll
-    for (int i = 0; i < NTW; ++i) {
-      acc[i][0] = acc[i][2] = i * 8 < nv ? 0.f : NEG_INF;
-      acc[i][1] = acc[i][3] = i * 8 + 1 < nv ? 0.f : NEG_INF;
-    }
-    // two k-steps at a time: their A fragments, then one ldmatrix per row
-    // tile for its B fragments of both
+      for (int k = 0; k < KX; ++k)
+        if (x_r + 32 * k < wl)
+          cp_async16s(xd + 2 * 32 * k * A_STRIDE, xs + k * x_step);
+      cp_async_commit();
+    };
+    // rows past wl stay zero in both buffers: with p = 0 there, 0 * x = 0
 #pragma unroll
-    for (int kp = 0; kp < 2; ++kp) {
-      uint32_t af[2][4];
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const __nv_bfloat16* w = w2b + (2 * kp + h) * 16;
-        af[h][0] = *reinterpret_cast<const uint32_t*>(w);
-        af[h][1] = *reinterpret_cast<const uint32_t*>(w + A_STRIDE);
-        af[h][2] = *reinterpret_cast<const uint32_t*>(w + 8);
-        af[h][3] = *reinterpret_cast<const uint32_t*>(w + A_STRIDE + 8);
+    for (int k = 0; k < KX; ++k) {
+      const int r = x_r + 32 * k;
+      if (r >= wl && r < ROWS) {
+        *reinterpret_cast<uint4*>(x_s + r * A_STRIDE + x_col) = make_uint4(0u, 0u, 0u, 0u);
+        *reinterpret_cast<uint4*>(x_s + (ROWS + r) * A_STRIDE + x_col) =
+            make_uint4(0u, 0u, 0u, 0u);
       }
+    }
+    // the two row halves of channel tile ct, and the chunks before this one,
+    // -> that tile's stats.  A channel is always merged by the same thread.
+    auto merge_store = [&](int ct, int buf) {
+      const int mc = cg * 16 + pt;             // pt < 16
+      const float4 p0 = part[(buf * 2 + 0) * CT + mc];
+      const float4 p1 = part[(buf * 2 + 1) * CT + mc];
+      float m = fmaxf(p0.x, p1.x);             // finite: row 0 is in half 0
+      const float f0 = ex2((p0.x - m) * L2E), f1 = ex2((p1.x - m) * L2E);
+      float z = p0.y * f0 + p1.y * f1;
+      float s1 = p0.z * f0 + p1.z * f1;
+      float s2 = p0.w * f0 + p1.w * f1;
+      if (c0) {
+        const float4 st = state[ct * CT + mc];
+        const float mm = fmaxf(m, st.x);
+        const float fc = ex2((m - mm) * L2E), fs = ex2((st.x - mm) * L2E);
+        m = mm;
+        z = z * fc + st.y * fs;
+        s1 = s1 * fc + st.z * fs;
+        s2 = s2 * fc + st.w * fs;
+      }
+      if (c0 + ROWS < win_f) {
+        state[ct * CT + mc] = make_float4(m, z, s1, s2);
+        return;
+      }
+      const float iz = 1.f / z;
+      const float mu = s1 * iz;
+      const float m2 = s2 * iz;
+      float* o = out + (size_t)j * 2 * cc + ct * CT + mc;
+      o[0] = mu;
+      o[cc] = sqrtf(fmaxf(m2 - mu * mu, 1e-12f));
+    };
+    load_tile(0, 0);
+
+    // the chunk's activations, once: a_s[r][a], zero rows past wl.  A
+    // thread keeps its two attention units and walks the rows eight apart.
+    {
+      const int a = (tid & 31) * 2;
+      const float2 b = *reinterpret_cast<const float2*>(bw + (size_t)j * A_DIM + a);
+      const float2 s = *reinterpret_cast<const float2*>(s_bn + a);
+      const float2 sh = *reinterpret_cast<const float2*>(t_bn + a);
+      const float* hw = hx + (size_t)c_first * A_DIM + a;
+#pragma unroll 13
+      for (int r = tid >> 5; r < ROWS; r += P2_THREADS / 32) {
+        float v0 = 0.f, v1 = 0.f;
+        if (r < wl) {
+          const float2 h = *reinterpret_cast<const float2*>(hw + (size_t)r * A_DIM);
+          v0 = tanh_fast(fmaxf(h.x + b.x, 0.f) * s.x + sh.x);
+          v1 = tanh_fast(fmaxf(h.y + b.y, 0.f) * s.y + sh.y);
+        }
+        *reinterpret_cast<__nv_bfloat162*>(a_s + r * A_STRIDE + a) =
+            __floats2bfloat162_rn(v0, v1);
+      }
+    }
+    __syncthreads();   // a_s is complete; from here on only pairs meet
+
+    // fixed per thread over the tiles: which of its columns lie inside the
+    // chunk (column i*8 + k of this thread is chunk row row0 + 2*tq + i*8 + k:
+    // inside iff i*8 + k < nv)
+    const int nv = wl - row0 - 2 * tq;
+
+    for (int ct = 0; ct < n_ct; ++ct) {
+      const int buf = ct & 1;
+      cp_async_wait_all();
+      pair_barrier();    // the pair's slice of tile ct and its partial stats of
+                         // tile ct-1 are visible; its slice of buffer buf^1 is free
+      if (ct + 1 < n_ct) load_tile(ct + 1, buf ^ 1);
+      if (ct > 0 && pt < 16) merge_store(ct - 1, buf ^ 1);
+
+      // logits e^T[this warp's 16 channels][its NTW*8 rows]
+      const __nv_bfloat16* w2b = w2w + buf * (CT * A_STRIDE);
+      // the accumulators start at 0 inside the window and at -inf outside it,
+      // which is all the masking the softmax needs
+      float acc[NTW][4];
 #pragma unroll
       for (int i = 0; i < NTW; ++i) {
-        uint32_t b[4];
-        ldmatrix_x4(b, a_l + i * 8 * A_STRIDE + kp * 32);
-        mma_bf16(acc[i], af[0], b[0], b[1]);
-        mma_bf16(acc[i], af[1], b[2], b[3]);
+        acc[i][0] = acc[i][2] = i * 8 < nv ? 0.f : NEG_INF;
+        acc[i][1] = acc[i][3] = i * 8 + 1 < nv ? 0.f : NEG_INF;
+      }
+      // two k-steps at a time: their A fragments, then one ldmatrix per row
+      // tile for its B fragments of both
+#pragma unroll
+      for (int kp = 0; kp < 2; ++kp) {
+        uint32_t af[2][4];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const __nv_bfloat16* w = w2b + (2 * kp + h) * 16;
+          af[h][0] = *reinterpret_cast<const uint32_t*>(w);
+          af[h][1] = *reinterpret_cast<const uint32_t*>(w + A_STRIDE);
+          af[h][2] = *reinterpret_cast<const uint32_t*>(w + 8);
+          af[h][3] = *reinterpret_cast<const uint32_t*>(w + A_STRIDE + 8);
+        }
+#pragma unroll
+        for (int i = 0; i < NTW; ++i) {
+          uint32_t b[4];
+          ldmatrix_x4(b, a_l + i * 8 * A_STRIDE + kp * 32);
+          mma_bf16(acc[i], af[0], b[0], b[1]);
+          mma_bf16(acc[i], af[1], b[2], b[3]);
+        }
+      }
+
+      // softmax over this warp's rows: channel ch in acc[..][0..1], channel
+      // ch + 1 in acc[..][2..3]; window rows row0 + i*8 + 2*tq + {0, 1}
+      float m_lo = NEG_INF, m_hi = NEG_INF;
+#pragma unroll
+      for (int i = 0; i < NTW; ++i) {
+        m_lo = fmaxf(m_lo, fmaxf(acc[i][0], acc[i][1]));
+        m_hi = fmaxf(m_hi, fmaxf(acc[i][2], acc[i][3]));
+      }
+      m_lo = quad_max(m_lo);
+      m_hi = quad_max(m_hi);
+      // a half with no row inside the window: p = ex2(-inf) = 0, not NaN
+      const float nm_lo = m_lo == NEG_INF ? 0.f : -m_lo * L2E;
+      const float nm_hi = m_hi == NEG_INF ? 0.f : -m_hi * L2E;
+
+      const uint32_t* xw = xw0 + buf * (ROWS * A_STRIDE / 2);
+      float z_lo = 0.f, s1_lo = 0.f, s2_lo = 0.f;
+      float z_hi = 0.f, s1_hi = 0.f, s2_hi = 0.f;
+#pragma unroll
+      for (int i = 0; i < NTW; ++i) {
+        const uint32_t w0 = xw[i * 8 * (A_STRIDE / 2)];          // row, 2 channels
+        const uint32_t w1 = xw[(i * 8 + 1) * (A_STRIDE / 2)];    // next row
+        const float x0 = __uint_as_float(w0 << 16), x1 = __uint_as_float(w1 << 16);
+        const float x2 = __uint_as_float(w0 & 0xffff0000u);
+        const float x3 = __uint_as_float(w1 & 0xffff0000u);
+        const float p0 = ex2(fmaf(acc[i][0], L2E, nm_lo));
+        const float p1 = ex2(fmaf(acc[i][1], L2E, nm_lo));
+        const float p2 = ex2(fmaf(acc[i][2], L2E, nm_hi));
+        const float p3 = ex2(fmaf(acc[i][3], L2E, nm_hi));
+        const float q0 = p0 * x0, q1 = p1 * x1, q2 = p2 * x2, q3 = p3 * x3;
+        z_lo += p0 + p1;
+        z_hi += p2 + p3;
+        s1_lo += q0 + q1;
+        s1_hi += q2 + q3;
+        s2_lo = fmaf(q0, x0, fmaf(q1, x1, s2_lo));
+        s2_hi = fmaf(q2, x2, fmaf(q3, x3, s2_hi));
+      }
+      z_lo = quad_sum(z_lo);  s1_lo = quad_sum(s1_lo);  s2_lo = quad_sum(s2_lo);
+      z_hi = quad_sum(z_hi);  s1_hi = quad_sum(s1_hi);  s2_hi = quad_sum(s2_hi);
+      if (tq == 0) {
+        float4* pp = part + (buf * 2 + rh) * CT + ch;
+        pp[0] = make_float4(m_lo, z_lo, s1_lo, s2_lo);
+        pp[1] = make_float4(m_hi, z_hi, s1_hi, s2_hi);
       }
     }
-
-    // softmax over this warp's rows: channel ch in acc[..][0..1], channel
-    // ch + 1 in acc[..][2..3]; window rows row0 + i*8 + 2*tq + {0, 1}
-    float m_lo = NEG_INF, m_hi = NEG_INF;
-#pragma unroll
-    for (int i = 0; i < NTW; ++i) {
-      m_lo = fmaxf(m_lo, fmaxf(acc[i][0], acc[i][1]));
-      m_hi = fmaxf(m_hi, fmaxf(acc[i][2], acc[i][3]));
-    }
-    m_lo = quad_max(m_lo);
-    m_hi = quad_max(m_hi);
-    // a half with no row inside the window: p = ex2(-inf) = 0, not NaN
-    const float nm_lo = m_lo == NEG_INF ? 0.f : -m_lo * L2E;
-    const float nm_hi = m_hi == NEG_INF ? 0.f : -m_hi * L2E;
-
-    const uint32_t* xw = xw0 + buf * (ROWS * A_STRIDE / 2);
-    float z_lo = 0.f, s1_lo = 0.f, s2_lo = 0.f;
-    float z_hi = 0.f, s1_hi = 0.f, s2_hi = 0.f;
-#pragma unroll
-    for (int i = 0; i < NTW; ++i) {
-      const uint32_t w0 = xw[i * 8 * (A_STRIDE / 2)];          // row, 2 channels
-      const uint32_t w1 = xw[(i * 8 + 1) * (A_STRIDE / 2)];    // next row
-      const float x0 = __uint_as_float(w0 << 16), x1 = __uint_as_float(w1 << 16);
-      const float x2 = __uint_as_float(w0 & 0xffff0000u);
-      const float x3 = __uint_as_float(w1 & 0xffff0000u);
-      const float p0 = ex2(fmaf(acc[i][0], L2E, nm_lo));
-      const float p1 = ex2(fmaf(acc[i][1], L2E, nm_lo));
-      const float p2 = ex2(fmaf(acc[i][2], L2E, nm_hi));
-      const float p3 = ex2(fmaf(acc[i][3], L2E, nm_hi));
-      const float q0 = p0 * x0, q1 = p1 * x1, q2 = p2 * x2, q3 = p3 * x3;
-      z_lo += p0 + p1;
-      z_hi += p2 + p3;
-      s1_lo += q0 + q1;
-      s1_hi += q2 + q3;
-      s2_lo = fmaf(q0, x0, fmaf(q1, x1, s2_lo));
-      s2_hi = fmaf(q2, x2, fmaf(q3, x3, s2_hi));
-    }
-    z_lo = quad_sum(z_lo);  s1_lo = quad_sum(s1_lo);  s2_lo = quad_sum(s2_lo);
-    z_hi = quad_sum(z_hi);  s1_hi = quad_sum(s1_hi);  s2_hi = quad_sum(s2_hi);
-    if (tq == 0) {
-      float4* pp = part + (buf * 2 + rh) * CT + ch;
-      pp[0] = make_float4(m_lo, z_lo, s1_lo, s2_lo);
-      pp[1] = make_float4(m_hi, z_hi, s1_hi, s2_hi);
-    }
+    pair_barrier();
+    if (pt < 16) merge_store(n_ct - 1, (n_ct - 1) & 1);
   }
-  pair_barrier();
-  if (pt < 16) merge_store(n_ct - 1, (n_ct - 1) & 1);
-}
-
-template <int NT>
-cudaError_t launch_window(const __nv_bfloat16* x_t, int n_rows,
-                          int cc, const float* hx, const float* bw,
-                          const float* s_bn, const float* t_bn,
-                          const __nv_bfloat16* w2, int hop_f, int win_f,
-                          int n_windows, float* out, cudaStream_t st) {
-  constexpr size_t smem = sizeof(__nv_bfloat16) *
-      ((size_t)NT * 8 * A_STRIDE + 2 * CT * A_STRIDE + 2 * NT * 8 * A_STRIDE) +
-      2 * 2 * CT * sizeof(float4);
-  cudaError_t err = cudaFuncSetAttribute(
-      asp_window_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return err;
-  asp_window_kernel<NT><<<n_windows, P2_THREADS, smem, st>>>(
-      x_t, n_rows, cc, hx, bw, s_bn, t_bn, w2, hop_f, win_f, out);
-  return cudaGetLastError();
 }
 
 }  // namespace
@@ -439,7 +458,8 @@ cudaError_t launch_window(const __nv_bfloat16* x_t, int n_rows,
 // first_f + n_rows <= t_f; x_t [n_rows, cc] bf16 and hx [n_rows, a_dim]
 // float32 are caller-allocated scratch, n_rows = (n_windows-1)*hop_f + win_f.
 // cudaErrorInvalidValue for what the kernels do not take: a_dim != 64,
-// cc not a multiple of 64, win_f > 320.
+// cc not a multiple of 64, and with win_f > 208 more channels than the
+// running state has shared memory for (about 7,500).
 extern "C" int sdt_asp_grid_stats(const void* x, int t_f, int first_f, int cc,
                                   const float* bw, const void* w1x,
                                   const float* s_bn, const float* t_bn,
@@ -447,8 +467,9 @@ extern "C" int sdt_asp_grid_stats(const void* x, int t_f, int first_f, int cc,
                                   int win_f, int n_windows, int n_rows,
                                   void* x_t, float* hx, float* out,
                                   void* stream) {
-  if (a_dim != A_DIM || cc % CT || win_f < 1 || win_f > 320 ||
-      first_f + n_rows > t_f)
+  const size_t smem = P2_SMEM + (win_f > ROWS ? cc * sizeof(float4) : 0);
+  if (a_dim != A_DIM || cc % CT || win_f < 1 || first_f + n_rows > t_f ||
+      smem > 232448)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const auto* xtb = static_cast<const __nv_bfloat16*>(x_t);
@@ -459,11 +480,11 @@ extern "C" int sdt_asp_grid_stats(const void* x, int t_f, int first_f, int cc,
       static_cast<uint32_t*>(x_t), hx);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  if (win_f <= 208)
-    err = launch_window<26>(xtb, n_rows, cc, hx, bw, s_bn, t_bn, w2b,
-                            hop_f, win_f, n_windows, out, st);
-  else
-    err = launch_window<40>(xtb, n_rows, cc, hx, bw, s_bn, t_bn, w2b,
-                            hop_f, win_f, n_windows, out, st);
-  return (int)err;
+  err = cudaFuncSetAttribute(asp_window_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  asp_window_kernel<<<n_windows, P2_THREADS, smem, st>>>(
+      xtb, n_rows, cc, hx, bw, s_bn, t_bn, w2b, hop_f, win_f, out);
+  return (int)cudaGetLastError();
 }

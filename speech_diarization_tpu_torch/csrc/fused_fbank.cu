@@ -31,7 +31,11 @@
 //  * The basis (cos|sin, hi|lo: 650 KB) is stored by the host in the order
 //    the B fragments are read, so a lane gets (hi k, hi k+4, lo k, lo k+4)
 //    of its bin with one conflict-free 128-bit shared-memory load.  One
-//    8-tap slice of it (26 KB) is one stage of a three-stage cp.async ring.
+//    8-tap slice of it (26 KB) is one stage of a three-stage ring, filled by
+//    the copy engine: one thread issues one bulk copy (cp.async.bulk) per
+//    slice and an mbarrier counts its bytes.  Filling the ring with
+//    per-thread cp.async (1,664 16-byte copies a slice) cost 15 % of the
+//    kernel's time on the load/store path the fragment reads share.
 //  * One block per 64 frames (110 blocks on the main path, one wave on 132
 //    SMs), so the basis crosses L2 -> shared memory 110 times, not 219.
 //    Eight warps: (real | imaginary) x two 32-frame halves x two 104-bin
@@ -39,13 +43,17 @@
 //    fragment for two frame tiles.  The tile's waveform (42 KB) is staged
 //    once with the reflect pad built on the fly, so no [N, 400] frame
 //    tensor exists.
-//  * The tile's samples are fetched with 4-byte cp.async, all in flight at
-//    once (a plain loop of dependent-latency loads cost as much as the
-//    whole product).
-//  * Power goes to shared memory (real warps write re^2, imaginary warps
-//    add im^2); the mel product walks only each filter's nonzero bins
-//    (triangular filters: ~10 of 201, weights packed by the host and kept
-//    in shared memory) in float32 FMAs, then log.
+//  * The tile's samples are fetched with cp.async, all in flight at once
+//    (16 bytes a copy inside the waveform, 4 at the reflected ends), and
+//    folded without branches, a warp's eight frames of one tap together,
+//    so the loads do not wait on each other.
+//  * Power goes to shared memory bin-major (real warps write re^2,
+//    imaginary warps add im^2).  The mel product walks only each filter's
+//    nonzero bins (triangular filters: ~10 of 201, weights packed by the
+//    host and kept in shared memory) in float32 FMAs: a warp takes one
+//    filter for all 64 frames, so the walk is uniform over the warp, the
+//    weights are broadcasts and the power reads are 32 neighbours.  Then
+//    log, and the tile leaves as one contiguous block.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -59,7 +67,7 @@ constexpr int WARP_NT = 13;     // bin tiles per warp
 constexpr int STAGES = 3;
 // one 8-tap slice of the fragment-ordered basis: [part][bin tile][lane][4]
 constexpr int STAGE_FLOATS = 2 * N_TILES * 32 * 4;
-constexpr int PW_STRIDE = 216;  // floats per power row: conflict-free float2
+constexpr int PW_STRIDE = 68;   // floats per bin of the power tile [bin][frame]
 
 __device__ __forceinline__ uint32_t tf32_rna(float x) {
   uint32_t r;
@@ -89,9 +97,42 @@ __device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;" ::: "memory");
 }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;" ::: "memory");
+}
+
+// One thread's bulk copy global -> shared through the copy engine; `bar`
+// counts the bytes as they land.  Addresses and size are multiples of 16.
+__device__ __forceinline__ void bulk_load(void* smem, const void* gmem,
+                                          uint32_t bytes, uint64_t* bar) {
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(smem);
+  const uint32_t b = (uint32_t)__cvta_generic_to_shared(bar);
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(b),
+               "r"(bytes)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(d),
+      "l"(gmem), "r"(bytes), "r"(b)
+      : "memory");
+}
+
+// Wait until the barrier's phase of the given parity is complete.  The spin
+// is bounded, so a lost copy shows as a wrong result and not as a kernel
+// that never ends.
+__device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t b = (uint32_t)__cvta_generic_to_shared(bar);
+  for (int spin = 0; spin < (1 << 20); ++spin) {
+    uint32_t ok;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(ok)
+        : "r"(b), "r"(parity)
+        : "memory");
+    if (ok) return;
+  }
 }
 
 __global__ void __launch_bounds__(THREADS, 1)
@@ -113,53 +154,74 @@ fused_log_mel_kernel(const float* __restrict__ y, int t,
   float* ys = Bs + STAGES * STAGE_FLOATS;        // [span] padded samples
   int* mi = reinterpret_cast<int*>(ys + span);   // [3][n_mels]
   float* mw = reinterpret_cast<float*>(mi + 3 * n_mels);   // [nnz]
-  float* pw = Bs;                                // [TILE_M][PW_STRIDE], after
+  float* pw = Bs;    // [bins][PW_STRIDE] power, once the products are done
+  float* res = As;   // [TILE_M][n_mels] log-mel, once the products are done
   const int tid = threadIdx.x;
   const int f0 = blockIdx.x * TILE_M;
   const int half = n_fft / 2;
 
+  // slice ks of the basis -> its buffer of the ring, by one thread; the
+  // fence orders the ring's earlier reads before the copy engine's write
+  __shared__ __align__(8) uint64_t full[STAGES];
   auto load_stage = [&](int ks) {
-    const float* src = basis + (size_t)ks * STAGE_FLOATS;
-    float* dst = Bs + (ks % STAGES) * STAGE_FLOATS;
-    for (int i = tid; i < STAGE_FLOATS / 4; i += THREADS)
-      cp_async16(dst + 4 * i, src + 4 * i);
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    bulk_load(Bs + (ks % STAGES) * STAGE_FLOATS,
+              basis + (size_t)ks * STAGE_FLOATS,
+              STAGE_FLOATS * sizeof(float), &full[ks % STAGES]);
   };
+  if (tid == 0) {
 #pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < nks) load_stage(s);
-    cp_async_commit();
+    for (int s = 0; s < STAGES; ++s)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(
+          (uint32_t)__cvta_generic_to_shared(&full[s])));
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+#pragma unroll
+    for (int s = 0; s < STAGES - 1; ++s)
+      if (s < nks) load_stage(s);
   }
 
   // padded index p = f0*hop + i holds sample g = p - half, reflected at both
-  // ends (numpy/torch 'reflect': the edge sample is not repeated)
-  for (int i = tid; i < span; i += THREADS) {
-    long long g = (long long)f0 * hop + i - half;
-    if (g < 0) g = -g;
-    if (g >= t) g = 2LL * (t - 1) - g;
-    if (g >= 0 && g < t) cp_async4(ys + i, y + g);
-    else ys[i] = 0.f;
+  // ends (numpy/torch 'reflect': the edge sample is not repeated).  Four
+  // samples a copy where they lie inside the waveform and 16 bytes are
+  // aligned on both sides, one sample a copy elsewhere.
+  const long long p0 = (long long)f0 * hop - half;
+  const bool al16 = ((reinterpret_cast<uintptr_t>(y) + 4 * p0) & 15) == 0;
+  for (int i = 4 * tid; i < span; i += 4 * THREADS) {
+    if (al16 && p0 + i >= 0 && p0 + i + 3 < t && i + 3 < span) {
+      cp_async16(ys + i, y + p0 + i);
+      continue;
+    }
+    for (int e = i; e < min(i + 4, span); ++e) {
+      long long g = p0 + e;
+      if (g < 0) g = -g;
+      if (g >= t) g = 2LL * (t - 1) - g;
+      if (g >= 0 && g < t) cp_async4(ys + e, y + g);
+      else ys[e] = 0.f;
+    }
   }
   for (int i = tid; i < 3 * n_mels; i += THREADS) cp_async4(mi + i, mel_idx + i);
   for (int i = tid; i < nnz; i += THREADS) cp_async4(mw + i, mel_w + i);
   cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
+  cp_async_wait_all();
+  __syncthreads();   // the samples landed; the barriers are set up for all
   const int warp = tid >> 5, lane = tid & 31;
-  // fold: column j holds tap n = j + 1
-  for (int m = warp; m < TILE_M; m += THREADS / 32)
-    for (int j = lane; j < kp; j += 32) {
-      const int n = j + 1;
-      float e = 0.f, o = 0.f;
-      if (n < half) {
-        const float a = ys[m * hop + n], b = ys[m * hop + n_fft - n];
-        e = a + b;
-        o = a - b;
-      } else if (n == half) {
-        e = ys[m * hop + half];
-      }
-      As[m * a_stride + j] = e;
-      As[(TILE_M + m) * a_stride + j] = o;
+  // fold: column j holds tap n = j + 1.  Without branches: from tap half on
+  // both reads are tap half itself, so the difference is 0, and the sum is
+  // scaled by 1, by 1/2 (tap half stands alone) or by 0 (the taps' zero pad).
+  // A warp's eight frames of one tap are independent loads in flight.
+  for (int j = lane; j < kp; j += 32) {
+    const int n = min(j + 1, half);
+    const float we = j + 1 < half ? 1.f : (j + 1 == half ? 0.5f : 0.f);
+    const float* ya = ys + n;
+    const float* yb = ys + n_fft - n;
+#pragma unroll
+    for (int mm = 0; mm < TILE_M / (THREADS / 32); ++mm) {
+      const int m = warp + mm * (THREADS / 32);
+      const float a = ya[m * hop], b = yb[m * hop];
+      As[m * a_stride + j] = (a + b) * we;
+      As[(TILE_M + m) * a_stride + j] = a - b;
     }
+  }
 
   const int g = lane >> 2, tq = lane & 3;
   const int part = warp >> 2, mh = (warp >> 1) & 1, nh = warp & 1;
@@ -173,10 +235,10 @@ fused_log_mel_kernel(const float* __restrict__ y, int t,
       for (int q = 0; q < 4; ++q) acc[mt][i][q] = 0.f;
 
   for (int ks = 0; ks < nks; ++ks) {
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();   // slice ks landed; slice ks-1's buffer is free
-    if (ks + STAGES - 1 < nks) load_stage(ks + STAGES - 1);
-    cp_async_commit();
+    __syncthreads();   // every warp is done with slice ks-1 (and, at 0, with
+                       // the fold): that slice's buffer is free
+    if (tid == 0 && ks + STAGES - 1 < nks) load_stage(ks + STAGES - 1);
+    bar_wait(&full[ks % STAGES], (ks / STAGES) & 1);   // slice ks landed
 
     uint32_t ahi[2][4], alo[2][4];
 #pragma unroll
@@ -214,10 +276,10 @@ fused_log_mel_kernel(const float* __restrict__ y, int t,
           }
     }
   }
-  cp_async_wait<0>();
-  __syncthreads();   // every warp is done with the ring: pw may overwrite it
+  __syncthreads();   // every warp is done with the ring and the folded tile
 
-  // power: real warps write re^2, then imaginary warps add im^2
+  // power, bin-major: real warps write re^2, then imaginary warps add
+  // im^2.  A warp's 32 lanes hit 32 banks (68 * 2 tq = 8 tq mod 32, plus g).
 #pragma unroll
   for (int pass = 0; pass < 2; ++pass) {
     if (part == pass) {
@@ -227,32 +289,52 @@ fused_log_mel_kernel(const float* __restrict__ y, int t,
         for (int i = 0; i < WARP_NT; ++i) {
           const int row = mh * 32 + mt * 16 + g;
           const int col = (nh * WARP_NT + i) * 8 + 2 * tq;
-          float2* p0 = reinterpret_cast<float2*>(pw + row * PW_STRIDE + col);
-          float2* p1 = reinterpret_cast<float2*>(pw + (row + 8) * PW_STRIDE + col);
+          float* p = pw + col * PW_STRIDE + row;
           const float* c = acc[mt][i];
-          float2 v0 = make_float2(c[0] * c[0], c[1] * c[1]);
-          float2 v1 = make_float2(c[2] * c[2], c[3] * c[3]);
+          float v[4] = {c[0] * c[0], c[1] * c[1], c[2] * c[2], c[3] * c[3]};
           if (pass == 1) {
-            const float2 r0 = *p0, r1 = *p1;
-            v0.x += r0.x; v0.y += r0.y; v1.x += r1.x; v1.y += r1.y;
+            v[0] += p[0];
+            v[1] += p[PW_STRIDE];
+            v[2] += p[8];
+            v[3] += p[PW_STRIDE + 8];
           }
-          *p0 = v0;
-          *p1 = v1;
+          p[0] = v[0];
+          p[PW_STRIDE] = v[1];
+          p[8] = v[2];
+          p[PW_STRIDE + 8] = v[3];
         }
     }
     __syncthreads();
   }
 
-  for (int idx = tid; idx < TILE_M * n_mels; idx += THREADS) {
-    const int f = idx / n_mels;
-    const int m = idx - f * n_mels;
-    if (f0 + f >= n_frames) continue;
-    float s = 0.f;
+  // mel product and log: a warp takes one filter for the tile's 64 frames
+  for (int m0 = 0; m0 < n_mels; m0 += THREADS / 32) {
+    // filters widen with frequency: every other round runs the warps backwards
+    const int m = m0 + ((m0 / (THREADS / 32)) & 1 ? THREADS / 32 - 1 - warp : warp);
+    if (m >= n_mels) continue;
     const int lo = mi[m], hi = mi[n_mels + m];
     const float* w = mw + mi[2 * n_mels + m] - lo;
-    for (int b = lo; b < hi; ++b) s = fmaf(pw[f * PW_STRIDE + b], w[b], s);
-    out[(long long)(f0 + f) * n_mels + m] = logf(s + eps);
+    const float* p = pw + lane;
+    float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
+    int b = lo;
+    for (; b + 1 < hi; b += 2) {
+      const float w0 = w[b], w1 = w[b + 1];
+      s0 = fmaf(p[b * PW_STRIDE], w0, s0);
+      s1 = fmaf(p[b * PW_STRIDE + 32], w0, s1);
+      s2 = fmaf(p[(b + 1) * PW_STRIDE], w1, s2);
+      s3 = fmaf(p[(b + 1) * PW_STRIDE + 32], w1, s3);
+    }
+    if (b < hi) {
+      s0 = fmaf(p[b * PW_STRIDE], w[b], s0);
+      s1 = fmaf(p[b * PW_STRIDE + 32], w[b], s1);
+    }
+    res[lane * n_mels + m] = logf(s0 + s2 + eps);
+    res[(lane + 32) * n_mels + m] = logf(s1 + s3 + eps);
   }
+  __syncthreads();
+  const int n_out = min(TILE_M, n_frames - f0) * n_mels;
+  float* o = out + (long long)f0 * n_mels;
+  for (int idx = tid; idx < n_out; idx += THREADS) o[idx] = res[idx];
 }
 
 }  // namespace
@@ -275,7 +357,8 @@ extern "C" int sdt_fused_log_mel(const float* y, int t, const float* basis,
   const size_t smem = sizeof(float) * ((size_t)2 * TILE_M * (nks * 8 + 4) +
                                        STAGES * STAGE_FLOATS + span +
                                        3 * n_mels + nnz);
-  if (smem > 232448) return (int)cudaErrorInvalidValue;
+  // the ring's barriers are static shared memory beside it
+  if (smem + STAGES * sizeof(uint64_t) > 232448) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       fused_log_mel_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);

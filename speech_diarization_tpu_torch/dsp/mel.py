@@ -12,10 +12,12 @@ Holds kernel K2 and its plain version:
   ``csrc/fused_fbank.cu`` (the port of the Pallas ``fused_log_mel``).  On a
   CPU tensor it returns the plain version; on a CUDA tensor it launches the
   kernel or raises.
-* :func:`_log_mel_folded` — the kernel's arithmetic in plain PyTorch: the
-  even/odd fold of each frame that halves the DFT, and optionally the
-  split of both operands into TF32 parts (one pass, or the three-product
-  error-compensated scheme the kernel runs on the tensor cores).
+* :func:`_folded_basis`, :func:`_tf32_split`, :func:`_basis_fragments`,
+  :func:`_mel_sparse` — the kernel's constants: the basis after the
+  even/odd fold of each frame that halves the DFT, split into TF32 parts
+  for the three-product error-compensated scheme the kernel runs on the
+  tensor cores, in the order its lanes read it; the filterbank without
+  its zeros.
 
 The reflect pad needs ``T > n_fft // 2`` samples; shorter inputs raise (the
 JAX path clamps its pad without a word there).
@@ -206,44 +208,6 @@ def _mel_sparse(fb: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
             np.ascontiguousarray(w, np.float32))
 
 
-def _log_mel_folded(y: torch.Tensor, sample_rate: int = 16000, n_mels: int = 80,
-                    win_ms: float = 25.0, hop_ms: float = 10.0,
-                    f_min: float = 20.0, f_max: float | None = None,
-                    eps: float = 1e-6, split: str = "none") -> torch.Tensor:
-    """K2's arithmetic in plain PyTorch (float32): frames folded about tap
-    ``n_fft//2``, contracted against :func:`_folded_basis`.  ``split``:
-    ``"none"`` float32 products; ``"tf32"`` one pass with both operands
-    rounded to TF32; ``"3xtf32"`` the kernel's scheme, ``lo*hi + hi*lo +
-    hi*hi`` with float32 accumulation."""
-    n_fft, hop, f_max = _frame_params(sample_rate, win_ms, hop_ms, f_max)
-    _check_length(y.shape[0], n_fft)
-    half = n_fft // 2
-    frames = _reflect_pad(y.float(), half).unfold(0, n_fft, hop)    # [N, n_fft]
-    head, tail = frames[:, 1:half], frames[:, half + 1:].flip(1)
-    mid = frames[:, half:half + 1]
-    e = torch.cat([head + tail, mid], 1)                            # [N, half]
-    o = torch.cat([head - tail, torch.zeros_like(mid)], 1)
-    ce, so = _folded_basis(n_fft)
-
-    def product(a: torch.Tensor, b: np.ndarray) -> torch.Tensor:
-        if split == "none":
-            return a @ torch.from_numpy(b).to(a.device)
-        a_hi, a_lo = (torch.from_numpy(p).to(a.device)
-                      for p in _tf32_split(a.cpu().numpy()))
-        b_hi, b_lo = (torch.from_numpy(p).to(a.device) for p in _tf32_split(b))
-        if split == "tf32":
-            return a_hi @ b_hi
-        if split == "3xtf32":
-            return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
-        raise ValueError(f"unknown split {split!r}")
-
-    real, imag = product(e, ce), product(o, so)
-    fb = torch.from_numpy(
-        _mel_filterbank_np(half + 1, f_min, f_max, n_mels, sample_rate)
-    ).to(y.device)
-    return torch.log((real * real + imag * imag) @ fb + eps)
-
-
 _KERNEL_CONSTS: dict = {}
 
 
@@ -276,16 +240,10 @@ def fused_log_mel(y: torch.Tensor, sample_rate: int = 16000, n_mels: int = 80,
     t = y.shape[0]
     _check_length(t, n_fft)
     kernels.check_cuda_tensor(y, "fused_log_mel: y", torch.float32)
-    if n_fft % 2 or n_fft // 2 + 1 > _N_TILE * _N_TILES:
-        raise ValueError(f"fused_log_mel kernel: unsupported n_fft={n_fft}")
+    # raises for an n_fft the fold or the kernel's 208 bins do not take; a
+    # geometry too large for the kernel's shared memory fails the launch
     basis, mel_idx, mel_w = _kernel_constants(y.device, n_fft, n_mels, f_min,
                                               f_max, sample_rate)
-    # shared memory: folded tile + basis ring + the tile's samples + mel
-    smem = 4 * (2 * 64 * (basis.shape[0] * _K_STEP + 4) + 3 * 2 * _N_TILES * 128
-                + 63 * hop + n_fft + mel_idx.numel() + mel_w.numel())
-    if smem > 232448:
-        raise ValueError(f"fused_log_mel kernel: n_fft={n_fft} hop={hop} "
-                         f"n_mels={n_mels} need {smem} bytes of shared memory")
     n_frames = t // hop + 1
     out = torch.empty((n_frames, n_mels), dtype=torch.float32, device=y.device)
     kernels.launch(

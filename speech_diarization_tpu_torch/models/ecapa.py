@@ -253,9 +253,8 @@ def _asp_grid_stats_plain(x, bw, w1x, s_bn, t_bn, w2, b2, first_f: int,
     return torch.cat([mu, sd], dim=1)
 
 
-# K1's tile geometry (csrc/asp_grid.cu): window rows are padded to a multiple
-# of 8 and the kernel is built for 26 and 40 such tiles
-_K1_MAX_WIN_F = 320
+# K1's geometry (csrc/asp_grid.cu): channels in tiles of 64; a window of any
+# length is walked in chunks of 208 rows
 _K1_CHANNEL_TILE = 64
 
 
@@ -269,40 +268,6 @@ def _k1_features(x: torch.Tensor, first_f: int, n_rows: int) -> torch.Tensor:
     if first_f + n_rows > xb.shape[1]:
         xb = F.pad(xb, (0, first_f + n_rows - xb.shape[1]))
     return xb.contiguous()
-
-
-def _asp_grid_stats_tiled(x, bw, w1x, s_bn, t_bn, w2, b2, first_f: int,
-                          hop_f: int, win_f: int, n_windows: int) -> torch.Tensor:
-    """K1's data flow in plain PyTorch, for the CPU tests: channel-major
-    features from :func:`_k1_features`, window rows padded to a multiple of
-    8 with zero activations and their logits masked to -inf, the logits
-    transposed ([W, CC, rows]), no ``b2`` (constant over a channel's rows,
-    so the softmax cancels it), one ``exp2`` per element with log2(e)
-    folded in, and ``sum p x / sum p`` in place of a normalised ``p``."""
-    del b2
-    n_rows = (n_windows - 1) * hop_f + win_f
-    rows = -(-win_f // 8) * 8
-    bf = torch.bfloat16
-    xb = _k1_features(x, first_f, n_rows).float()                   # [CC, T_f]
-    hx = w1x.to(bf).float() @ xb[:, first_f:first_f + n_rows]       # [A, R]
-    hx = F.pad(hx, (0, rows - win_f))
-    idx = (hop_f * torch.arange(n_windows, device=x.device)[:, None]
-           + torch.arange(rows, device=x.device)[None, :])          # [W, rows]
-    valid = torch.arange(rows, device=x.device) < win_f
-    h = hx[:, idx].permute(1, 2, 0) + bw.float()[:, None, :]        # [W, rows, A]
-    a = torch.tanh(F.relu(h) * s_bn.float() + t_bn.float())
-    a = torch.where(valid[None, :, None], a, 0.0).to(bf).float()
-    e = w2.to(bf).float() @ a.transpose(1, 2)                       # [W, CC, rows]
-    e = e.masked_fill(~valid, float("-inf"))
-    log2e = 1.4426950408889634
-    p = torch.exp2(e * log2e - e.amax(-1, keepdim=True) * log2e)
-    xw = F.pad(xb, (0, rows))[:, first_f + idx].permute(1, 0, 2)    # [W, CC, rows]
-    xw = torch.where(valid, xw, 0.0)
-    z = p.sum(-1)
-    mu = (p * xw).sum(-1) / z
-    m2 = (p * xw * xw).sum(-1) / z
-    sd = torch.sqrt(torch.clamp(m2 - mu * mu, min=1e-12))
-    return torch.cat([mu, sd], dim=1)
 
 
 def asp_grid_stats(x: torch.Tensor, bw: torch.Tensor, w1x: torch.Tensor,
@@ -322,9 +287,9 @@ def asp_grid_stats(x: torch.Tensor, bw: torch.Tensor, w1x: torch.Tensor,
         raise NotImplementedError(
             f"asp_grid_stats kernel: attention width {a_dim} (built for 64), "
             f"{cc} channels (built for multiples of {_K1_CHANNEL_TILE})")
-    if not 1 <= win_f <= _K1_MAX_WIN_F:
-        raise ValueError(f"asp_grid_stats kernel: win_f={win_f} outside "
-                         f"1..{_K1_MAX_WIN_F} (accumulator tiles)")
+    if win_f < 1 or n_windows < 1:
+        raise ValueError(f"asp_grid_stats kernel: win_f={win_f}, "
+                         f"n_windows={n_windows}")
     n_rows = (n_windows - 1) * hop_f + win_f
     dev = x.device
     xb = _k1_features(x, first_f, n_rows)

@@ -32,9 +32,9 @@ from speech_diarization_tpu_torch.dsp.mel import (
     _basis_fragments,
     _folded_basis,
     _log_mel_1d,
-    _log_mel_folded,
     _mel_filterbank_np,
     _mel_sparse,
+    _reflect_pad,
     _tf32_split,
     fused_log_mel,
 )
@@ -119,6 +119,36 @@ def test_chunk_loudness_matches_jax(case):
         assert abs(out - ref) < 0.01, (out, ref)
 
 
+def _log_mel_folded(y: torch.Tensor, n_mels: int, split: str = "none") -> torch.Tensor:
+    """K2's arithmetic (csrc/fused_fbank.cu) in plain float32 PyTorch at the
+    main path's geometry: frames folded about tap ``n_fft//2``, contracted
+    against ``_folded_basis``.  ``split``: ``"none"`` float32 products;
+    ``"tf32"`` one pass with both operands rounded to TF32; ``"3xtf32"`` the
+    kernel's scheme, ``lo*hi + hi*lo + hi*hi`` with float32 accumulation."""
+    n_fft, hop, half = 400, 160, 200
+    frames = _reflect_pad(y.float(), half).unfold(0, n_fft, hop)    # [N, n_fft]
+    head, tail = frames[:, 1:half], frames[:, half + 1:].flip(1)
+    mid = frames[:, half:half + 1]
+    e = torch.cat([head + tail, mid], 1)                            # [N, half]
+    o = torch.cat([head - tail, torch.zeros_like(mid)], 1)
+
+    def product(a: torch.Tensor, b: np.ndarray) -> torch.Tensor:
+        if split == "none":
+            return a @ torch.from_numpy(b)
+        a_hi, a_lo = (torch.from_numpy(p) for p in _tf32_split(a.numpy()))
+        b_hi, b_lo = (torch.from_numpy(p) for p in _tf32_split(b))
+        if split == "tf32":
+            return a_hi @ b_hi
+        assert split == "3xtf32", split
+        return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
+
+    ce, so = _folded_basis(n_fft)
+    real, imag = product(e, ce), product(o, so)
+    fb = torch.from_numpy(_mel_filterbank_np(half + 1, 20.0, SR / 2 - 100.0,
+                                             n_mels, SR))
+    return torch.log((real * real + imag * imag) @ fb + 1e-6)
+
+
 @pytest.mark.parametrize("n_samples", [16000, 63 * 160, 80000, 201])
 def test_folded_log_mel_matches_plain_and_jax(n_samples):
     """The even/odd fold is exact in real arithmetic.  In float32, at the
@@ -170,6 +200,11 @@ def test_three_tf32_products_hold_the_card_tolerance_one_pass_does_not(
     err1 = (_log_mel_folded(y, n_mels=40, split="tf32") - plain).abs().max().item()
     assert err3 <= tol, (err3, tol)
     assert err1 > 10 * tol, (err1, tol)
+    # and the scheme computes what the JAX package computes, at its bar
+    ref = np.asarray(jlog_mel(jnp.asarray(y.numpy())[None], sample_rate=SR,
+                              n_mels=40))[0]
+    out3 = _log_mel_folded(y, n_mels=40, split="3xtf32").numpy()
+    np.testing.assert_allclose(out3, ref, atol=2e-3)
 
 
 @pytest.mark.parametrize("scale", [1.0, 1e-4, 37.5])

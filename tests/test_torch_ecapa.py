@@ -17,6 +17,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from speech_diarization_tpu.models.ecapa import EcapaTdnn as JEcapaTdnn
 from speech_diarization_tpu.models.layers import sliding_mean_time as jsliding
@@ -26,7 +27,6 @@ from speech_diarization_tpu.train.recipes import load_speaker_encoder as jload_e
 from speech_diarization_tpu.train.synthetic import make_conversation
 from speech_diarization_tpu_torch.models.ecapa import (
     _asp_grid_stats_plain,
-    _asp_grid_stats_tiled,
     _k1_features,
     _rows_from,
     asp_grid_stats,
@@ -254,19 +254,76 @@ def test_k1_features_are_channel_major_rows_with_zero_overrun(t_f, first_f,
         assert xb.data_ptr() == x.data_ptr()       # no copy on the main path
 
 
-@pytest.mark.parametrize("first_f,hop_f,win_f,n_windows,overrun", [
-    (0, 4, 17, 10, 0), (8, 4, 16, 5, 0), (3, 10, 201, 3, 0), (2, 3, 64, 7, 0),
-    (5, 3, 37, 7, 4), (1, 10, 201, 2, 11), (0, 1, 1, 4, 0)])
-def test_k1_tiled_flow_matches_plain(first_f, hop_f, win_f, n_windows, overrun):
-    """Rows padded to a multiple of 8 and masked to -inf, transposed logits,
-    no b2, exp2 with the scale folded in: the kernel's data flow gives the
-    plain version's stats (1e-5 of the largest; the card bar is 2e-3)."""
+def _asp_grid_stats_tiled(x, bw, w1x, s_bn, t_bn, w2, b2, first_f, hop_f,
+                          win_f, n_windows, chunk=208):
+    """K1's data flow (csrc/asp_grid.cu) in plain PyTorch: channel-major
+    features from ``_k1_features``; a window walked in chunks of ``chunk``
+    rows, the last padded to its full length with zero activations whose
+    logits are masked to -inf; the logits transposed ([W, CC, rows]); no
+    ``b2`` (constant over a channel's rows, so the softmax cancels it); one
+    ``exp2`` per element with log2(e) folded in; unnormalised sums per
+    chunk, merged into a running (max, sum p, sum p x, sum p x^2) and
+    divided at the end."""
+    del b2
+    n_rows = (n_windows - 1) * hop_f + win_f
+    bf = torch.bfloat16
+    log2e = 1.4426950408889634
+    xb = _k1_features(x, first_f, n_rows).float()                   # [CC, T_f]
+    hx = w1x.to(bf).float() @ xb[:, first_f:first_f + n_rows]       # [A, R]
+    hx = F.pad(hx, (0, chunk))
+    xg = F.pad(xb[:, first_f:first_f + n_rows], (0, chunk))
+    m = z = s1 = s2 = None
+    for c0 in range(0, win_f, chunk):
+        idx = (hop_f * torch.arange(n_windows)[:, None] + c0
+               + torch.arange(chunk)[None, :])                      # [W, chunk]
+        valid = c0 + torch.arange(chunk) < win_f
+        h = hx[:, idx].permute(1, 2, 0) + bw.float()[:, None, :]    # [W, chunk, A]
+        a = torch.tanh(F.relu(h) * s_bn.float() + t_bn.float())
+        a = torch.where(valid[None, :, None], a, 0.0).to(bf).float()
+        e = w2.to(bf).float() @ a.transpose(1, 2)                   # [W, CC, chunk]
+        e = e.masked_fill(~valid, float("-inf"))
+        mc = e.amax(-1)
+        p = torch.exp2(e * log2e - mc[..., None] * log2e)
+        xw = torch.where(valid, xg[:, idx].permute(1, 0, 2), 0.0)   # [W, CC, chunk]
+        zc, s1c, s2c = p.sum(-1), (p * xw).sum(-1), (p * xw * xw).sum(-1)
+        if m is None:
+            m, z, s1, s2 = mc, zc, s1c, s2c
+            continue
+        mm = torch.maximum(m, mc)
+        fs, fc = torch.exp2((m - mm) * log2e), torch.exp2((mc - mm) * log2e)
+        m, z, s1, s2 = mm, z * fs + zc * fc, s1 * fs + s1c * fc, s2 * fs + s2c * fc
+    mu = s1 / z
+    sd = torch.sqrt(torch.clamp(s2 / z - mu * mu, min=1e-12))
+    return torch.cat([mu, sd], dim=1)
+
+
+@pytest.mark.parametrize("first_f,hop_f,win_f,n_windows,overrun,chunk", [
+    (0, 4, 17, 10, 0, 208), (8, 4, 16, 5, 0, 208), (3, 10, 201, 3, 0, 208),
+    (2, 3, 64, 7, 0, 208), (5, 3, 37, 7, 4, 208), (1, 10, 201, 2, 11, 208),
+    (0, 1, 1, 4, 0, 208), (5, 3, 37, 7, 4, 16), (2, 7, 450, 2, 9, 208),
+    (0, 10, 416, 2, 0, 208)])
+def test_k1_tiled_flow_matches_plain(first_f, hop_f, win_f, n_windows, overrun,
+                                     chunk):
+    """Rows in padded chunks masked to -inf, transposed logits, no b2, exp2
+    with the scale folded in, chunks merged through a running maximum: the
+    kernel's data flow gives the plain version's stats (1e-5 of the largest;
+    the card bar is 2e-3) and the Pallas kernel's (interpret mode, on the
+    features with the overrun as zero rows) to the 1e-3 the plain version
+    is held to."""
     net, params, _ = _tiny_net()
     x = _x(net.cat_channels, first_f, hop_f, win_f, n_windows, seed=6)
     args = _stats_args(net, params, x, first_f, hop_f, win_f, n_windows)
-    args[0] = args[0][:, :x.shape[1] - 3 - overrun]
-    args = [torch.from_numpy(np.ascontiguousarray(a)) for a in args]
-    ref = _asp_grid_stats_plain(*args, first_f, hop_f, win_f, n_windows)
-    out = _asp_grid_stats_tiled(*args, first_f, hop_f, win_f, n_windows)
+    t_cut = x.shape[1] - 3 - overrun
+    x_zero = args[0].copy()
+    x_zero[:, t_cut:] = 0.0
+    args[0] = args[0][:, :t_cut]
+    targs = [torch.from_numpy(np.ascontiguousarray(a)) for a in args]
+    ref = _asp_grid_stats_plain(*targs, first_f, hop_f, win_f, n_windows)
+    out = _asp_grid_stats_tiled(*targs, first_f, hop_f, win_f, n_windows,
+                                chunk=chunk)
     assert out.shape == ref.shape
     assert (out - ref).abs().max() <= 1e-5 * ref.abs().max()
+    jref = np.asarray(jasp_stats(jnp.asarray(x_zero), *map(jnp.asarray, args[1:]),
+                                 first_f, hop_f, win_f, n_windows,
+                                 interpret=True))
+    assert np.abs(out.numpy() - jref).max() <= 1e-3 * np.abs(jref).max()
