@@ -20,29 +20,33 @@
 //    memory, e[n] = x[n] + x[n_fft-n] and o[n] = x[n] - x[n_fft-n] for
 //    n = 1..n_fft/2-1 (tap n_fft/2 stands alone), and 200 taps are
 //    contracted against cos and 200 (one a zero pad) against sin.
-//  * Tensor cores at float32 accuracy: 3xTF32 through mma.sync.m16n8k8.
-//    Both operands are split into a TF32 high part and a TF32 low part of
-//    the remainder; lo*hi + hi*lo + hi*hi accumulate in float32 (the
-//    dropped lo*lo term is 2^-22 of the product).  The basis is split once
-//    on the host; the folded frames are split as their fragments are read.
-//    mma.sync, not wgmma: the split needs the A operand in registers
-//    anyway, a block's tile is 64 x 208 x 400, and at that size the
-//    descriptors and the warpgroup fences buy nothing.
-//  * The basis (cos|sin, hi|lo: 650 KB) is stored by the host in the order
-//    the B fragments are read, so a lane gets (hi k, hi k+4, lo k, lo k+4)
-//    of its bin with one conflict-free 128-bit shared-memory load.  One
-//    8-tap slice of it (26 KB) is one stage of a three-stage ring, filled by
-//    the copy engine: one thread issues one bulk copy (cp.async.bulk) per
-//    slice and an mbarrier counts its bytes.  Filling the ring with
-//    per-thread cp.async (1,664 16-byte copies a slice) cost 15 % of the
-//    kernel's time on the load/store path the fragment reads share.
-//  * One block per 64 frames (110 blocks on the main path, one wave on 132
-//    SMs), so the basis crosses L2 -> shared memory 110 times, not 219.
-//    Eight warps: (real | imaginary) x two 32-frame halves x two 104-bin
-//    halves; a warp holds 2 x 13 accumulator tiles and reuses every B
-//    fragment for two frame tiles.  The tile's waveform (42 KB) is staged
-//    once with the reflect pad built on the fly, so no [N, 400] frame
-//    tensor exists.
+//  * Tensor cores at float32 accuracy: 3xTF32.  Both operands are split
+//    into a TF32 high part and a TF32 low part of the remainder;
+//    lo*hi + hi*lo + hi*hi accumulate in float32 (the dropped lo*lo term is
+//    2^-22 of the product).  The basis is split once on the host; the
+//    folded frames are split as their fragments are read.
+//  * wgmma, not mma.sync.  One block owns 64 frames (110 blocks on the main
+//    path, one wave on 132 SMs) and two warpgroups, one for the real part
+//    and one for the imaginary: per 8-tap slice each issues three
+//    wgmma.m64n208k8 (tf32 in, float32 out; 104 accumulators a thread) with
+//    its A fragments in registers (the split needs them there anyway) and B
+//    read from shared memory through a descriptor.  With the same
+//    products as 78 mma.sync.m16n8k8 a warp and slice the kernel took 1.5
+//    times as long: with its loads knocked out, mma.sync alone ran at some
+//    60 % of the tensor cores' TF32 rate.  The products of a slice stay in
+//    flight while the
+//    next slice's fragments are read and split (two sets of fragment
+//    registers take turns).
+//  * The basis (cos|sin, hi|lo: 650 KB) is stored by the host in the
+//    layout the descriptor names, K-major without swizzle: core matrices
+//    of 8 bins x 4 taps (128 contiguous bytes), 26 of them along the bins
+//    and 2 along the taps of a slice.  One slice (26 KB) is one stage of a
+//    three-stage ring, filled by the copy engine: one thread issues one
+//    bulk copy (cp.async.bulk) per slice and an mbarrier counts its bytes.
+//    Filling the ring with per-thread cp.async (1,664 16-byte copies a
+//    slice) cost 15 % of the mma.sync kernel's time on the load/store
+//    path.  The tile's waveform (42 KB) is staged once with the reflect pad
+//    built on the fly, so no [N, 400] frame tensor exists.
 //  * The tile's samples are fetched with cp.async, all in flight at once
 //    (16 bytes a copy inside the waveform, 4 at the reflected ends), and
 //    folded without branches, a warp's eight frames of one tap together,
@@ -58,15 +62,17 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int TILE_M = 64;      // frames per block
 constexpr int THREADS = 256;    // 8 warps
 constexpr int N_TILES = 26;     // 8-bin tiles: n_bins <= 208
-constexpr int WARP_NT = 13;     // bin tiles per warp
 constexpr int STAGES = 3;
-// one 8-tap slice of the fragment-ordered basis: [part][bin tile][lane][4]
-constexpr int STAGE_FLOATS = 2 * N_TILES * 32 * 4;
+// one 8-tap slice of the basis:
+// [part][hi | lo][4-tap half][bin tile][8 bins][4 taps]
+constexpr int STAGE_FLOATS = 2 * 2 * 2 * N_TILES * 8 * 4;
 constexpr int PW_STRIDE = 68;   // floats per bin of the power tile [bin][frame]
 
 __device__ __forceinline__ uint32_t tf32_rna(float x) {
@@ -75,13 +81,67 @@ __device__ __forceinline__ uint32_t tf32_rna(float x) {
   return r;
 }
 
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// D[64 x 208] += A[64 x 8] (registers, this warp's 16 rows) x B[8 x 208]
+// (shared memory, K-major core matrices), TF32 in, float32 out
+__device__ __forceinline__ void wgmma_tf32(float (&d)[104], const uint32_t (&a)[4],
+                                           uint64_t desc) {
+  // operands 0..103: the accumulators; 104..107: A; 108: B's descriptor
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %109, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n208k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12,"
+      " %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25,"
+      " %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38,"
+      " %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51,"
+      " %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64,"
+      " %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77,"
+      " %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90,"
+      " %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103}, "
+      "{%104, %105, %106, %107}, %108, p, 1, 1;\n}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+// shared-memory matrix descriptor, no swizzle: core matrices of 8 rows x 16
+// bytes; lbo between core matrices along K, sbo along N
+__device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo, uint32_t sbo) {
+  const uint32_t a = (uint32_t)__cvta_generic_to_shared(p);
+  return (uint64_t)((a & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32);
 }
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
@@ -224,58 +284,46 @@ fused_log_mel_kernel(const float* __restrict__ y, int t,
   }
 
   const int g = lane >> 2, tq = lane & 3;
-  const int part = warp >> 2, mh = (warp >> 1) & 1, nh = warp & 1;
-  const float* Aw = As + (part * TILE_M + mh * 32 + g) * a_stride + tq;
-  float acc[2][WARP_NT][4];
+  const int part = warp >> 2, w4 = warp & 3;   // warpgroup: real | imaginary
+  const float* Aw = As + (part * TILE_M + w4 * 16 + g) * a_stride + tq;
+  float acc[104];
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int i = 0; i < WARP_NT; ++i)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[mt][i][q] = 0.f;
+  for (int i = 0; i < 104; ++i) acc[i] = 0.f;
+  if (tid == 0 && STAGES - 1 < nks) load_stage(STAGES - 1);
 
-  for (int ks = 0; ks < nks; ++ks) {
-    __syncthreads();   // every warp is done with slice ks-1 (and, at 0, with
-                       // the fold): that slice's buffer is free
-    if (tid == 0 && ks + STAGES - 1 < nks) load_stage(ks + STAGES - 1);
+  __syncthreads();   // the fold is complete
+  // One 8-tap slice a step: split this warp's A fragments, then three
+  // products on the slice, left in flight while the next step's fragments
+  // are prepared (two sets of fragment registers take turns).
+  uint32_t ahi[2][4], alo[2][4];
+  auto step = [&](int ks, auto set) {
+    constexpr int S = decltype(set)::value;
+    const float* p = Aw + ks * 8;
+    const float v[4] = {p[0], p[8 * a_stride], p[4], p[8 * a_stride + 4]};
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      ahi[S][q] = tf32_rna(v[q]);
+      alo[S][q] = tf32_rna(v[q] - __uint_as_float(ahi[S][q]));
+    }
     bar_wait(&full[ks % STAGES], (ks / STAGES) & 1);   // slice ks landed
-
-    uint32_t ahi[2][4], alo[2][4];
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt) {
-      const float* p = Aw + mt * 16 * a_stride + ks * 8;
-      const float v[4] = {p[0], p[8 * a_stride], p[4], p[8 * a_stride + 4]};
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        ahi[mt][q] = tf32_rna(v[q]);
-        alo[mt][q] = tf32_rna(v[q] - __uint_as_float(ahi[mt][q]));
-      }
-    }
-    const float4* Bw = reinterpret_cast<const float4*>(
-                           Bs + (ks % STAGES) * STAGE_FLOATS) +
-                       (part * N_TILES + nh * WARP_NT) * 32 + lane;
-    // bin tiles in groups of up to 4: each accumulator takes its three
-    // products (small terms first) with the group's other accumulators in
-    // between, so no mma waits on the one before it
-#pragma unroll
-    for (int i0 = 0; i0 < WARP_NT; i0 += 4) {
-      float4 b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        if (i0 + i < WARP_NT) b[i] = Bw[(i0 + i) * 32];
-#pragma unroll
-      for (int pass = 0; pass < 3; ++pass)
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          if (i0 + i < WARP_NT) {
-            const uint32_t b0 = __float_as_uint(pass == 1 ? b[i].z : b[i].x);
-            const uint32_t b1 = __float_as_uint(pass == 1 ? b[i].w : b[i].y);
-#pragma unroll
-            for (int mt = 0; mt < 2; ++mt)
-              mma_tf32(acc[mt][i0 + i], pass == 0 ? alo[mt] : ahi[mt], b0, b1);
-          }
-    }
+    // the slice: [part][hi | lo][k core 2][bin tile 26][8 bins][4 taps]
+    const float* bs = Bs + (ks % STAGES) * STAGE_FLOATS + part * (STAGE_FLOATS / 2);
+    const uint64_t d_hi = smem_desc(bs, N_TILES * 128, 128);
+    const uint64_t d_lo = smem_desc(bs + STAGE_FLOATS / 4, N_TILES * 128, 128);
+    wgmma_fence();
+    wgmma_tf32(acc, alo[S], d_hi);
+    wgmma_tf32(acc, ahi[S], d_lo);
+    wgmma_tf32(acc, ahi[S], d_hi);
+    wgmma_commit();
+    wgmma_wait<1>();   // the step before is complete
+    __syncthreads();   // ... in both warpgroups: its slice's buffer is free
+    if (tid == 0 && ks >= 1 && ks + STAGES - 1 < nks) load_stage(ks + STAGES - 1);
+  };
+  for (int ks = 0; ks < nks; ks += 2) {
+    step(ks, std::integral_constant<int, 0>{});
+    if (ks + 1 < nks) step(ks + 1, std::integral_constant<int, 1>{});
   }
+  wgmma_wait<0>();
   __syncthreads();   // every warp is done with the ring and the folded tile
 
   // power, bin-major: real warps write re^2, then imaginary warps add
@@ -284,13 +332,11 @@ fused_log_mel_kernel(const float* __restrict__ y, int t,
   for (int pass = 0; pass < 2; ++pass) {
     if (part == pass) {
 #pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int i = 0; i < WARP_NT; ++i) {
-          const int row = mh * 32 + mt * 16 + g;
-          const int col = (nh * WARP_NT + i) * 8 + 2 * tq;
+        for (int i = 0; i < N_TILES; ++i) {
+          const int row = w4 * 16 + g;
+          const int col = i * 8 + 2 * tq;
           float* p = pw + col * PW_STRIDE + row;
-          const float* c = acc[mt][i];
+          const float* c = acc + 4 * i;
           float v[4] = {c[0] * c[0], c[1] * c[1], c[2] * c[2], c[3] * c[3]};
           if (pass == 1) {
             v[0] += p[0];
@@ -340,8 +386,8 @@ fused_log_mel_kernel(const float* __restrict__ y, int t,
 }  // namespace
 
 // C entry point: launches on `stream`, does not synchronise, returns
-// cudaGetLastError().  `basis` is the folded, split, fragment-ordered basis
-// of dsp/mel.py::_basis_fragments with `nks` 8-tap slices; `mel_idx` and
+// cudaGetLastError().  `basis` is the folded, split basis in core-matrix
+// order of dsp/mel.py::_basis_fragments with `nks` 8-tap slices; `mel_idx` and
 // `mel_w` are the packed filterbank of dsp/mel.py::_mel_sparse.  Requires n_fft
 // even, n_fft/2 + 1 <= 208 bins, nks*8 >= n_fft/2 and t > n_fft/2 (checked
 // by the Python wrapper); cudaErrorInvalidValue when the tile does not fit

@@ -16,8 +16,8 @@ Holds kernel K2 and its plain version:
   :func:`_mel_sparse` — the kernel's constants: the basis after the
   even/odd fold of each frame that halves the DFT, split into TF32 parts
   for the three-product error-compensated scheme the kernel runs on the
-  tensor cores, in the order its lanes read it; the filterbank without
-  its zeros.
+  tensor cores, in the layout its matrix descriptors name; the filterbank
+  without its zeros.
 
 The reflect pad needs ``T > n_fft // 2`` samples; shorter inputs raise (the
 JAX path clamps its pad without a word there).
@@ -130,9 +130,9 @@ def _log_mel_1d(y: torch.Tensor, sample_rate: int = 16000, n_mels: int = 80,
     return torch.log(power @ fb + eps)
 
 
-# fragment geometry of the kernel (csrc/fused_fbank.cu): 8-tap slices, 26
-# tiles of 8 bins
-_K_STEP, _N_TILE, _N_TILES = 8, 8, 26
+# geometry of the kernel's B operand (csrc/fused_fbank.cu): 8-tap slices;
+# core matrices of 8 bins x 4 taps, 26 of them along the bins
+_K_STEP, _K_CORE, _N_TILE, _N_TILES = 8, 4, 8, 26
 
 
 @lru_cache(maxsize=8)
@@ -169,27 +169,32 @@ def _tf32_split(a: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
 
 
 def _basis_fragments(n_fft: int) -> np.ndarray:
-    """The folded basis, split into TF32 hi and lo parts and laid out in the
-    order the kernel's ``mma.sync.m16n8k8`` B fragments are read:
-    ``[k_step, part (cos, sin), bin tile, lane, 4]`` float32, where lane
-    ``4*g + t`` holds ``(hi[k, n], hi[k+4, n], lo[k, n], lo[k+4, n])`` for
-    tap row ``k = 8*k_step + t`` and bin ``n = 8*tile + g``.  Taps are
-    zero-padded to a multiple of 8 and bins to 208."""
+    """The folded basis, split into TF32 hi and lo parts and laid out as the
+    kernel's ``wgmma`` reads its B operand from shared memory (K-major, no
+    swizzle): ``[k_step, part (cos, sin), hi | lo, tap half, bin tile, 8, 4]``
+    float32, where entry ``[ks, p, h, kc, nt, r, c]`` is tap row
+    ``8*ks + 4*kc + c`` and bin ``8*nt + r``: a core matrix of 8 bins x 4
+    taps is 128 contiguous bytes, the next along the bins follows it, the
+    next along the taps comes 26 core matrices later.  Taps are zero-padded
+    to a multiple of 8 and bins to 208.  Returned as ``[k_step, -1]``: one
+    row is one stage of the kernel's ring."""
     ce, so = _folded_basis(n_fft)
     half, n_bins = ce.shape
     n_ks = -(-half // _K_STEP)
     if n_bins > _N_TILE * _N_TILES:
         raise ValueError(f"fused_log_mel kernel: {n_bins} bins exceed "
                          f"{_N_TILE * _N_TILES}")
-    out = np.zeros((n_ks, 2, _N_TILES, 8, 4, 4), np.float32)   # [.., g, t, 4]
+    out = np.zeros((n_ks, 2, 2, _K_STEP // _K_CORE, _N_TILES, _N_TILE, _K_CORE),
+                   np.float32)
     for part, mat in enumerate((ce, so)):
         padded = np.zeros((n_ks * _K_STEP, _N_TILES * _N_TILE), np.float32)
         padded[:half, :n_bins] = mat
         for j, piece in enumerate(_tf32_split(padded)):
-            # [k_step, (k | k+4), t, tile, g] -> [k_step, tile, g, t, (k | k+4)]
-            v = piece.reshape(n_ks, 2, 4, _N_TILES, _N_TILE).transpose(0, 3, 4, 2, 1)
-            out[:, part, :, :, :, 2 * j:2 * j + 2] = v
-    return out.reshape(n_ks, 2, _N_TILES, 32, 4)
+            # [k_step, tap half, c, tile, r] -> [k_step, tap half, tile, r, c]
+            out[:, part, j] = piece.reshape(
+                n_ks, _K_STEP // _K_CORE, _K_CORE, _N_TILES, _N_TILE
+            ).transpose(0, 1, 3, 4, 2)
+    return out.reshape(n_ks, -1)
 
 
 def _mel_sparse(fb: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
@@ -212,8 +217,8 @@ _KERNEL_CONSTS: dict = {}
 
 
 def _kernel_constants(device, n_fft, n_mels, f_min, f_max, sample_rate):
-    """Device constants of the kernel, made once per geometry: the
-    fragment-ordered split basis and the packed mel filterbank."""
+    """Device constants of the kernel, made once per geometry: the split
+    basis in core-matrix order and the packed mel filterbank."""
     key = (str(device), n_fft, n_mels, f_min, f_max, sample_rate)
     if key not in _KERNEL_CONSTS:
         fb = _mel_filterbank_np(n_fft // 2 + 1, f_min, f_max, n_mels, sample_rate)

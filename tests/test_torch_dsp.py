@@ -219,22 +219,24 @@ def test_tf32_split_parts(scale):
 
 @pytest.mark.parametrize("n_fft", [400, 200])
 def test_basis_fragments_follow_the_mma_b_fragment_order(n_fft):
-    """Reading the packed basis the way the kernel's lanes do gives back
-    the split folded basis, zero-padded in taps and bins."""
+    """Walking the packed basis the way the kernel's matrix descriptors do
+    (K-major, no swizzle: 128-byte core matrices of 8 bins x 4 taps, 128
+    bytes on to the next 8 bins, 26 * 128 bytes on to the next 4 taps)
+    gives back the split folded basis, zero-padded in taps and bins."""
     frag = _basis_fragments(n_fft)
     n_ks = -(-(n_fft // 2) // 8)
-    assert frag.shape == (n_ks, 2, 26, 32, 4) and frag.dtype == np.float32
+    assert frag.shape == (n_ks, 2 * 2 * 2 * 26 * 32) and frag.dtype == np.float32
+    flat = frag.reshape(-1)
+    stage, sbo, lbo = frag.shape[1], 32, 26 * 32          # in floats
     for part, mat in enumerate(_folded_basis(n_fft)):
         half, n_bins = mat.shape
-        hi, lo = (np.pad(p, ((0, n_ks * 8 - half), (0, 208 - n_bins)))
-                  for p in _tf32_split(mat))
-        lane = np.arange(32)
-        g, t = lane >> 2, lane & 3
-        for ks in range(n_ks):
-            for tile in (0, 7, 25):
-                k, n = 8 * ks + t, 8 * tile + g
-                want = np.stack([hi[k, n], hi[k + 4, n], lo[k, n], lo[k + 4, n]], 1)
-                np.testing.assert_array_equal(frag[ks, part, tile], want)
+        for j, piece in enumerate(_tf32_split(mat)):
+            want = np.pad(piece, ((0, n_ks * 8 - half), (0, 208 - n_bins)))
+            k, n = np.meshgrid(np.arange(n_ks * 8), np.arange(208), indexing="ij")
+            at = ((k // 8) * stage + (part * 2 + j) * (stage // 4)
+                  + (k % 8 // 4) * lbo + (n // 8) * sbo + (n % 8) * 4 + k % 4)
+            np.testing.assert_array_equal(flat[at], want)
+    assert len(np.unique(at)) == at.size            # no two entries share a slot
 
 
 @pytest.mark.parametrize("n_mels,f_max", [(40, 7900.0), (80, 7900.0), (64, 8000.0)])
