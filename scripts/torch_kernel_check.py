@@ -5,7 +5,11 @@ call (CUDA events) and per ``__global__`` function (``torch.profiler``).  A
 short first call for a new or edited kernel; ``chip_smoke.py`` is the full
 check.
 
-    python3 scripts/torch_kernel_check.py
+    python3 scripts/torch_kernel_check.py [KERNEL=SOURCE.cu ...]
+
+``KERNEL=SOURCE.cu`` (``asp_grid_stats`` or ``fused_log_mel``) builds that
+kernel from another source with the same C entry for this run: a variant
+is checked and timed without replacing the kernel in ``csrc/``.
 
 It also disassembles the built libraries (``cuobjdump -sass``) and prints,
 per ``__global__`` function, its instruction count and the length of its
@@ -57,6 +61,10 @@ def main() -> int:
     from speech_diarization_tpu_torch.models.port import load_speaker_encoder
     from speech_diarization_tpu_torch.ops import kernels
 
+    for arg in sys.argv[1:]:
+        name, _, src = arg.partition("=")
+        kernels.KERNELS[name] = (str(Path(src).resolve()), *kernels.KERNELS[name][1:])
+        print(f"{name}: built from {src}")
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip())
