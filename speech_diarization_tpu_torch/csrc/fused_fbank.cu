@@ -27,7 +27,7 @@
 //    folded frames are split as their fragments are read.
 //  * wgmma, not mma.sync.  One block owns 64 frames (110 blocks on the main
 //    path, one wave on 132 SMs) and two warpgroups, one for the real part
-//    and one for the imaginary: per 8-tap slice each issues three
+//    and one for the imaginary: per 8-tap slice each starts three
 //    wgmma.m64n208k8 (tf32 in, float32 out; 104 accumulators a thread) with
 //    its A fragments in registers (the split needs them there anyway) and B
 //    read from shared memory through a descriptor.  With the same
@@ -41,7 +41,7 @@
 //    layout the descriptor names, K-major without swizzle: core matrices
 //    of 8 bins x 4 taps (128 contiguous bytes), 26 of them along the bins
 //    and 2 along the taps of a slice.  One slice (26 KB) is one stage of a
-//    three-stage ring, filled by the copy engine: one thread issues one
+//    three-stage ring, filled by the copy engine: one thread starts one
 //    bulk copy (cp.async.bulk) per slice and an mbarrier counts its bytes.
 //    Filling the ring with per-thread cp.async (1,664 16-byte copies a
 //    slice) cost 15 % of the mma.sync kernel's time on the load/store
