@@ -8,24 +8,38 @@ Phases (any failure exits nonzero and prints no result line):
   2. Build every kernel of the main path from ``speech_diarization_tpu_torch/
      csrc`` (one nvcc per source, all started together).
   3. Each kernel against its plain PyTorch version on the card, at the
-     shapes the main path gives it (one 60 s chunk with its margins), in
-     the working dtype: max abs and relative error against the stated
-     tolerance, kernel /
-     plain / library times (CUDA events) and the bound from bytes and
-     operations.  Then a correctness-only sweep of each kernel against
-     its plain version at ragged shapes that reach every pad and mask
-     (partial frame tiles, window rows below and off the 8-row tiles, grids
-     that run past the end of the features), at the same tolerances.
+     shapes the main path gives it (one 60 s chunk with its margins; for
+     the log-mel also the overlap detector's batch of 24 five-second
+     windows, read in place from the chunk), in the working dtype: max abs
+     and relative error against the stated tolerance, kernel / plain /
+     library times (CUDA events) and the bound from bytes and operations.
+     Then a correctness-only sweep of each kernel against its plain version
+     at ragged shapes that reach every pad and mask (partial frame tiles,
+     batches of one and five rows off the hop grid, overlapping rows at an
+     odd stride, window rows below and off the 8-row tiles, grids that run
+     past the end of the features), at the same tolerances.  Then the
+     overlap detector (full-width ``segmentation_conv.npz``) on those 24
+     windows: its hard decisions on the card against the CPU, and on the
+     card with the kernel's features against the plain features.
   4. The port's main path: ``DiarizationPipeline`` as ``bench.py`` runs it
-     with the overlap rescue off (spectral clustering, shipped
-     ``vad_conv_mc.npz`` and ``ecapa_robust_stream.npz`` in bf16) on the
-     bench's 60 s and 600 s generator draws: warm wall, timed wall (min of
-     several), RTF, DER against the generator truth (bar: the JAX
-     pipeline's DER on the same files on the CPU plus one point), and each
-     kernel's launch count over the run (must be >= 1).
-  5. Reference agreement on a small input: the same pipeline (float32
+     (spectral clustering, shipped ``vad_conv_mc.npz`` and
+     ``ecapa_robust_stream.npz`` in bf16) on the bench's 60 s and 600 s
+     generator draws, first with the overlap rescue off, then at the
+     shipped default (on: the detector inside the per-chunk program): warm
+     wall, timed wall (min of several), RTF, DER against the generator
+     truth (bar: the JAX pipeline's DER on the same files on the CPU plus
+     one point), and each kernel's launch count over the run (the log-mel
+     once per chunk with the rescue off, twice with it on, one of them the
+     batch; the pooling once).
+  4b. The CLI's surface (frame reassignment on) on a 60 s held-out
+     conversation with overlapped speech: the detector arms, the rescue
+     adds second-speaker segments, and DER with it is no worse than
+     without it.
+  5. Reference agreement on small inputs: the same pipeline (float32
      encoder) on the card and on the CPU (plain versions) over a 25 s file
-     cut into three 10 s chunks.
+     cut into three 10 s chunks, with the rescue off; and with rescue and
+     reassignment on over a 25 s held-out file, where the detector's hard
+     decisions, the overlap regions and the final segments are compared.
 Then one JSON line listing the kernels, the card's nvidia-smi line, and the
 result line ``{"ok": true, "device": {...}}``.
 """
@@ -42,9 +56,11 @@ import numpy as np
 HERE = Path(__file__).resolve().parent
 SR = 16000
 
-# DER (%) of the JAX reference on the CPU, overlap off, on the bench draws
-# (scripts/torch_port_der_bar.py); the port must stay within one point.
-JAX_CPU_DER_PCT = {60: 0.0, 600: 0.6243}
+# DER (%) of the JAX reference on the CPU on the bench draws, overlap rescue
+# off and on (scripts/torch_port_der_bar.py); the port must stay within one
+# point.
+JAX_CPU_DER_PCT = {False: {60: 0.0, 600: 0.6243},
+                   True: {60: 0.0, 600: 0.6243}}
 DER_SLACK_PCT = 1.0
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and dense rates by type
@@ -57,6 +73,9 @@ PEAK_FLOPS = {"bf16_tensor": 989e12, "f32": 67e12}
 # activations to bf16, where a one-ulp difference in tanh can flip a bf16
 # rounding.
 TOL_REL = {"fused_log_mel": 1e-4, "asp_grid_stats": 2e-3}
+# least share of equal hard decisions of the overlap detector between two
+# ways of computing them (an argmax over 8 logits flips on near-ties)
+HARD_AGREE = 0.999
 
 
 def log(msg: str) -> None:
@@ -97,12 +116,73 @@ def bound(bytes_moved: float, ops: dict[str, float]) -> tuple[float, str]:
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def k2_measure(y, n_unique: int) -> dict:
+    """K2 on ``y`` ([T] or [B, T], possibly a view with overlapping rows of
+    ``n_unique`` distinct samples) against its plain version, with kernel,
+    plain and library times and the bound."""
+    import torch
+
+    from speech_diarization_tpu_torch.dsp.mel import (
+        _mel_filterbank_np, fused_log_mel, log_mel_spectrogram,
+    )
+
+    n_mels, n_fft, n_bins = 40, 400, 201
+    out = fused_log_mel(y, n_mels=n_mels)
+    ref = log_mel_spectrogram(y, n_mels=n_mels).reshape(out.shape)
+    torch.cuda.synchronize()
+    n_frames = out.numel() // n_mels
+    err = (out - ref).abs().max().item()
+    ref_max = ref.abs().max().item()
+    # the function's inputs: waveform, the two windowed [n_fft, n_bins]
+    # DFT bases and the mel filterbank, whatever form a kernel stores
+    k2_bytes = 4 * (n_unique + 2 * n_fft * n_bins + n_bins * n_mels
+                    + out.numel())
+    # the least operations the function needs, per frame: the even/odd
+    # fold about tap n_fft/2 (exact: the window and the cosines are
+    # symmetric, the sines antisymmetric) leaves n_fft/2 taps against
+    # the cosines and n_fft/2 - 1 against the sines; power; the
+    # filterbank's nonzero weights only; the log.  Counted at the
+    # float32 rate: the log of a quiet band needs float32 products.
+    fb_nnz = int(np.count_nonzero(_mel_filterbank_np(
+        n_bins, 20.0, SR / 2 - 100.0, n_mels, SR)))
+    k2_ops = n_frames * (2 * (n_fft // 2 - 1)
+                         + 2 * (n_fft // 2) * n_bins
+                         + 2 * (n_fft // 2 - 1) * n_bins
+                         + 3 * n_bins + 2 * fb_nnz + 2 * n_mels)
+    b_ms, b_by = bound(k2_bytes, {"f32": k2_ops})
+    win = torch.hann_window(n_fft, periodic=True, device=y.device)
+    return {
+        "shape": list(y.shape), "frames": n_frames,
+        "max_abs_err": err, "tol": TOL_REL["fused_log_mel"] * ref_max,
+        "ref_max": ref_max,
+        "ms": cuda_time_ms(lambda: fused_log_mel(y, n_mels=n_mels)),
+        "plain_ms": cuda_time_ms(lambda: log_mel_spectrogram(y, n_mels=n_mels)),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": cuda_time_ms(lambda: torch.stft(
+            y, n_fft, 160, window=win, center=True, pad_mode="reflect",
+            return_complex=True)),
+    }
+
+
+def agreement(a, b) -> float:
+    """Share of equal entries of two arrays or tensors of hard decisions."""
+    import torch
+
+    a, b = (x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+            for x in (a, b))
+    if a.shape != b.shape:
+        raise AssertionError(f"hard decisions of shapes {a.shape} and {b.shape}")
+    return float((a == b).mean())
+
+
 def ragged_sweep(enc, dev) -> None:
     """Each kernel against its plain version at shapes that reach every pad
     and mask; raises on the first miss of the main-path tolerances."""
     import torch
 
-    from speech_diarization_tpu_torch.dsp.mel import _log_mel_1d, fused_log_mel
+    from speech_diarization_tpu_torch.dsp.mel import (
+        _log_mel_1d, fused_log_mel, log_mel_spectrogram,
+    )
     from speech_diarization_tpu_torch.models.ecapa import (
         _asp_grid_stats_plain, asp_grid_stats,
     )
@@ -130,6 +210,22 @@ def ragged_sweep(enc, dev) -> None:
         worst["fused_log_mel"] = max(worst["fused_log_mel"], check(
             "fused_log_mel", f"T={t}", fused_log_mel(y, n_mels=40),
             _log_mel_1d(y, n_mels=40)))
+    # K2 on batches: one row, five contiguous rows off the hop grid, five
+    # overlapping rows read in place at an odd stride (rows not 16-byte
+    # aligned against each other), and rows one tile long
+    n_batches = 0
+    for b, t, stride in ((1, 8000 + 37, None), (5, 8000 + 37, None),
+                         (5, 8000 + 37, 3001), (3, 64 * 160, 5000),
+                         (5, 201, None)):
+        n = torch.arange(t + 4 * (stride or t), dtype=torch.float32)
+        sig = (0.6 * torch.sin(2 * torch.pi * 440.0 / SR * n)
+               + 2e-2 * torch.randn(n.numel(), generator=g)).to(dev)
+        yb = (sig[:b * t].reshape(b, t) if stride is None
+              else sig[:(b - 1) * stride + t].unfold(0, t, stride))
+        worst["fused_log_mel"] = max(worst["fused_log_mel"], check(
+            "fused_log_mel", f"B={b} T={t} row stride {yb.stride(0)}",
+            fused_log_mel(yb, n_mels=40), log_mel_spectrogram(yb, n_mels=40)))
+        n_batches += 1
     # K1: window rows on, below and off the 8-row tiles (301 and 450 are
     # walked in two and three chunks of 208 rows), odd hops, odd first rows
     # and T_f, and one grid per shape whose last rows run past T_f
@@ -148,7 +244,8 @@ def ragged_sweep(enc, dev) -> None:
                         f"W={n_w} win_f={win_f} hop_f={hop_f} T_f={a[0].shape[1]}",
                         asp_grid_stats(*a), _asp_grid_stats_plain(*a)))
                     n_grids += 1
-    log(f"[3] ragged sweep: 5 lengths of fused_log_mel, {n_grids} grids of "
+    log(f"[3] ragged sweep: 5 lengths and {n_batches} batches of "
+        f"fused_log_mel, {n_grids} grids of "
         f"asp_grid_stats within tolerance (worst share of it: "
         f"{worst['fused_log_mel']:.3f}, {worst['asp_grid_stats']:.3f})")
 
@@ -179,9 +276,10 @@ def main() -> int:
 
     from speech_diarization_tpu_torch.config import (
         ClusterConfig, DiarizationConfig, EmbedConfig, OverlapConfig,
+        ResegConfig,
     )
     from speech_diarization_tpu_torch.dsp.mel import (
-        _log_mel_1d, _mel_filterbank_np, fused_log_mel,
+        _log_mel_1d, log_mel_spectrogram,
     )
     from speech_diarization_tpu_torch.metrics.der import diarization_error_rate
     from speech_diarization_tpu_torch.models.ecapa import (
@@ -189,10 +287,13 @@ def main() -> int:
     )
     from speech_diarization_tpu_torch.models.layers import sliding_mean_time
     from speech_diarization_tpu_torch.models.port import (
-        load_speaker_encoder, load_vad,
+        load_segmentation, load_speaker_encoder, load_vad,
     )
     from speech_diarization_tpu_torch.ops import kernels
     from speech_diarization_tpu_torch.pipelines.diarize import DiarizationPipeline
+    from speech_diarization_tpu_torch.train.heldout import (
+        make_conversation_heldout,
+    )
     from speech_diarization_tpu_torch.train.synthetic import make_conversation
     from speech_diarization_tpu_torch.types import SegmentArray
 
@@ -218,44 +319,19 @@ def main() -> int:
                          .astype(np.float32)).to(dev)
     rows = []
     with torch.inference_mode():
-        # K2: fused log-mel on [1,118,400] float32 -> [6991, 40]
-        out = fused_log_mel(y, n_mels=40)
-        ref = _log_mel_1d(y, n_mels=40)
-        torch.cuda.synchronize()
-        n_frames, n_mels, n_fft, n_bins = out.shape[0], 40, 400, 201
-        err = (out - ref).abs().max().item()
-        ref_max = ref.abs().max().item()
-        tol = TOL_REL["fused_log_mel"] * ref_max
-        # the function's inputs: waveform, the two windowed [n_fft, n_bins]
-        # DFT bases and the mel filterbank, whatever form a kernel stores
-        k2_bytes = 4 * (y.numel() + 2 * n_fft * n_bins + n_bins * n_mels
-                        + out.numel())
-        # the least operations the function needs, per frame: the even/odd
-        # fold about tap n_fft/2 (exact: the window and the cosines are
-        # symmetric, the sines antisymmetric) leaves n_fft/2 taps against
-        # the cosines and n_fft/2 - 1 against the sines; power; the
-        # filterbank's nonzero weights only; the log.  Counted at the
-        # float32 rate: the log of a quiet band needs float32 products.
-        fb_nnz = int(np.count_nonzero(_mel_filterbank_np(
-            n_bins, 20.0, SR / 2 - 100.0, n_mels, SR)))
-        k2_ops = n_frames * (2 * (n_fft // 2 - 1)
-                             + 2 * (n_fft // 2) * n_bins
-                             + 2 * (n_fft // 2 - 1) * n_bins
-                             + 3 * n_bins + 2 * fb_nnz + 2 * n_mels)
-        b_ms, b_by = bound(k2_bytes, {"f32": k2_ops})
-        win = torch.hann_window(n_fft, periodic=True, device=dev)
+        # K2: fused log-mel on [1,118,400] float32 -> [6991, 40], and on the
+        # overlap detector's batch: 24 windows of 80,000 samples every
+        # 40,000 from the chunk's core on, read in place (a view)
+        wins = y[m_l:m_l + 23 * 40000 + 80000].unfold(0, 80000, 40000)
+        k2 = k2_measure(y, y.numel())
+        k2b = k2_measure(wins, 23 * 40000 + 80000)
         rows.append({
             "name": "fused_log_mel", "route": "cuda",
             "source": "speech_diarization_tpu_torch/csrc/fused_fbank.cu",
             "replaces": "speech_diarization_tpu/ops/pallas/fused_fbank.py:146",
-            "max_abs_err": err, "tol": tol, "ref_max": ref_max,
-            "ms": cuda_time_ms(lambda: fused_log_mel(y, n_mels=40)),
-            "plain_ms": cuda_time_ms(lambda: _log_mel_1d(y, n_mels=40)),
-            "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": cuda_time_ms(lambda: torch.stft(
-                y, n_fft, 160, window=win, center=True, pad_mode="reflect",
-                return_complex=True)),
+            **k2, "batch": k2b,
         })
+        ref = _log_mel_1d(y, n_mels=40)
         # K1: grid ASP stats on the real trunk features of this chunk
         feats = ref[None]
         feats = feats - sliding_mean_time(feats.transpose(1, 2), 201).transpose(1, 2)
@@ -286,8 +362,9 @@ def main() -> int:
             "plain_ms": cuda_time_ms(lambda: _asp_grid_stats_plain(*args), 5),
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         })
-    for r in rows:
-        log(f"[3] {r['name']}: max_abs_err {r['max_abs_err']:.3e} (tol "
+    for r in rows + [{"name": "fused_log_mel", **k2b}]:
+        log(f"[3] {r['name']}{r.get('shape', '')}: max_abs_err "
+            f"{r['max_abs_err']:.3e} (tol "
             f"{r['tol']:.3e}), max_rel_err {r['max_abs_err'] / r['ref_max']:.3e} "
             f"(tol {TOL_REL[r['name']]:.0e}); kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
@@ -298,67 +375,143 @@ def main() -> int:
     with torch.inference_mode():
         ragged_sweep(enc, dev)
     log(f"    sweep took {time.perf_counter() - t0:.2f} s")
+    # the overlap detector at full width on the 24 windows: the card against
+    # the CPU, and on the card the kernel's features against the plain ones
+    seg_w = wdir / "segmentation_conv.npz"
+    seg = load_segmentation(seg_w).to(dev).eval()
+    seg_cpu = load_segmentation(seg_w).eval()
+    # windows of a conversation that has overlapped speech (the bench's
+    # generator has none), cut as the per-chunk program cuts them
+    wave_h, _ = make_conversation_heldout(np.random.default_rng(4000), 63.0,
+                                          n_speakers=3, sr=SR, overlap_frac=0.3)
+    wins = (torch.from_numpy(wave_h[:23 * 40000 + 80000]).to(dev)
+            .unfold(0, 80000, 40000))
+    with torch.inference_mode():
+        hard = seg.hard_activities(wins)
+        hard_plain = seg.net.apply_hard(
+            (log_mel_spectrogram(wins, n_mels=40) + 6.0) * 0.25)
+        hard_cpu = seg_cpu.hard_activities(wins.cpu())
+        det_ms = cuda_time_ms(lambda: seg.hard_activities(wins), 10)
+    agree = {"card vs CPU": agreement(hard, hard_cpu),
+             "kernel vs plain features": agreement(hard, hard_plain)}
+    log(f"[3] overlap detector {tuple(wins.shape)} -> {tuple(hard.shape)}: equal "
+        f"hard decisions " + ", ".join(f"{k} {100 * v:.4f} %"
+                                        for k, v in agree.items())
+        + f" (bar {100 * HARD_AGREE:.1f} %); frames with two or more active "
+        f"{100 * float((hard.sum(-1) >= 2).float().mean()):.2f} %; "
+        f"{det_ms:.3f} ms a chunk on the card")
+    if min(agree.values()) < HARD_AGREE:
+        raise AssertionError("the overlap detector's hard decisions disagree")
 
     # ---------------------------------------------------------- phase 4 ----
-    cfg = DiarizationConfig(
-        cluster=ClusterConfig(method="spectral", max_speakers=8),
-        embed=EmbedConfig(grid_backend="auto"),
-        overlap=OverlapConfig(enabled=False))
-    pipe = DiarizationPipeline(cfg, encoder=enc, vad=vad)
-    launches = {}
-    for dur in (60, 600):
-        wave, truth = make_conversation(np.random.default_rng(0), float(dur),
-                                        n_speakers=3, sr=SR)
-        kernels.reset_launches()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        res = pipe((wave, SR))
-        warm = time.perf_counter() - t0
-        launches[dur] = dict(kernels.LAUNCHES)
-        walls = []
-        for _ in range(4):
+    def bench_cfg(overlap: bool, **kw):
+        return DiarizationConfig(
+            cluster=ClusterConfig(method="spectral", max_speakers=8),
+            embed=EmbedConfig(grid_backend="auto"),
+            overlap=OverlapConfig(enabled=overlap), **kw)
+
+    def der_pct(truth, segs) -> float:
+        return 100.0 * diarization_error_rate(SegmentArray(*truth), segs).der
+
+    launches, forms, walls_by = {}, {}, {}
+    for overlap in (False, True):
+        pipe = DiarizationPipeline(bench_cfg(overlap), encoder=enc, vad=vad)
+        for dur in (60, 600):
+            wave, truth = make_conversation(np.random.default_rng(0), float(dur),
+                                            n_speakers=3, sr=SR)
+            kernels.reset_launches()
+            torch.cuda.synchronize()
             t0 = time.perf_counter()
-            pipe((wave, SR))
-            walls.append(time.perf_counter() - t0)
-        der = 100.0 * diarization_error_rate(SegmentArray(*truth), res.segments).der
-        bar = JAX_CPU_DER_PCT[dur] + DER_SLACK_PCT
-        log(f"[4] {dur} s: warm {warm:.3f} s, timed {min(walls):.4f} s "
-            f"(walls {[round(w, 4) for w in walls]}) -> RTF "
-            f"{dur / min(walls):.1f}x; {len(res.segments)} segments, "
-            f"{res.num_speakers} speakers, DER {der:.4f} % (bar {bar:.4f} %); "
-            f"launches {launches[dur]}")
-        probs = res.diagnostics["vad_probs"]
-        grid = res.diagnostics["window_embeddings"]
-        if not (np.isfinite(probs).all() and np.isfinite(grid).all()):
-            raise AssertionError("non-finite VAD probabilities or embeddings")
-        if probs.shape != (dur * 100 + 1,) or grid.shape[1] != 128:
-            raise AssertionError(f"bad shapes {probs.shape} {grid.shape}")
-        for name, n in launches[dur].items():
-            if n < 1:
-                raise AssertionError(f"kernel {name} was not launched on the "
-                                     "main path")
-        if not der <= bar:
-            raise AssertionError(f"DER {der:.4f} % above the bar {bar:.4f} %")
+            res = pipe((wave, SR))
+            warm = time.perf_counter() - t0
+            launches[overlap, dur] = dict(kernels.LAUNCHES)
+            forms[overlap, dur] = dict(kernels.LAUNCH_FORMS)
+            walls = []
+            for _ in range(4):
+                t0 = time.perf_counter()
+                pipe((wave, SR))
+                walls.append(time.perf_counter() - t0)
+            walls_by[overlap, dur] = min(walls)
+            der = der_pct(truth, res.segments)
+            bar = JAX_CPU_DER_PCT[overlap][dur] + DER_SLACK_PCT
+            log(f"[4] overlap {'on' if overlap else 'off'}, {dur} s: warm "
+                f"{warm:.3f} s, timed {min(walls):.4f} s "
+                f"(walls {[round(w, 4) for w in walls]}) -> RTF "
+                f"{dur / min(walls):.1f}x; {len(res.segments)} segments, "
+                f"{res.num_speakers} speakers, DER {der:.4f} % (bar {bar:.4f} %); "
+                f"launches {launches[overlap, dur]} {forms[overlap, dur]}")
+            probs = res.diagnostics["vad_probs"]
+            grid = res.diagnostics["window_embeddings"]
+            if not (np.isfinite(probs).all() and np.isfinite(grid).all()):
+                raise AssertionError("non-finite VAD probabilities or embeddings")
+            if probs.shape != (dur * 100 + 1,) or grid.shape[1] != 128:
+                raise AssertionError(f"bad shapes {probs.shape} {grid.shape}")
+            n_chunks = dur // 60
+            want = {"asp_grid_stats": n_chunks,
+                    "fused_log_mel": (2 if overlap else 1) * n_chunks}
+            want_forms = {"fused_log_mel[T]": n_chunks}
+            if overlap:
+                want_forms["fused_log_mel[B, T]"] = n_chunks
+                hard = res.diagnostics["overlap_hard"]
+                # a whole-file detector scores ceil((T - 5 s) / 2.5 s) + 1 windows
+                if hard.shape != (-(-(dur - 5) * 2 // 5) + 1, 501, 3) or not (
+                        np.isin(hard, (0.0, 1.0)).all()):
+                    raise AssertionError(f"bad hard decisions {hard.shape}")
+            if launches[overlap, dur] != want or forms[overlap, dur] != want_forms:
+                raise AssertionError(
+                    f"launch counts {launches[overlap, dur]} "
+                    f"{forms[overlap, dur]}, expected {want} {want_forms}")
+            if not der <= bar:
+                raise AssertionError(f"DER {der:.4f} % above the bar {bar:.4f} %")
+    log(f"[4] the detector's cost, min walls on against off: 60 s "
+        f"{walls_by[True, 60] - walls_by[False, 60]:+.4f} s, 600 s "
+        f"{walls_by[True, 600] - walls_by[False, 600]:+.4f} s")
+
+    # --------------------------------------------------------- phase 4b ----
+    wave, truth = make_conversation_heldout(np.random.default_rng(4000), 60.0,
+                                            n_speakers=3, sr=SR, overlap_frac=0.3)
+    held = {}
+    for overlap in (False, True):
+        pipe = DiarizationPipeline(
+            bench_cfg(overlap, reseg=ResegConfig(enabled=True)),
+            encoder=enc, vad=vad)
+        kernels.reset_launches()
+        res = pipe((wave, SR))
+        held[overlap] = (res, der_pct(truth, res.segments), dict(kernels.LAUNCHES))
+    res, der_on, n_launch = held[True]
+    n_added = len(res.segments) - len(held[False][0].segments)
+    regions = res.diagnostics.get("overlap_regions")
+    log(f"[4b] held-out 60 s file with overlapped speech, reassignment on: "
+        f"detector {'armed' if regions is not None else 'NOT armed'}, "
+        f"{0 if regions is None else len(regions)} overlap regions, {n_added} "
+        f"second-speaker segments added, DER {der_on:.4f} % with the rescue, "
+        f"{held[False][1]:.4f} % without; launches {n_launch}")
+    if regions is None or n_added < 1 or not der_on <= held[False][1]:
+        raise AssertionError("the overlap rescue did not arm, added nothing "
+                             "or made DER worse")
 
     # ---------------------------------------------------------- phase 5 ----
     enc32 = load_speaker_encoder(wdir / "ecapa_robust_stream.npz")
+
+    def card_and_cpu(cfg, wave):
+        outs = {}
+        for where in ("cuda", "cpu"):
+            p = DiarizationPipeline(cfg, encoder=enc32, vad=load_vad(
+                wdir / "vad_conv_mc.npz"), device=where)
+            p._PAD_BUCKET_S = 10.0
+            outs[where] = p(wave)
+        return outs
+
     wave, truth = make_conversation(np.random.default_rng(3), 25.0, n_speakers=3,
                                     sr=SR)
-    outs = {}
-    for where in ("cuda", "cpu"):
-        p = DiarizationPipeline(cfg, encoder=enc32, vad=load_vad(
-            wdir / "vad_conv_mc.npz"), device=where)
-        p._PAD_BUCKET_S = 10.0
-        outs[where] = p(wave)
+    outs = card_and_cpu(bench_cfg(False), wave)
     g_c = outs["cuda"].diagnostics["window_embeddings"]
     g_p = outs["cpu"].diagnostics["window_embeddings"]
     cos = float(((g_c * g_p).sum(1) / np.linalg.norm(g_c, axis=1)
                  / np.linalg.norm(g_p, axis=1)).min())
     perr = float(np.abs(outs["cuda"].diagnostics["vad_probs"]
                         - outs["cpu"].diagnostics["vad_probs"]).max())
-    ders = {k: 100.0 * diarization_error_rate(SegmentArray(*truth),
-                                              v.segments).der
-            for k, v in outs.items()}
+    ders = {k: der_pct(truth, v.segments) for k, v in outs.items()}
     log(f"[5] card vs CPU, 25 s / three chunks, float32 encoder: grid min cos "
         f"{cos:.6f} (bar 0.9999), VAD probs max err {perr:.2e} (bar 1e-3), "
         f"DER {ders['cuda']:.4f} % vs {ders['cpu']:.4f} %, speakers "
@@ -367,12 +520,45 @@ def main() -> int:
             and abs(ders["cuda"] - ders["cpu"]) <= 1.0
             and outs["cuda"].num_speakers == outs["cpu"].num_speakers):
         raise AssertionError("the card disagrees with the CPU reference")
+    # the same with the rescue and reassignment on, over a file that has
+    # overlapped speech
+    wave, truth = make_conversation_heldout(np.random.default_rng(4000), 25.0,
+                                            n_speakers=3, sr=SR, overlap_frac=0.3)
+    outs = card_and_cpu(bench_cfg(True, reseg=ResegConfig(enabled=True)), wave)
+    d_c, d_p = outs["cuda"].diagnostics, outs["cpu"].diagnostics
+    agree = agreement(d_c["overlap_hard"], d_p["overlap_hard"])
+    r_c, r_p = d_c["overlap_regions"], d_p["overlap_regions"]
+    s_c, s_p = outs["cuda"].segments, outs["cpu"].segments
+    same_n = len(r_c) == len(r_p) and len(s_c) == len(s_p)
+    r_err = max([0.0, *np.abs(r_c.starts - r_p.starts),
+                 *np.abs(r_c.ends - r_p.ends)]) if same_n else float("inf")
+    s_err = max([0.0, *np.abs(s_c.starts - s_p.starts),
+                 *np.abs(s_c.ends - s_p.ends)]) if same_n else float("inf")
+    ders = {k: der_pct(truth, v.segments) for k, v in outs.items()}
+    log(f"[5] card vs CPU, held-out 25 s / three chunks, rescue and "
+        f"reassignment on: equal hard decisions {100 * agree:.4f} % of "
+        f"{d_c['overlap_hard'].size} (bar {100 * HARD_AGREE:.1f} %), "
+        f"{len(r_c)} vs {len(r_p)} overlap regions (max edge difference "
+        f"{r_err:.3f} s, bar 0.02), {len(s_c)} vs {len(s_p)} final segments "
+        f"(max edge difference {s_err:.3f} s, bar 0.02), speakers equal: "
+        f"{bool(same_n and (s_c.spks == s_p.spks).all())}, DER "
+        f"{ders['cuda']:.4f} % vs {ders['cpu']:.4f} %")
+    if not (agree >= HARD_AGREE and same_n and r_err <= 0.02 and s_err <= 0.02
+            and (s_c.spks == s_p.spks).all()
+            and abs(ders["cuda"] - ders["cpu"]) <= 1.0):
+        raise AssertionError("the card disagrees with the CPU reference with "
+                             "the overlap rescue on")
 
     for r in rows:
-        r["launches"] = launches[600][r["name"]]
+        # this slice's path: the bench configuration at the shipped default
+        r["launches"] = launches[True, 600][r["name"]]
+        r["launches_overlap_off"] = launches[False, 600][r["name"]]
+    rows[0]["batch"]["launches"] = forms[True, 600]["fused_log_mel[B, T]"]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "launches_overlap_off", "batch")
+    print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
+                                  for r in rows]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

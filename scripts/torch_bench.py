@@ -1,0 +1,156 @@
+"""Benchmark of the PyTorch port: full-pipeline real-time factor on one card.
+
+The protocol of the JAX package's ``bench.py`` for its first three
+milestones, on the same files and configuration:
+
+0. device contact (a small product on the card, timed);
+1. the 60 s draw: one warm call (it builds the CUDA kernels the first time),
+   then the minimum of 4 timed calls;
+2. the 600 s draw (``SDTPU_BENCH_FULL_S`` overrides the length): the same,
+   skipped when the 60 s speed says it would pass ``SDTPU_BENCH_BUDGET_S``.
+
+Files are ``make_conversation(np.random.default_rng(0), D, n_speakers=3)``;
+the configuration is spectral clustering (max 8 speakers), the shipped
+``vad_conv_mc.npz`` and ``ecapa_robust_stream.npz`` (bf16 trunk) and the
+overlap rescue at its config default (on, ``segmentation_conv.npz``);
+``SDTPU_BENCH_OVERLAP=0`` or ``1`` overrides it, as in ``bench.py``.  Frame
+reassignment is off, as in the config default.  Every run is scored: DER
+against the generator truth rides each line.  The corpus milestone is not
+here (the corpus worker is not ported).
+
+    python3 scripts/torch_bench.py [--cpu]
+
+One JSON line per milestone on standard output, the last one the headline;
+stage timings go to standard error (``SDTPU_LOG_LEVEL=INFO``).  Needs a CUDA
+card unless ``--cpu`` is given.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+SR = 16000
+SMALL_S = 60.0
+FULL_S = float(os.environ.get("SDTPU_BENCH_FULL_S", "600"))
+FULL_BUDGET_S = float(os.environ.get("SDTPU_BENCH_BUDGET_S", "300"))
+
+
+def log(msg: str) -> None:
+    print(msg, file=sys.stderr, flush=True)
+
+
+def emit(rtf: float, scope: str, extra: dict) -> None:
+    """Print a complete, parsable result line; later lines supersede."""
+    print(json.dumps({"metric": "diarization_rtf_per_chip",
+                      "value": round(rtf, 2), "unit": "x_realtime",
+                      "scope": scope, **extra}), flush=True)
+
+
+def run_milestone(pipe, dur: float, tag: dict, score) -> tuple[float, float, float]:
+    """Warm call + min of 4 timed calls on the ``dur``-second draw; prints the
+    warm line and returns (rtf, der_pct, wall_s)."""
+    from speech_diarization_tpu_torch.train.synthetic import make_conversation
+
+    wave, truth = make_conversation(np.random.default_rng(0), dur,
+                                    n_speakers=3, sr=SR)
+    t0 = time.perf_counter()
+    result = pipe((wave, SR))
+    warm = time.perf_counter() - t0
+    der = score(result, truth)
+    log(f"[{dur:.0f}s] warm call: {warm:.2f}s, {len(result.segments)} segments, "
+        f"{result.num_speakers} speakers, der {der:.2f}%")
+    emit(dur / warm, f"{dur:.0f}s_warmup_incl_build", {"der_pct": der, **tag})
+    times = []
+    for _ in range(4):
+        t0 = time.perf_counter()
+        pipe((wave, SR))
+        times.append(time.perf_counter() - t0)
+    wall = min(times)
+    log(f"[{dur:.0f}s] timed: {[f'{t:.3f}' for t in times]} -> rtf "
+        f"{dur / wall:.1f}x")
+    return dur / wall, der, wall
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--cpu", action="store_true",
+                    help="run on the CPU instead of the card")
+    args = ap.parse_args()
+    os.environ.setdefault("SDTPU_LOG_LEVEL", "INFO")
+
+    import torch
+
+    from speech_diarization_tpu_torch.config import (
+        ClusterConfig, DiarizationConfig, EmbedConfig, OverlapConfig,
+    )
+    from speech_diarization_tpu_torch.metrics.der import diarization_error_rate
+    from speech_diarization_tpu_torch.models.port import (
+        load_speaker_encoder, load_vad,
+    )
+    from speech_diarization_tpu_torch.pipelines.diarize import DiarizationPipeline
+    from speech_diarization_tpu_torch.types import SegmentArray
+    from speech_diarization_tpu_torch.utils.weights import (
+        ENCODER_PREFERENCE, VAD_PREFERENCE, prefer_weights,
+    )
+
+    if not args.cpu and not torch.cuda.is_available():
+        print("needs a CUDA card (or --cpu)", file=sys.stderr)
+        return 2
+    # -- milestone 0: device contact ------------------------------------------
+    t0 = time.perf_counter()
+    if args.cpu:
+        card = "cpu"
+    else:
+        x = torch.ones((256, 256), dtype=torch.bfloat16, device="cuda")
+        (x @ x).sum().item()
+        card = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    log(f"device: {card}, first contact {time.perf_counter() - t0:.2f}s")
+
+    ov_env = os.environ.get("SDTPU_BENCH_OVERLAP")
+    overlap_cfg = (OverlapConfig(enabled=ov_env == "1") if ov_env is not None
+                   else OverlapConfig())
+    log(f"overlap rescue: {'on' if overlap_cfg.enabled else 'off'}")
+    cfg = DiarizationConfig(
+        cluster=ClusterConfig(method="spectral", max_speakers=8),
+        embed=EmbedConfig(grid_backend="auto"), overlap=overlap_cfg)
+    enc_w, vad_w = prefer_weights(ENCODER_PREFERENCE), prefer_weights(VAD_PREFERENCE)
+    log(f"encoder: {enc_w.name} (bf16 trunk); vad: {vad_w.name}")
+    pipe = DiarizationPipeline(
+        cfg, encoder=load_speaker_encoder(enc_w, dtype=torch.bfloat16),
+        vad=load_vad(vad_w), device="cpu" if args.cpu else None)
+    tag = {"card": card, "overlap": overlap_cfg.enabled}
+
+    def score(result, truth) -> float:
+        return round(100.0 * diarization_error_rate(
+            SegmentArray(*truth), result.segments).der, 2)
+
+    # -- milestone 1: 60 s ----------------------------------------------------
+    small_rtf, small_der, small_wall = run_milestone(pipe, SMALL_S, tag, score)
+    emit(small_rtf, "60s_bucket", {"wall_s": round(small_wall, 4),
+                                   "der_pct": small_der, **tag})
+    # -- milestone 2: the headline run ------------------------------------------
+    est_wall = FULL_S / max(small_rtf, 1e-3)
+    if est_wall > FULL_BUDGET_S:
+        log(f"[{FULL_S:.0f}s] skipped: estimated {est_wall:.0f}s exceeds budget "
+            f"{FULL_BUDGET_S:.0f}s; keeping the 60 s result")
+        return 0
+    rtf, der, wall = run_milestone(pipe, FULL_S, tag, score)
+    emit(rtf, f"{int(FULL_S)}s_full", {
+        "wall_s": round(wall, 4), "rtf_60s_bucket": round(small_rtf, 2),
+        "der_pct": der, "der_60s_pct": small_der, **tag})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -54,7 +54,9 @@ def main() -> int:
         print("needs a CUDA card", file=sys.stderr)
         return 2
     import chip_smoke
-    from speech_diarization_tpu_torch.dsp.mel import _log_mel_1d, fused_log_mel
+    from speech_diarization_tpu_torch.dsp.mel import (
+        _log_mel_1d, _log_mel_batched, fused_log_mel,
+    )
     from speech_diarization_tpu_torch.models.ecapa import (
         _asp_grid_stats_plain, asp_grid_stats,
     )
@@ -86,6 +88,14 @@ def main() -> int:
         torch.cuda.synchronize()
         print(f"fused_log_mel: max abs err {(out - ref).abs().max().item():.3e} "
               f"of max {ref.abs().max().item():.3f}")
+        # the overlap detector's batch: 24 windows of 5 s every 2.5 s, read
+        # in place from one signal
+        yb = y[64000:64000 + 23 * 40000 + 80000].unfold(0, 80000, 40000)
+        out, ref = fused_log_mel(yb, n_mels=40), _log_mel_batched(yb, n_mels=40)
+        torch.cuda.synchronize()
+        print(f"fused_log_mel {tuple(yb.shape)} strides {yb.stride()}: max abs "
+              f"err {(out - ref).abs().max().item():.3e} of max "
+              f"{ref.abs().max().item():.3f}")
         x = torch.randn(768, 6991, generator=g).to(dev).to(torch.bfloat16)
         a = enc.net.k1_inputs(x, 400, 10, 201, 600)
         out, ref = asp_grid_stats(*a), _asp_grid_stats_plain(*a)
@@ -95,14 +105,18 @@ def main() -> int:
         chip_smoke.ragged_sweep(enc, dev)
         for _ in range(2):
             k2 = chip_smoke.cuda_time_ms(lambda: fused_log_mel(y, n_mels=40), 50)
+            k2b = chip_smoke.cuda_time_ms(lambda: fused_log_mel(yb, n_mels=40), 50)
             k1 = chip_smoke.cuda_time_ms(lambda: asp_grid_stats(*a), 50)
-            print(f"fused_log_mel {k2:.4f} ms, asp_grid_stats {k1:.4f} ms")
+            print(f"fused_log_mel {k2:.4f} ms, batch of 24 {k2b:.4f} ms, "
+                  f"asp_grid_stats {k1:.4f} ms")
         from torch.profiler import ProfilerActivity, profile
 
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(10):
                 fused_log_mel(y, n_mels=40)
                 asp_grid_stats(*a)
+            for _ in range(10):
+                fused_log_mel(yb, n_mels=40)
             torch.cuda.synchronize()
         for e in prof.key_averages():
             if e.count >= 10:

@@ -1,11 +1,13 @@
 """Command-line entry point of the PyTorch port: ``sdtpu-torch diarize``.
 
-    python -m speech_diarization_tpu_torch.cli diarize x.wav --no-overlap --no-reseg
+    python -m speech_diarization_tpu_torch.cli diarize x.wav [--cpu]
 
-Runs on the card unless ``--cpu`` is given.  The overlap rescue and frame
-reassignment are not ported yet: without ``--no-overlap`` and ``--no-reseg``
-the pipeline refuses to run rather than drop them.  Writes RTTM, JSON, SRT
-and CSV.
+Runs on the card unless ``--cpu`` is given, at the defaults of the JAX
+package's CLI: overlap rescue on (the segmentation model runs inside the
+per-chunk device program), frame reassignment on, spectral clustering.
+``--no-overlap``, ``--no-reseg`` and ``--hmm`` are options.  The enhancement
+front-end is not ported: a file whose estimated SNR is under 25 dB is
+refused unless ``--enhance off`` is given.  Writes RTTM, JSON, SRT and CSV.
 """
 from __future__ import annotations
 
@@ -31,7 +33,9 @@ def _add_common_config_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--min-speakers", type=int, default=1)
     p.add_argument("--max-speakers", type=int, default=8)
     p.add_argument("--no-reseg", action="store_true",
-                   help="frame reassignment off (required: not ported yet)")
+                   help="frame reassignment off (default: on)")
+    p.add_argument("--hmm", action="store_true",
+                   help="sticky-HMM smoothing of the reassigned labels")
     p.add_argument("--merge-gap-s", type=float, default=0.5)
     p.add_argument("--merge-max-turn-s", type=float, default=30.0)
     p.add_argument("--merge-min-cos", type=float, default=0.80)
@@ -41,8 +45,12 @@ def _add_common_config_args(p: argparse.ArgumentParser) -> None:
                         "files are refused while it is not ported")
     p.add_argument("--overlap", action=argparse.BooleanOptionalAction,
                    default=None,
-                   help="overlap rescue; --no-overlap is required until "
-                        "the detector is ported")
+                   help="overlap rescue: add second-speaker segments where "
+                        "the segmentation model detects two or more active "
+                        "speakers.  Default on (the config default); "
+                        "--no-overlap disables")
+    p.add_argument("--overlap-weights", type=str, default=None,
+                   help="segmentation checkpoint for the overlap detector")
     p.add_argument("--encoder-weights", type=str, default=None,
                    help="streaming-trained ECAPA npz checkpoint")
     p.add_argument("--vad-weights", type=str, default=None,
@@ -78,12 +86,14 @@ def build_config(args: argparse.Namespace):
         scd=ScdConfig(enabled=not args.no_scd, peak_z_threshold=args.scd_threshold),
         cluster=ClusterConfig(method="spectral", min_speakers=args.min_speakers,
                               max_speakers=args.max_speakers),
-        reseg=ResegConfig(enabled=not args.no_reseg),
+        reseg=ResegConfig(enabled=not args.no_reseg, hmm=args.hmm),
         merge=MergeConfig(max_gap_s=args.merge_gap_s,
                           max_turn_s=args.merge_max_turn_s,
                           min_cos=args.merge_min_cos),
-        overlap=OverlapConfig(**({} if args.overlap is None
-                                 else {"enabled": args.overlap})),
+        overlap=OverlapConfig(
+            # tri-state: None keeps the config default (on)
+            **({} if args.overlap is None else {"enabled": args.overlap}),
+            weights=args.overlap_weights),
     )
 
 

@@ -58,6 +58,11 @@
 //    filter for all 64 frames, so the walk is uniform over the warp, the
 //    weights are broadcasts and the power reads are 32 neighbours.  Then
 //    log, and the tile leaves as one contiguous block.
+//  * A batch [B, T] is one launch: frame tiles along grid x, waveforms
+//    along grid y, each row padded on its own.  Rows are addressed by a
+//    stride, so windows cut from one signal (the overlap detector's 24
+//    five-second windows at a 2.5 s hop: 24 x 8 = 192 blocks) are read in
+//    place, without a copy that would write every sample twice.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -196,14 +201,16 @@ __device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
 }
 
 __global__ void __launch_bounds__(THREADS, 1)
-fused_log_mel_kernel(const float* __restrict__ y, int t,
+fused_log_mel_kernel(const float* __restrict__ y,      // [rows] x t, row r at
+                                                       // y + r * y_stride
+                     long long y_stride, int t,
                      const float* __restrict__ basis,  // [nks] x STAGE_FLOATS
                      int nks,                          // 8-tap slices
                      const int* __restrict__ mel_idx,  // [3, n_mels]: first
                                                        // bin, end bin, offset
                      const float* __restrict__ mel_w,  // [nnz] packed weights
                      int nnz, int n_fft, int hop, int n_mels, float eps,
-                     float* __restrict__ out,          // [n_frames, n_mels]
+                     float* __restrict__ out,   // [rows, n_frames, n_mels]
                      int n_frames) {
   extern __shared__ __align__(16) float smem[];
   const int kp = nks * 8;                 // padded taps per part
@@ -219,6 +226,10 @@ fused_log_mel_kernel(const float* __restrict__ y, int t,
   const int tid = threadIdx.x;
   const int f0 = blockIdx.x * TILE_M;
   const int half = n_fft / 2;
+  // one waveform of the batch per blockIdx.y, each reflect-padded on its
+  // own; rows may overlap in memory (windows cut from one signal)
+  y += (long long)blockIdx.y * y_stride;
+  out += (long long)blockIdx.y * n_frames * n_mels;
 
   // slice ks of the basis -> its buffer of the ring, by one thread; the
   // fence orders the ring's earlier reads before the copy engine's write
@@ -386,18 +397,23 @@ fused_log_mel_kernel(const float* __restrict__ y, int t,
 }  // namespace
 
 // C entry point: launches on `stream`, does not synchronise, returns
-// cudaGetLastError().  `basis` is the folded, split basis in core-matrix
+// cudaGetLastError().  `y` holds `n_batch` waveforms of `t` samples,
+// `y_stride` elements apart (any stride, rows may overlap), and `out` is
+// [n_batch, n_frames, n_mels]: one launch, frame tiles along grid x and
+// waveforms along grid y.  `basis` is the folded, split basis in core-matrix
 // order of dsp/mel.py::_basis_fragments with `nks` 8-tap slices; `mel_idx` and
 // `mel_w` are the packed filterbank of dsp/mel.py::_mel_sparse.  Requires n_fft
 // even, n_fft/2 + 1 <= 208 bins, nks*8 >= n_fft/2 and t > n_fft/2 (checked
 // by the Python wrapper); cudaErrorInvalidValue when the tile does not fit
 // shared memory.
-extern "C" int sdt_fused_log_mel(const float* y, int t, const float* basis,
+extern "C" int sdt_fused_log_mel(const float* y, int n_batch,
+                                 long long y_stride, int t, const float* basis,
                                  int nks, const int* mel_idx,
                                  const float* mel_w, int nnz, int n_fft,
                                  int hop, int n_mels, float eps, float* out,
                                  int n_frames, void* stream) {
-  if (n_fft % 2 || n_fft / 2 + 1 > N_TILES * 8 || nks * 8 < n_fft / 2)
+  if (n_fft % 2 || n_fft / 2 + 1 > N_TILES * 8 || nks * 8 < n_fft / 2 ||
+      n_batch < 1 || n_batch > 65535)
     return (int)cudaErrorInvalidValue;
   const int span = TILE_M * hop + (n_fft - hop);
   const size_t smem = sizeof(float) * ((size_t)2 * TILE_M * (nks * 8 + 4) +
@@ -410,8 +426,9 @@ extern "C" int sdt_fused_log_mel(const float* y, int t, const float* basis,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int blocks = (n_frames + TILE_M - 1) / TILE_M;
-  fused_log_mel_kernel<<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
-      y, t, basis, nks, mel_idx, mel_w, nnz, n_fft, hop, n_mels, eps, out,
-      n_frames);
+  fused_log_mel_kernel<<<dim3(blocks, n_batch), THREADS, smem,
+                         (cudaStream_t)stream>>>(
+      y, y_stride, t, basis, nks, mel_idx, mel_w, nnz, n_fft, hop, n_mels, eps,
+      out, n_frames);
   return (int)cudaGetLastError();
 }

@@ -8,10 +8,14 @@ Holds kernel K2 and its plain version:
   form its main path ran.  Frame ``i`` spans ``k = ceil(n_fft/hop)`` hop
   blocks of the reflect-padded signal, so the DFT is ``k`` accumulated
   products over contiguous block slices.
+* :func:`_log_mel_batched` — the plain PyTorch version for a batch
+  [B, T]: the framed form of the JAX package (``log_mel_spectrogram``,
+  B > 1), each row reflect-padded on its own.  :func:`log_mel_spectrogram`
+  picks between the two as the JAX function does.
 * :func:`fused_log_mel` — the wrapper of the CUDA kernel
-  ``csrc/fused_fbank.cu`` (the port of the Pallas ``fused_log_mel``).  On a
-  CPU tensor it returns the plain version; on a CUDA tensor it launches the
-  kernel or raises.
+  ``csrc/fused_fbank.cu`` (the port of the Pallas ``fused_log_mel``), for a
+  waveform [T] or a batch [B, T] in one launch.  On a CPU tensor it returns
+  the plain version; on a CUDA tensor it launches the kernel or raises.
 * :func:`_folded_basis`, :func:`_tf32_split`, :func:`_basis_fragments`,
   :func:`_mel_sparse` — the kernel's constants: the basis after the
   even/odd fold of each frame that halves the DFT, split into TF32 parts
@@ -130,6 +134,47 @@ def _log_mel_1d(y: torch.Tensor, sample_rate: int = 16000, n_mels: int = 80,
     return torch.log(power @ fb + eps)
 
 
+def _log_mel_batched(y: torch.Tensor, sample_rate: int = 16000,
+                     n_mels: int = 80, win_ms: float = 25.0,
+                     hop_ms: float = 10.0, f_min: float = 20.0,
+                     f_max: float | None = None, eps: float = 1e-6
+                     ) -> torch.Tensor:
+    """Plain version of K2 for a batch: [B, T] float32 ->
+    [B, T//hop + 1, n_mels] log-mel.  Every row is reflect-padded by
+    ``n_fft // 2`` on its own, framed, and contracted against the windowed
+    DFT basis (the window folds into the contraction axis)."""
+    n_fft, hop, f_max = _frame_params(sample_rate, win_ms, hop_ms, f_max)
+    _check_length(y.shape[-1], n_fft)
+    y = y.float()
+    pad = n_fft // 2
+    yp = torch.cat([y[:, 1:pad + 1].flip(1), y, y[:, -pad - 1:-1].flip(1)], 1)
+    frames = yp.unfold(-1, n_fft, hop)                     # [B, n, n_fft]
+    cw, sw = (torch.from_numpy(a).to(y.device) for a in _windowed_dft(n_fft))
+    real = frames @ cw
+    imag = frames @ sw
+    power = real * real + imag * imag
+    fb = torch.from_numpy(
+        _mel_filterbank_np(n_fft // 2 + 1, f_min, f_max, n_mels, sample_rate)
+    ).to(y.device)
+    return torch.log(power @ fb + eps)
+
+
+def log_mel_spectrogram(y: torch.Tensor, sample_rate: int = 16000,
+                        n_mels: int = 80, win_ms: float = 25.0,
+                        hop_ms: float = 10.0, f_min: float = 20.0,
+                        f_max: float | None = None, eps: float = 1e-6
+                        ) -> torch.Tensor:
+    """[T] or [B, T] waveforms -> [B, n_frames, n_mels] log-mel in plain
+    PyTorch, center=True: the blocked form for one waveform, the framed form
+    for a batch (the choice the JAX function makes)."""
+    if y.ndim == 1:
+        y = y[None]
+    args = (sample_rate, n_mels, win_ms, hop_ms, f_min, f_max, eps)
+    if y.shape[0] == 1:
+        return _log_mel_1d(y[0], *args)[None]
+    return _log_mel_batched(y, *args)
+
+
 # geometry of the kernel's B operand (csrc/fused_fbank.cu): 8-tap slices;
 # core matrices of 8 bins x 4 taps, 26 of them along the bins
 _K_STEP, _K_CORE, _N_TILE, _N_TILES = 8, 4, 8, 26
@@ -232,28 +277,51 @@ def fused_log_mel(y: torch.Tensor, sample_rate: int = 16000, n_mels: int = 80,
                   win_ms: float = 25.0, hop_ms: float = 10.0,
                   f_min: float = 20.0, f_max: float | None = None,
                   eps: float = 1e-6) -> torch.Tensor:
-    """K2: [T] float32 waveform -> [T//hop + 1, n_mels] log-mel, center=True
-    reflect padding.  CPU tensor: the plain version.  CUDA tensor: one
-    launch of ``csrc/fused_fbank.cu`` (reflect pad and fold done in the
-    kernel's staging loops), or an exception."""
-    if y.ndim != 1:
-        raise ValueError(f"expected a [T] waveform, got {tuple(y.shape)}")
+    """K2: [T] float32 waveform -> [T//hop + 1, n_mels] log-mel, or a batch
+    [B, T] -> [B, T//hop + 1, n_mels], center=True reflect padding of each
+    row.  CPU tensor: the plain version.  CUDA tensor: ONE launch of
+    ``csrc/fused_fbank.cu`` for the whole batch (reflect pad and fold done
+    in the kernel's staging loops), or an exception.
+
+    A CUDA batch needs unit stride along the samples only: the kernel
+    addresses rows by ``y.stride(0)``, so overlapping windows cut from one
+    signal (``Tensor.unfold``) are read in place, without a contiguous
+    copy."""
+    if y.ndim not in (1, 2):
+        raise ValueError(f"expected a [T] or [B, T] waveform, got "
+                         f"{tuple(y.shape)}")
     if y.device.type == "cpu":
-        return _log_mel_1d(y, sample_rate, n_mels, win_ms, hop_ms, f_min,
-                           f_max, eps)
+        out = log_mel_spectrogram(y, sample_rate, n_mels, win_ms, hop_ms,
+                                  f_min, f_max, eps)
+        return out[0] if y.ndim == 1 else out
     n_fft, hop, f_max = _frame_params(sample_rate, win_ms, hop_ms, f_max)
-    t = y.shape[0]
+    t = y.shape[-1]
     _check_length(t, n_fft)
-    kernels.check_cuda_tensor(y, "fused_log_mel: y", torch.float32)
+    if y.ndim == 1:
+        kernels.check_cuda_tensor(y, "fused_log_mel: y", torch.float32)
+        n_batch, row_stride = 1, t
+    else:
+        if y.dtype != torch.float32:
+            raise TypeError(f"fused_log_mel: y: expected torch.float32, got "
+                            f"{y.dtype}")
+        n_batch, row_stride = y.shape[0], y.stride(0)
+        if n_batch < 1 or y.stride(1) != 1 or row_stride < 0:
+            raise ValueError(
+                f"fused_log_mel: y: expected a non-empty batch with unit "
+                f"stride along the samples, got shape {tuple(y.shape)} "
+                f"strides {y.stride()}")
     # raises for an n_fft the fold or the kernel's 208 bins do not take; a
     # geometry too large for the kernel's shared memory fails the launch
     basis, mel_idx, mel_w = _kernel_constants(y.device, n_fft, n_mels, f_min,
                                               f_max, sample_rate)
     n_frames = t // hop + 1
-    out = torch.empty((n_frames, n_mels), dtype=torch.float32, device=y.device)
+    out = torch.empty((n_batch, n_frames, n_mels), dtype=torch.float32,
+                      device=y.device)
     kernels.launch(
-        "fused_log_mel", y.data_ptr(), t, basis.data_ptr(), basis.shape[0],
-        mel_idx.data_ptr(), mel_w.data_ptr(), mel_w.numel(), n_fft, hop,
-        n_mels, float(eps), out.data_ptr(), n_frames,
-        torch.cuda.current_stream(y.device).cuda_stream)
-    return out
+        "fused_log_mel", y.data_ptr(), n_batch, row_stride, t,
+        basis.data_ptr(), basis.shape[0], mel_idx.data_ptr(),
+        mel_w.data_ptr(), mel_w.numel(), n_fft, hop, n_mels, float(eps),
+        out.data_ptr(), n_frames,
+        torch.cuda.current_stream(y.device).cuda_stream,
+        form="[T]" if y.ndim == 1 else "[B, T]")
+    return out[0] if y.ndim == 1 else out

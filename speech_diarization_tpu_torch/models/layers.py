@@ -7,12 +7,20 @@ import torch.nn.functional as F
 
 
 def conv1d_torch(x: torch.Tensor, weight: torch.Tensor,
-                 bias: torch.Tensor | None = None, padding: int = 0,
-                 dilation: int = 1, groups: int = 1) -> torch.Tensor:
+                 bias: torch.Tensor | None = None, stride: int = 1,
+                 padding: int = 0, dilation: int = 1,
+                 groups: int = 1) -> torch.Tensor:
     """``F.conv1d`` (cross-correlation) over [B, C_in, T] with weight
     [C_out, C_in/groups, K]."""
-    return F.conv1d(x, weight, bias, padding=padding, dilation=dilation,
-                    groups=groups)
+    return F.conv1d(x, weight, bias, stride=stride, padding=padding,
+                    dilation=dilation, groups=groups)
+
+
+def layer_norm_apply(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                     eps: float = 1e-8) -> torch.Tensor:
+    """``nn.LayerNorm`` over the trailing ``gamma.ndim`` dims: biased
+    variance, ``(x - mean) / sqrt(var + eps) * gamma + beta``."""
+    return F.layer_norm(x, tuple(gamma.shape), gamma, beta, eps)
 
 
 def batch_norm_apply(x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor,

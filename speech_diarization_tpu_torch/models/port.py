@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from .ecapa import EcapaModel, EcapaTdnn
+from .segmentation import SegmentationModel, SegNet
 from .vad import VadConvNet, VadModel
 
 _DTYPES = {None: torch.float32, "float32": torch.float32,
@@ -53,14 +54,16 @@ def params_from_numpy(flat: dict[str, np.ndarray], arch_meta: dict,
                       kind: str | None = None, dtype=None) -> torch.nn.Module:
     """Rebuild a net from its architecture meta and load ``flat`` into it.
 
-    ``kind``: 'vad' (conv TCN, ``arch_meta['arch'] == 'conv'``) or 'ecapa';
-    inferred from the meta when None.  ``dtype`` is the ECAPA compute dtype
+    ``kind``: 'vad' (conv TCN, ``arch_meta['arch'] == 'conv'``), 'ecapa' or
+    'segmentation' (the overlap detector; its net meta names
+    ``n_speakers``); inferred from the meta when None.  ``dtype`` is the ECAPA compute dtype
     (weights stay float32).  Every parameter of the net must be present and
     every array must be used (the classifier head of a training checkpoint
     is dropped), or this raises."""
-    if kind is None:
-        kind = "vad" if arch_meta.get("arch") == "conv" else "ecapa"
     net_cfg = dict(arch_meta.get("net", {}))
+    if kind is None:
+        kind = ("vad" if arch_meta.get("arch") == "conv"
+                else "segmentation" if "n_speakers" in net_cfg else "ecapa")
     if "dilations" in net_cfg:
         net_cfg["dilations"] = tuple(net_cfg["dilations"])
     if kind == "vad":
@@ -75,6 +78,11 @@ def params_from_numpy(flat: dict[str, np.ndarray], arch_meta: dict,
         model.streaming_trained = bool(arch_meta.get("streaming_stats", False))
         rsc = arch_meta.get("refine_sub_cos")
         model.refine_sub_cos = float(rsc) if rsc is not None else None
+    elif kind == "segmentation":
+        # a checkpoint without meta is the recurrent sigmoid-head net, which
+        # SegNet refuses
+        net = SegNet(**net_cfg)
+        model = SegmentationModel(net)
     else:
         raise ValueError(f"unknown kind {kind!r}")
     state = {}
@@ -100,3 +108,10 @@ def load_speaker_encoder(path: str | Path, dtype=None) -> EcapaModel:
     (None = float32, or torch.bfloat16) is the trunk's compute dtype."""
     return params_from_numpy(load_params_npz(path), load_params_meta(path),
                              kind="ecapa", dtype=dtype)
+
+
+def load_segmentation(path: str | Path) -> SegmentationModel:
+    """Shipped segmentation checkpoint -> :class:`SegmentationModel`; the
+    head type and the widths travel in the ``__meta__`` sidecar."""
+    return params_from_numpy(load_params_npz(path), load_params_meta(path),
+                             kind="segmentation")

@@ -14,7 +14,9 @@ the CPU tests import every module on a machine without ``nvcc``.
 
 ``LAUNCHES`` counts kernel launches, one per wrapper call that reaches a
 kernel; a run resets it with :func:`reset_launches` and reads it afterwards
-to show that its main path went through the kernels.
+to show that its main path went through the kernels.  ``LAUNCH_FORMS``
+counts the same launches by the form of the call where a wrapper names one
+(the log-mel's ``[T]`` and ``[B, T]`` entries).
 """
 from __future__ import annotations
 
@@ -29,7 +31,8 @@ PKG_ROOT = Path(__file__).resolve().parents[1]
 CSRC = PKG_ROOT / "csrc"
 BUILD = PKG_ROOT / "build"
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _L = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                  ctypes.c_longlong)
 
 # kernel name -> (source file, C entry point, ctypes argument types)
 KERNELS = {
@@ -39,13 +42,15 @@ KERNELS = {
                        [_P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                         _I, _P, _P, _P, _P]),
     "fused_log_mel": ("fused_fbank.cu", "sdt_fused_log_mel",
-                      # y, t, basis, n_ksteps, mel_idx, mel_w, nnz, n_fft,
-                      # hop, n_mels, eps, out, n_frames, stream
-                      [_P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _F, _P, _I,
-                       _P]),
+                      # y, n_batch, y_stride, t, basis, n_ksteps, mel_idx,
+                      # mel_w, nnz, n_fft, hop, n_mels, eps, out, n_frames,
+                      # stream
+                      [_P, _I, _L, _I, _P, _I, _P, _P, _I, _I, _I, _I, _F, _P,
+                       _I, _P]),
 }
 
 LAUNCHES: dict[str, int] = {name: 0 for name in KERNELS}
+LAUNCH_FORMS: dict[str, int] = {}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -55,6 +60,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    LAUNCH_FORMS.clear()
 
 
 def _nvcc() -> str:
@@ -118,15 +124,19 @@ def library(name: str) -> ctypes.CDLL:
     return lib
 
 
-def launch(name: str, *args) -> None:
-    """Call a kernel's C entry point and count the launch; raises if the
-    launch was refused (``cudaGetLastError()`` nonzero)."""
+def launch(name: str, *args, form: str | None = None) -> None:
+    """Call a kernel's C entry point and count the launch (also under
+    ``form`` when given); raises if the launch was refused
+    (``cudaGetLastError()`` nonzero)."""
     fn = getattr(library(name), KERNELS[name][1])
     rc = fn(*args)
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: "
                            f"cudaError {rc}")
     LAUNCHES[name] += 1
+    if form is not None:
+        key = f"{name}{form}"
+        LAUNCH_FORMS[key] = LAUNCH_FORMS.get(key, 0) + 1
 
 
 def check_cuda_tensor(t, name: str, dtype, shape=None) -> None:

@@ -5,7 +5,8 @@ Replaces ``mask_to_segments`` (``vad.py:90-163``): boolean VAD mask →
 boundary padding.  The edge-detection/filter/merge math is vectorized numpy on
 a [T]-bool array that has already been reduced on device — at 10 ms hop a
 1-hour file is 360k bools (0.36 MB), so the transfer is negligible and the
-host pass is O(#edges).
+host pass is O(#edges).  :func:`segments_to_mask` goes the other way, and
+:func:`labels_to_segments` turns a label sequence into labeled segments.
 """
 from __future__ import annotations
 
@@ -62,3 +63,45 @@ def mask_to_segments_host(
     return SegmentArray(
         np.round(g_start * hop_s, 3), np.round(g_end * hop_s, 3)
     )
+
+
+def segments_to_mask(segs: SegmentArray, n_frames: int, hop_s: float) -> np.ndarray:
+    """Rasterize segments back to a [n_frames] bool mask at resolution
+    ``hop_s`` (the speech-mask rasterization of
+    ``anti_stick_diarize.py:352-360``)."""
+    mask = np.zeros(n_frames, dtype=bool)
+    for s, e in zip(segs.starts, segs.ends):
+        i0 = int(s / hop_s)
+        i1 = int(e / hop_s)
+        mask[max(i0, 0):min(i1, n_frames)] = True
+    return mask
+
+
+def labels_to_segments(window_starts_s: np.ndarray, labels: np.ndarray,
+                       end_time_s: float) -> SegmentArray:
+    """Frame/window labels -> labeled segments via change-point detection
+    (the vectorized diff at ``anti_stick_diarize.py:370-386``).  ``labels``
+    uses -1 for non-speech; those spans are dropped."""
+    labels = np.asarray(labels)
+    n = labels.shape[0]
+    if n == 0:
+        return SegmentArray.from_pairs([])
+    change = np.empty(n, dtype=bool)
+    change[0] = True
+    change[1:] = labels[1:] != labels[:-1]
+    cps = np.where(change)[0]
+    seg_ends_idx = np.append(cps[1:], n)
+
+    starts, ends, spks = [], [], []
+    for s_idx, e_idx in zip(cps, seg_ends_idx):
+        lab = int(labels[s_idx])
+        if lab < 0:
+            continue
+        s_t = float(window_starts_s[s_idx])
+        e_t = float(window_starts_s[e_idx]) if e_idx < n else end_time_s
+        if e_t > s_t:
+            starts.append(s_t)
+            ends.append(e_t)
+            spks.append(lab)
+    return SegmentArray(np.array(starts), np.array(ends),
+                        np.array(spks, dtype=np.int32))

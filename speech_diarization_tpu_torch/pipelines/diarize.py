@@ -1,18 +1,20 @@
 """The flagship diarizer on its streamed ingest, in PyTorch.
 
 read -> quantize to int16 -> 60 s chunks with neighbour context -> ONE
-per-chunk device program (dequantize, loudness gain metered on the chunk's
-core, DC, pre-emphasis, log-mel, VAD probabilities, frame energy, streaming
-ECAPA grid) -> one packed device-to-host copy -> host tail (VAD post, SCD,
-segment embeddings, spectral clustering, window refine, conservative merge,
-adjacent merge).
+per-chunk device program (dequantize; the overlap detector's hard decisions
+on 5 s windows of the raw chunk; loudness gain metered on the chunk's core,
+DC, pre-emphasis, log-mel, VAD probabilities, frame energy, streaming ECAPA
+grid) -> one packed device-to-host copy -> host tail (VAD post, SCD, segment
+embeddings, spectral clustering, window refine, conservative merge, frame
+reassignment when on, adjacent merge, overlap rescue).
 
 The counterpart of the JAX package's ``pipelines/diarize.py`` streamed path
 (``__call__`` -> ``_streamed_start`` -> ``_streamed_collect`` ->
-``stream_finish`` -> ``_segments_from_grid``).  Not ported yet, and refused
-with ``NotImplementedError`` rather than dropped: the overlap rescue, frame
-reassignment, the enhancement front-end (engaged on noisy input), the
-non-streamed (whole-file) path, and clustering methods other than spectral.
+``stream_finish`` -> ``_segments_from_grid``), at its defaults: overlap
+rescue on, reassignment as the config says.  Not ported yet, and refused
+with ``NotImplementedError`` rather than dropped: the enhancement front-end
+(engaged on noisy input), the non-streamed (whole-file) path, and
+clustering methods other than spectral.
 """
 from __future__ import annotations
 
@@ -30,9 +32,14 @@ from ..dsp.mel import fused_log_mel
 from ..dsp.preprocess import preemphasis
 from ..io.audio import read_audio
 from ..segment import (
+    add_overlap_segments,
     conservative_merge,
+    detect_overlap_regions,
     frame_energy_db_chunk,
+    frame_reassign,
+    make_seg_hard_fn,
     merge_adjacent,
+    regions_from_hard_acts,
     scd_split,
     segment_embeddings_from_grid,
     vad_segments_from_probs,
@@ -63,9 +70,9 @@ class DiarizationPipeline:
     """Configurable wav -> segments pipeline on one device.
 
     Args:
-        cfg: unified config.  ``overlap.enabled`` and ``reseg.enabled`` raise
-            ``NotImplementedError`` (the overlap detector and frame
-            reassignment are the next slice of the port).
+        cfg: unified config.  ``overlap.enabled`` (the default) runs the
+            segmentation model inside the per-chunk program and the overlap
+            rescue on the host; ``reseg.enabled`` runs frame reassignment.
         encoder: a streaming-trained :class:`~..models.ecapa.EcapaModel`;
             default: the first shipped encoder of ``ENCODER_PREFERENCE``.
         vad: a :class:`~..models.vad.VadModel`; default: the shipped conv VAD.
@@ -78,14 +85,6 @@ class DiarizationPipeline:
     def __init__(self, cfg: DiarizationConfig | None = None, encoder=None,
                  vad=None, device: str | torch.device | None = None):
         self.cfg = cfg = cfg or DiarizationConfig()
-        if cfg.overlap.enabled:
-            raise NotImplementedError(
-                "the overlap rescue (segmentation-model detector) " + _NEXT_SLICE
-                + "; use OverlapConfig(enabled=False) / --no-overlap")
-        if cfg.reseg.enabled:
-            raise NotImplementedError(
-                "frame reassignment " + _NEXT_SLICE
-                + "; use ResegConfig(enabled=False) / --no-reseg")
         if cfg.cluster.method != "spectral":
             raise NotImplementedError(
                 f"clustering method {cfg.cluster.method!r} is not ported "
@@ -152,16 +151,27 @@ class DiarizationPipeline:
         return 10.0 * float(np.log10(p95 / max(p5, 1e-12 * p95 + 1e-30)))
 
     # ------------------------------------------------------ streamed ingest --
-    def _chunk_program(self, sr: int, u: int, m_l: int, m_r: int):
-        """(prev, cur, next, scale, n_valid) -> (probs, energy|None, grid)
-        over one core chunk of ``u`` samples with ``m_l``/``m_r`` samples of
-        real neighbour context.  Plain eager PyTorch; cached by its full
-        key."""
-        key = (sr, u, m_l, m_r)
+    def _chunk_program(self, sr: int, u: int, m_l: int, m_r: int,
+                       ov: bool = False):
+        """(prev, cur, next, scale, n_valid) -> (probs, energy|None, grid,
+        overlap-hard|None) over one core chunk of ``u`` samples with
+        ``m_l``/``m_r`` samples of real neighbour context.  Plain eager
+        PyTorch; cached by its full key.
+
+        ``ov`` adds the overlap DETECTOR: 5 s windows every
+        ``overlap.chunk_hop_s`` of the chunk's RAW waveform (dequantized,
+        before gain, DC and pre-emphasis: the detector trained on raw
+        audio) go through the segmentation net, and its hard slot decisions
+        ride the one packed copy."""
+        key = (sr, u, m_l, m_r, ov)
         if key in self._programs:
             return self._programs[key]
         cfg = self.cfg
         acfg = cfg.audio
+        seg = self._overlap_seg() if ov else None
+        win5 = int(round(cfg.overlap.chunk_s * sr))
+        stride5 = max(1, int(round(cfg.overlap.chunk_hop_s * sr)))
+        wpsc = u // stride5
         hop_v = int(round(cfg.vad.hop_ms / 1000.0 * sr))
         grid_win = int(round(cfg.reseg.win_s * sr))
         grid_hop = int(round(cfg.reseg.hop_s * sr))
@@ -177,6 +187,15 @@ class DiarizationPipeline:
         def program(c_prev, c_cur, c_next, scale: float, n_valid: float):
             y3 = torch.cat([c_prev[-m_l:], c_cur, c_next[:m_r]])
             y3 = y3.float() * float(np.float32(scale) / np.float32(32767.0))
+            hard = None
+            if seg is not None:
+                # the last window reaches win5 - stride5 samples into the
+                # right margin.  A view: the log-mel kernel addresses the
+                # rows by their stride (stride5 samples), so the windows
+                # are read in place and never copied
+                wins = (y3[m_l:m_l + (wpsc - 1) * stride5 + win5]
+                        .unfold(0, win5, stride5))           # [wpsc, win5]
+                hard = seg.hard_activities(wins)
             if acfg.target_lufs is not None:
                 # loudness metered per chunk on its CORE samples
                 lufs = integrated_loudness(y3[m_l:m_l + u], sr)
@@ -198,7 +217,7 @@ class DiarizationPipeline:
             energy = (frame_energy_db_chunk(y3, hop=hop_v, n_extra=1)[f0:f1 + 1]
                       if want_energy else None)
             grid = enc.encode_grid_feats(feats_e, wpc, m_l, grid_win, grid_hop)
-            return probs, energy, grid
+            return probs, energy, grid, hard
 
         self._programs[key] = program
         return program
@@ -252,26 +271,45 @@ class DiarizationPipeline:
                 f"est SNR {self._last_snr_db:.1f} dB) " + _NEXT_SLICE
                 + "; use EnhanceConfig(enabled=False) to diarize without it")
 
-        program = self._chunk_program(sr, u, m_l, m_r)
+        # overlap detector inside the chunk program: only when enabled, the
+        # noise veto passes (the conversation-trained detector reads a babble
+        # bed as overlap), the window grid divides the chunk, the last
+        # window fits the right margin, and a checkpoint ships
+        ocfg = cfg.overlap
+        win5 = int(round(ocfg.chunk_s * sr))
+        stride5 = max(1, int(round(ocfg.chunk_hop_s * sr)))
+        snr = self._last_snr_db
+        ov = bool(ocfg.enabled
+                  and (ocfg.min_snr_db is None or snr is None
+                       or snr >= ocfg.min_snr_db)
+                  and u % stride5 == 0 and win5 - stride5 <= m_r
+                  and self._overlap_seg() is not None)
+
+        program = self._chunk_program(sr, u, m_l, m_r, ov)
         want_energy = cfg.vad.energy_floor_db is not None
-        probs, energy, grids = [], [], []
+        probs, energy, grids, hards = [], [], [], []
         with torch.inference_mode():
             for i in range(n_chunks):
                 prev = chunks[i - 1] if i > 0 else zero
                 nxt = chunks[i + 1] if i + 1 < n_chunks else zero
-                p, e, g = program(prev, chunks[i], nxt, scale,
-                                  float(min(u, t - i * u)))
+                p, e, g, h = program(prev, chunks[i], nxt, scale,
+                                     float(min(u, t - i * u)))
                 last = i + 1 == n_chunks
                 probs.append(p if last else p[:-1])
                 if want_energy:
                     energy.append(e if last else e[:-1])
                 grids.append(g)
+                if ov:
+                    hards.append(h)
             # ONE device-side pack + ONE device-to-host copy
             parts = [torch.cat(probs)]
             if want_energy:
                 parts.append(torch.cat(energy))
             grid = torch.cat(grids)
             parts.append(grid.reshape(-1).float())
+            if ov:
+                hard = torch.cat(hards)                     # [windows, F, K]
+                parts.append(hard.reshape(-1).float())
             flat_dev = torch.cat(parts)
         if dev.type == "cuda":
             flat = torch.empty(flat_dev.shape, dtype=flat_dev.dtype,
@@ -282,7 +320,7 @@ class DiarizationPipeline:
         else:
             flat, done = flat_dev, None
         emb_dim = grid.shape[-1]
-        return {
+        st = {
             "flat": flat, "done": done, "q_host": q_host,
             "n_frames": t // hop_v + 1,
             "w_total": num_frames(t, grid_win, grid_hop, pad_tail=True),
@@ -293,7 +331,14 @@ class DiarizationPipeline:
             "starts_s": window_starts(t, sr, cfg.reseg.win_s, cfg.reseg.hop_s) / sr,
             "t": t, "sr": sr,
             "snr_db": self._last_snr_db,
+            "ov": ov,
         }
+        if ov:
+            st["ov_shape"] = tuple(hard.shape)
+            # windows a whole-file detector would have scored: the rest
+            # cover tail padding only
+            st["ov_n"] = max(1, -(-max(t - win5, 0) // stride5) + 1)
+        return st
 
     def _streamed_collect(self, st: dict):
         """Pull phase: wait for the one packed copy, then host slicing."""
@@ -310,6 +355,9 @@ class DiarizationPipeline:
             off += n_probs
         grid = (flat[off:off + st["grid_len"]]
                 .reshape(-1, st["emb_dim"])[:st["w_total"]])
+        if st["ov"]:
+            off += st["grid_len"]
+            st["ov_acts"] = (flat[off:].reshape(st["ov_shape"])[:st["ov_n"]])
         return probs, energy, grid, st["starts_s"], st["t"] / st["sr"]
 
     # ---------------------------------------------------------------- main --
@@ -325,7 +373,9 @@ class DiarizationPipeline:
         finish it with :meth:`stream_finish`."""
         self._last_snr_db = None
         y = np.asarray(self._host_array(source), np.float32)
-        return self._streamed_start(y, self.cfg.audio.sample_rate)
+        st = self._streamed_start(y, self.cfg.audio.sample_rate)
+        st["y_host"] = y    # for the standalone detect, when the fused
+        return st           # detector could not arm
 
     def stream_finish(self, st: dict) -> DiarizationResult:
         """One packed pull + VAD post + clustering/segments."""
@@ -337,16 +387,30 @@ class DiarizationPipeline:
         if len(speech) == 0:
             empty = SegmentArray.from_pairs([])
             return DiarizationResult(empty, empty, 0)
-        return self._segments_from_grid(speech, probs, win_embs, starts_s)
+        overlap_regions = None
+        if st.get("ov_acts") is not None:
+            overlap_regions = regions_from_hard_acts(
+                st["ov_acts"], total_s, chunk_hop_s=cfg.overlap.chunk_hop_s,
+                min_on_s=cfg.overlap.min_on_s, min_gap_s=cfg.overlap.min_gap_s)
+        res = self._segments_from_grid(
+            speech, probs, win_embs, starts_s, total_s, y=st.get("y_host"),
+            sr=st["sr"], overlap_regions=overlap_regions)
+        if st.get("ov_acts") is not None:
+            res.diagnostics["overlap_hard"] = st["ov_acts"]
+            res.diagnostics["overlap_regions"] = overlap_regions
+        return res
 
     def __call__(self, source) -> DiarizationResult:
         with stage_timer(log, "streamed-ingest"):
             st = self.stream_start(source)
         return self.stream_finish(st)
 
-    def _segments_from_grid(self, speech, probs, win_embs, starts_s) -> DiarizationResult:
+    def _segments_from_grid(self, speech, probs, win_embs, starts_s, total_s,
+                            y=None, sr=None,
+                            overlap_regions=None) -> DiarizationResult:
         """SCD -> segment embeddings -> cluster -> refine -> conservative
-        merge -> adjacent merge, on the host."""
+        merge -> (frame reassignment) -> adjacent merge -> (overlap
+        rescue), on the host."""
         cfg = self.cfg
         grid_win_s = cfg.reseg.win_s
         grid_hop_s = cfg.reseg.hop_s
@@ -383,14 +447,83 @@ class DiarizationPipeline:
                     seg_embs=seg_embs)
         speech2 = SegmentArray(speech2.starts, speech2.ends, labels)
         with stage_timer(log, "merge"):
-            speech3, _ = conservative_merge(
+            speech3, embs3 = conservative_merge(
                 speech2, seg_embs, max_gap_s=cfg.merge.max_gap_s,
                 max_turn_s=cfg.merge.max_turn_s, min_cos=cfg.merge.min_cos)
-        final = merge_adjacent(speech3, cfg.merge.max_gap_s)
+        speech4 = speech3
+        if cfg.reseg.enabled:
+            with stage_timer(log, "reassign"):
+                speech4 = frame_reassign(
+                    speech, speech3, embs3, win_embs, starts_s, grid_win_s,
+                    total_s, hmm=cfg.reseg.hmm,
+                    hmm_self_loop=cfg.reseg.hmm_self_loop,
+                    adjacent_gap_s=cfg.reseg.adjacent_gap_s)
+        final = merge_adjacent(speech4, cfg.merge.max_gap_s)
+        if cfg.overlap.enabled and overlap_regions is not None:
+            # the detector's decisions came out of the per-chunk program
+            # (its gate was applied at dispatch)
+            with stage_timer(log, "overlap-rescue"):
+                final = self._overlap_rescue(
+                    y, sr or cfg.audio.sample_rate, final, win_embs, starts_s,
+                    grid_win_s, regions=overlap_regions)
+        elif cfg.overlap.enabled and y is not None:
+            snr = self._last_snr_db
+            floor = cfg.overlap.min_snr_db
+            if snr is not None and floor is not None and snr < floor:
+                log.info("overlap-rescue: skipped (est SNR %.1f dB < %.1f "
+                         "floor: detector untrustworthy under noise)",
+                         snr, floor)
+            else:
+                with stage_timer(log, "overlap-rescue"):
+                    final = self._overlap_rescue(
+                        y, sr or cfg.audio.sample_rate, final, win_embs,
+                        starts_s, grid_win_s)
         num_speakers = len({int(k) for k in final.spks if k >= 0})
         return DiarizationResult(final, speech, num_speakers,
                                  {"vad_probs": probs, "window_embeddings": win_embs})
 
+    # ------------------------------------------------------------ overlap --
+    def _overlap_seg(self):
+        """The overlap detector (a :class:`~..models.segmentation.
+        SegmentationModel` on this pipeline's device), loaded at first use,
+        or None when no checkpoint ships.  Shared by the per-chunk program
+        and the standalone detect."""
+        if not hasattr(self, "_overlap_model"):
+            from ..utils.weights import SEGMENTATION_PREFERENCE, prefer_weights
+
+            w = self.cfg.overlap.weights or prefer_weights(SEGMENTATION_PREFERENCE)
+            if w is None:
+                log.warning("overlap rescue: no segmentation checkpoint "
+                            "ships: stage disabled")
+                self._overlap_model = None
+            else:
+                from ..models.port import load_segmentation
+
+                self._overlap_model = load_segmentation(w).to(self.device).eval()
+        return self._overlap_model
+
+    def _overlap_rescue(self, y, sr, final, win_embs, starts_s, win_s,
+                        regions=None):
+        """Second-speaker segments from the segmentation model's overlap
+        detections (``segment/overlap.py``) on top of the flagship map.
+        ``regions`` come from the per-chunk program; without them (the
+        detector could not arm for the chunk geometry) the standalone
+        detect scores the whole file once more."""
+        ocfg = self.cfg.overlap
+        if regions is None:
+            seg = self._overlap_seg()
+            if seg is None:
+                return final
+            regions = detect_overlap_regions(
+                np.asarray(y, np.float32), sr, make_seg_hard_fn(seg),
+                chunk_s=ocfg.chunk_s, chunk_hop_s=ocfg.chunk_hop_s,
+                min_on_s=ocfg.min_on_s, min_gap_s=ocfg.min_gap_s,
+                device=self.device)
+        return add_overlap_segments(
+            final, regions, win_embs, np.asarray(starts_s), win_s,
+            min_cos=ocfg.min_cos, max_overlap_frac=ocfg.max_overlap_frac)
+
+    # ------------------------------------------------------------- cluster --
     def _cluster(self, embs: np.ndarray) -> np.ndarray:
         c = self.cfg.cluster
         n = embs.shape[0]

@@ -1,5 +1,12 @@
 from .embed import segment_embeddings_from_grid, window_starts
 from .merge import conservative_merge, merge_adjacent
+from .overlap import (
+    add_overlap_segments,
+    detect_overlap_regions,
+    make_seg_hard_fn,
+    regions_from_hard_acts,
+)
+from .reassign import frame_reassign, speaker_centroids
 from .scd import scd_split
 from .vad_post import (
     apply_energy_veto,
@@ -8,12 +15,18 @@ from .vad_post import (
 )
 
 __all__ = [
+    "add_overlap_segments",
     "apply_energy_veto",
     "conservative_merge",
+    "detect_overlap_regions",
     "frame_energy_db_chunk",
+    "frame_reassign",
+    "make_seg_hard_fn",
     "merge_adjacent",
+    "regions_from_hard_acts",
     "scd_split",
     "segment_embeddings_from_grid",
+    "speaker_centroids",
     "vad_segments_from_probs",
     "window_starts",
 ]

@@ -20,6 +20,12 @@ ENCODER_PREFERENCE = (
 # conv net (the recurrent VAD is not ported).
 VAD_PREFERENCE = ("vad_conv_mc.npz", "vad_conv_synthetic.npz")
 
+# Overlap-detector preference (segmentation checkpoints).
+SEGMENTATION_PREFERENCE = (
+    "segmentation_conv.npz", "segmentation_xf.npz", "segmentation_ow3.npz",
+    "segmentation_powerset.npz", "segmentation_synthetic.npz",
+)
+
 
 def prefer_weights(names, root: Path | None = None) -> Path | None:
     """First existing checkpoint from ``names`` under ``root`` (repo

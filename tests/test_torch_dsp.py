@@ -32,11 +32,13 @@ from speech_diarization_tpu_torch.dsp.mel import (
     _basis_fragments,
     _folded_basis,
     _log_mel_1d,
+    _log_mel_batched,
     _mel_filterbank_np,
     _mel_sparse,
     _reflect_pad,
     _tf32_split,
     fused_log_mel,
+    log_mel_spectrogram,
 )
 from speech_diarization_tpu_torch.dsp.preprocess import preemphasis
 
@@ -69,6 +71,60 @@ def test_log_mel_matches_pallas_fused_kernel_interpret(seed):
     out = _log_mel_1d(torch.from_numpy(y), sample_rate=SR, n_mels=40).numpy()
     assert out.shape == ref.shape
     np.testing.assert_allclose(out, ref, atol=2e-3)
+
+
+@pytest.mark.parametrize("b,n_samples,n_mels", [(2, 16000, 40), (5, 8037, 40),
+                                                (3, 80000, 40), (4, 12345, 80)])
+def test_batched_log_mel_matches_jax_batched_path(b, n_samples, n_mels):
+    """The wrapper on a CPU batch (the plain batched version) against the
+    JAX function's B > 1 branch; atol 2e-3."""
+    y = (0.3 * np.random.default_rng(n_samples + b).standard_normal((b, n_samples))
+         ).astype(np.float32)
+    ref = np.asarray(jlog_mel(jnp.asarray(y), sample_rate=SR, n_mels=n_mels))
+    out = fused_log_mel(torch.from_numpy(y), sample_rate=SR, n_mels=n_mels).numpy()
+    assert out.shape == ref.shape == (b, n_samples // 160 + 1, n_mels)
+    np.testing.assert_allclose(out, ref, atol=2e-3)
+    again = log_mel_spectrogram(torch.from_numpy(y), sample_rate=SR,
+                                n_mels=n_mels).numpy()
+    np.testing.assert_array_equal(again, out)
+
+
+def test_batched_log_mel_matches_pallas_fused_kernel_interpret():
+    """Against the Pallas kernel on a batch, run in interpret mode as the
+    JAX package's own CPU tests run it; atol 2e-3."""
+    y = (0.3 * np.random.default_rng(5).standard_normal((3, 4000))).astype(np.float32)
+    ref = np.asarray(jfused(jnp.asarray(y), sample_rate=SR, n_mels=40,
+                            interpret=True))
+    out = fused_log_mel(torch.from_numpy(y), sample_rate=SR, n_mels=40).numpy()
+    assert out.shape == ref.shape == (3, 26, 40)
+    np.testing.assert_allclose(out, ref, atol=2e-3)
+
+
+@pytest.mark.parametrize("stride", [40000, 3001])
+def test_batched_log_mel_reads_overlapping_windows_in_place(stride):
+    """Windows cut from one signal as a view (the detector's framing) give
+    what the same windows give as separate waveforms; 1e-4 (two plain
+    forms: framed for the batch, blocked for one waveform)."""
+    win = 80000 if stride == 40000 else 8037
+    y = torch.from_numpy(_speech(3 * stride / SR + win / SR, 11))
+    wins = y[:3 * stride + win].unfold(0, win, stride)
+    assert not wins.is_contiguous() and wins.shape == (4, win)
+    out = fused_log_mel(wins, n_mels=40)
+    rows = torch.stack([_log_mel_1d(w.contiguous(), n_mels=40) for w in wins])
+    np.testing.assert_allclose(out.numpy(), rows.numpy(), atol=1e-4)
+    np.testing.assert_array_equal(
+        out.numpy(), _log_mel_batched(wins.contiguous(), n_mels=40).numpy())
+
+
+def test_log_mel_of_one_row_batch_takes_the_single_waveform_form():
+    y = torch.from_numpy(_speech(1.0, 4))
+    np.testing.assert_array_equal(fused_log_mel(y[None], n_mels=40)[0].numpy(),
+                                  fused_log_mel(y, n_mels=40).numpy())
+
+
+def test_log_mel_refuses_other_ranks():
+    with pytest.raises(ValueError, match=r"\[T\] or \[B, T\]"):
+        fused_log_mel(torch.zeros(2, 3, 4000))
 
 
 @pytest.mark.parametrize("t", [10, 200])

@@ -15,7 +15,8 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "speech_diarization_tpu_torch"
 SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
                                         ROOT / "scripts" / "torch_profile_diarize.py",
-                                        ROOT / "scripts" / "torch_kernel_check.py"]
+                                        ROOT / "scripts" / "torch_kernel_check.py",
+                                        ROOT / "scripts" / "torch_bench.py"]
 
 
 def _imports(path: Path) -> set[str]:
@@ -66,9 +67,38 @@ def test_launch_counters_do_not_move_on_the_cpu():
 
     kernels.reset_launches()
     fused_log_mel(torch.randn(4000), n_mels=40)
+    fused_log_mel(torch.randn(3, 4000), n_mels=40)
     assert kernels.LAUNCHES == {"asp_grid_stats": 0, "fused_log_mel": 0}
+    assert kernels.LAUNCH_FORMS == {}
 
 
 def test_build_directory_is_ignored_by_git():
     text = (ROOT / ".gitignore").read_text().split()
     assert "speech_diarization_tpu_torch/build/" in text
+
+
+def test_kernel_entry_signatures_match_their_sources():
+    """The ctypes argument list of each kernel has one entry per parameter
+    of its C entry point."""
+    import re
+
+    from speech_diarization_tpu_torch.ops import kernels
+
+    for name, (src, entry, argtypes) in kernels.KERNELS.items():
+        text = (PORT / "csrc" / src).read_text()
+        m = re.search(r'extern "C" int ' + entry + r"\(([^)]*)\)", text)
+        assert m, name
+        assert len(m.group(1).split(",")) == len(argtypes), name
+
+
+def test_batched_log_mel_on_a_cuda_tensor_never_takes_the_plain_version():
+    """Without a card a CUDA tensor cannot exist here; the wrapper's only
+    route to the plain version is the tensor's device being the CPU."""
+    import inspect
+
+    from speech_diarization_tpu_torch.dsp import mel
+
+    src = inspect.getsource(mel.fused_log_mel)
+    assert src.count("_log_mel_1d(") + src.count("log_mel_spectrogram(") == 1
+    assert 'if y.device.type == "cpu":' in src
+    assert not any(isinstance(n, ast.Try) for n in ast.walk(ast.parse(src)))

@@ -16,11 +16,14 @@ import pytest
 import torch
 
 from speech_diarization_tpu.models.ecapa import EcapaTdnn as JEcapaTdnn
+from speech_diarization_tpu.models.segmentation import SegNet as JSegNet
 from speech_diarization_tpu.models.vad import VadConvNet as JVadConvNet
 from speech_diarization_tpu.train.recipes import _flatten
+from speech_diarization_tpu.train.recipes import load_segmentation as jload_seg
 from speech_diarization_tpu.train.recipes import load_speaker_encoder as jload_enc
 from speech_diarization_tpu.train.recipes import load_vad as jload_vad
 from speech_diarization_tpu_torch.models.port import (
+    load_segmentation,
     load_speaker_encoder,
     load_vad,
     params_from_numpy,
@@ -127,3 +130,59 @@ def test_params_from_numpy_upcasts_float16():
     for k, v in _state_of(model.net).items():
         assert v.dtype == np.float32
         np.testing.assert_array_equal(v, flat[k].astype(np.float32))
+
+
+SEG_CFG = {"n_mels": 12, "channels": 16, "hidden": 16, "n_speakers": 3,
+           "powerset": True, "ds": 3, "arch": "xf", "n_xf": 2, "n_heads": 4,
+           "max_frames": 101}
+
+
+@pytest.mark.parametrize("name", ["segmentation_conv.npz", "segmentation_xf.npz"])
+def test_segmentation_checkpoint_equals_jax_loader(name):
+    jm, jp = jload_seg(WEIGHTS / name)
+    model = load_segmentation(WEIGHTS / name)
+    _assert_same({k: np.asarray(v) for k, v in jp.items()}, _state_of(model.net))
+    net = model.net
+    assert (net.arch, net.powerset, net.n_speakers, net.ds, net.n_xf, net.n_heads
+            ) == ("xf", True, 3, jm.net.ds, jm.net.n_xf, jm.net.n_heads)
+    assert net.n_out == 8 and net.memb.shape == (8, 3)
+    np.testing.assert_array_equal(net.membership(), jm.net.membership())
+
+
+def test_segmentation_conv_is_the_full_width_detector():
+    net = load_segmentation(WEIGHTS / "segmentation_conv.npz").net
+    assert (net.n_mels, net.channels, net.hidden, net.ds, net.n_xf) == (
+        40, 128, 128, 3, 4)
+    assert net.pos_emb.shape == (169, 256) and net.xf1_ff1_w.shape == (256, 1024)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_jax_initialised_segnet_carries_across(seed):
+    params = JSegNet(**SEG_CFG).init(jax.random.PRNGKey(seed))
+    flat = {k: np.asarray(v) for k, v in params.items()}
+    model = params_from_numpy(flat, {"net": SEG_CFG})     # kind inferred
+    _assert_same(flat, _state_of(model.net))
+    assert "memb" not in model.net.state_dict()
+
+
+def test_segmentation_loader_is_strict_and_upcasts():
+    params = JSegNet(**SEG_CFG).init(jax.random.PRNGKey(0))
+    flat = {k: np.asarray(v) for k, v in params.items()}
+    missing = dict(flat)
+    missing.pop("xf2_qkv_w")
+    with pytest.raises(RuntimeError):
+        params_from_numpy(missing, {"net": SEG_CFG}, kind="segmentation")
+    with pytest.raises(RuntimeError):
+        params_from_numpy({**flat, "xf3_qkv_w": flat["xf2_qkv_w"]},
+                          {"net": SEG_CFG}, kind="segmentation")
+    half = {k: v.astype(np.float16) for k, v in flat.items()}
+    model = params_from_numpy(half, {"net": SEG_CFG}, kind="segmentation")
+    for k, v in _state_of(model.net).items():
+        assert v.dtype == np.float32
+        np.testing.assert_array_equal(v, half[k].astype(np.float32))
+
+
+@pytest.mark.parametrize("meta", [{}, {"net": {**SEG_CFG, "arch": "gru"}}])
+def test_recurrent_segnet_is_refused(meta):
+    with pytest.raises(NotImplementedError, match="not ported"):
+        params_from_numpy({}, meta, kind="segmentation")
