@@ -10,9 +10,12 @@ Phases (any failure exits nonzero and prints no result line):
   3. Each kernel against its plain PyTorch version on the card, at the
      shapes the main path gives it (one 60 s chunk with its margins; for
      the log-mel also the overlap detector's batch of 24 five-second
-     windows, read in place from the chunk), in the working dtype: max abs
-     and relative error against the stated tolerance, kernel / plain /
-     library times (CUDA events) and the bound from bytes and operations.
+     windows, read in place from the chunk; and the whole-file path's VAD
+     batch of the 600 s noisy file, 43 rows of 15 s at a 14 s hop, read in
+     place), in the working dtype: max abs and relative error against the
+     stated tolerance, kernel / plain / library times (CUDA events) and the
+     bound from bytes and operations.  The pooling also at the whole-file
+     grid's short-file chunks (64 and 256 windows) on real trunk features.
      Then a correctness-only sweep of each kernel against its plain version
      at ragged shapes that reach every pad and mask (partial frame tiles,
      batches of one and five rows off the hop grid, overlapping rows at an
@@ -20,7 +23,9 @@ Phases (any failure exits nonzero and prints no result line):
      past the end of the features), at the same tolerances.  Then the
      overlap detector (full-width ``segmentation_conv.npz``) on those 24
      windows: its hard decisions on the card against the CPU, and on the
-     card with the kernel's features against the plain features.
+     card with the kernel's features against the plain features.  Then the
+     GTCRN denoiser (``gtcrn_mc.npz``) on a 10 s noisy file, card against
+     CPU.
   4. The port's main path: ``DiarizationPipeline`` as ``bench.py`` runs it
      (spectral clustering, shipped ``vad_conv_mc.npz`` and
      ``ecapa_robust_stream.npz`` in bf16) on the bench's 60 s and 600 s
@@ -35,11 +40,21 @@ Phases (any failure exits nonzero and prints no result line):
      conversation with overlapped speech: the detector arms, the rescue
      adds second-speaker segments, and DER with it is no worse than
      without it.
+  4c. The noisy-input route at the config's defaults (enhancement on, scope
+     auto) on held-out draws in white noise at 10 dB (60 s, 600 s) and
+     babble at 15 dB (60 s): the whole-file path through GTCRN is taken;
+     warm and timed walls, GTCRN's device time (CUDA events around the
+     enhancer), peak device memory, DER against the JAX pipeline's on the
+     CPU plus one point, and the launch counts (the log-mel's ``[B, T]``
+     entry once per VAD group of up to 64 15 s chunks; its ``[T]`` entry
+     and the pooling once per grid chunk of up to 600 windows).
   5. Reference agreement on small inputs: the same pipeline (float32
      encoder) on the card and on the CPU (plain versions) over a 25 s file
-     cut into three 10 s chunks, with the rescue off; and with rescue and
+     cut into three 10 s chunks, with the rescue off; with rescue and
      reassignment on over a 25 s held-out file, where the detector's hard
-     decisions, the overlap regions and the final segments are compared.
+     decisions, the overlap regions and the final segments are compared;
+     and over a 25 s file in white noise at 10 dB (the whole-file path
+     through GTCRN).
 Then one JSON line listing the kernels, the card's nvidia-smi line, and the
 result line ``{"ok": true, "device": {...}}``.
 """
@@ -61,11 +76,16 @@ SR = 16000
 # point.
 JAX_CPU_DER_PCT = {False: {60: 0.0, 600: 0.6243},
                    True: {60: 0.0, 600: 0.6243}}
+# the same at the config's defaults on the noisy held-out draws (noise kind,
+# SNR dB, seconds), whole-file path through GTCRN (--noisy of that script)
+JAX_CPU_DER_PCT_NOISY = {("white", 10.0, 60): 0.5717,
+                         ("white", 10.0, 600): 0.5601,
+                         ("babble", 15.0, 60): 6.0246}
 DER_SLACK_PCT = 1.0
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and dense rates by type
 PEAK_BYTES_S = 3.35e12
-PEAK_FLOPS = {"bf16_tensor": 989e12, "f32": 67e12}
+PEAK_FLOPS = {"bf16_tensor": 989e12, "tf32_tensor": 495e12, "f32": 67e12}
 
 # tolerances of kernel vs plain version on the card (max abs error over the
 # output, relative to the plain output's largest magnitude).  Both sides
@@ -73,6 +93,10 @@ PEAK_FLOPS = {"bf16_tensor": 989e12, "f32": 67e12}
 # activations to bf16, where a one-ulp difference in tanh can flip a bf16
 # rounding.
 TOL_REL = {"fused_log_mel": 1e-4, "asp_grid_stats": 2e-3}
+# GTCRN on the card against the CPU (max abs error over the enhanced
+# waveform, relative to its peak): cuDNN's GRUs and convolutions sum in
+# another order, over ten recurrences of 626 steps on 10 s
+GTCRN_TOL_REL = 1e-3
 # least share of equal hard decisions of the overlap detector between two
 # ways of computing them (an argmax over 8 logits flips on near-ties)
 HARD_AGREE = 0.999
@@ -140,16 +164,18 @@ def k2_measure(y, n_unique: int) -> dict:
     # the least operations the function needs, per frame: the even/odd
     # fold about tap n_fft/2 (exact: the window and the cosines are
     # symmetric, the sines antisymmetric) leaves n_fft/2 taps against
-    # the cosines and n_fft/2 - 1 against the sines; power; the
-    # filterbank's nonzero weights only; the log.  Counted at the
-    # float32 rate: the log of a quiet band needs float32 products.
+    # the cosines and n_fft/2 - 1 against the sines.  A quiet band's log
+    # needs float32 accuracy, which the tensor cores give as three TF32
+    # products (3xTF32), so the DFT is counted three times at the TF32
+    # tensor-core rate.  The fold, power, the filterbank's nonzero
+    # weights only and the log at the float32 rate.
     fb_nnz = int(np.count_nonzero(_mel_filterbank_np(
         n_bins, 20.0, SR / 2 - 100.0, n_mels, SR)))
-    k2_ops = n_frames * (2 * (n_fft // 2 - 1)
-                         + 2 * (n_fft // 2) * n_bins
-                         + 2 * (n_fft // 2 - 1) * n_bins
-                         + 3 * n_bins + 2 * fb_nnz + 2 * n_mels)
-    b_ms, b_by = bound(k2_bytes, {"f32": k2_ops})
+    dft_ops = n_frames * (2 * (n_fft // 2) * n_bins
+                          + 2 * (n_fft // 2 - 1) * n_bins)
+    f32_ops = n_frames * (2 * (n_fft // 2 - 1) + 3 * n_bins + 2 * fb_nnz
+                          + 2 * n_mels)
+    b_ms, b_by = bound(k2_bytes, {"tf32_tensor": 3 * dft_ops, "f32": f32_ops})
     win = torch.hann_window(n_fft, periodic=True, device=y.device)
     return {
         "shape": list(y.shape), "frames": n_frames,
@@ -290,7 +316,9 @@ def main() -> int:
         load_segmentation, load_speaker_encoder, load_vad,
     )
     from speech_diarization_tpu_torch.ops import kernels
+    from speech_diarization_tpu_torch.dsp.framing import num_frames
     from speech_diarization_tpu_torch.pipelines.diarize import DiarizationPipeline
+    from speech_diarization_tpu_torch.pipelines.enhance import make_enhance_fn
     from speech_diarization_tpu_torch.train.heldout import (
         make_conversation_heldout,
     )
@@ -362,7 +390,35 @@ def main() -> int:
             "plain_ms": cuda_time_ms(lambda: _asp_grid_stats_plain(*args), 5),
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         })
-    for r in rows + [{"name": "fused_log_mel", **k2b}]:
+        # K2 on the whole-file path's VAD batch of the 600 s noisy file: its
+        # 43 chunks of 240,000 samples at a 224,000 hop, a view of the
+        # padded waveform
+        noisy600, _ = make_conversation_heldout(
+            np.random.default_rng(0), 600.0, n_speakers=3, sr=SR, snr_db=10.0,
+            noise_kind="white")
+        n_v = -(-(600 * SR - 240000) // 224000) + 1
+        y600 = torch.from_numpy(np.pad(np.clip(noisy600, -0.99, 0.99),
+                                       (0, (n_v - 1) * 224000 + 240000 - 600 * SR))
+                                .astype(np.float32)).to(dev)
+        k2v = k2_measure(y600.unfold(0, 240000, 224000), y600.numel())
+        rows[0]["batch_vad"] = k2v
+        # K1 at the whole-file grid's short-file chunks: 64 and 256 windows
+        # on the trunk features of their spans
+        for n_w in (64, 256):
+            span = 2 * m_l + (n_w - 1) * 1600 + 32000
+            f = _log_mel_1d(y[:span], n_mels=40)[None]
+            f = f - sliding_mean_time(f.transpose(1, 2), 201).transpose(1, 2)
+            xs = enc.net.trunk(f, se_win=201)[0]
+            a = enc.net.k1_inputs(xs, m_l // 160, 10, 201, n_w)
+            o, r_ = asp_grid_stats(*a), _asp_grid_stats_plain(*a)
+            torch.cuda.synchronize()
+            e, tol = (o - r_).abs().max().item(), TOL_REL["asp_grid_stats"] * r_.abs().max().item()
+            log(f"[3] asp_grid_stats at W={n_w} (span {span} samples, T_f "
+                f"{xs.shape[1]}): max_abs_err {e:.3e} (tol {tol:.3e})")
+            if not e <= tol:
+                raise AssertionError(f"asp_grid_stats disagrees at W={n_w}")
+    for r in rows + [{"name": "fused_log_mel", **k2b},
+                     {"name": "fused_log_mel", **k2v}]:
         log(f"[3] {r['name']}{r.get('shape', '')}: max_abs_err "
             f"{r['max_abs_err']:.3e} (tol "
             f"{r['tol']:.3e}), max_rel_err {r['max_abs_err'] / r['ref_max']:.3e} "
@@ -402,6 +458,20 @@ def main() -> int:
         f"{det_ms:.3f} ms a chunk on the card")
     if min(agree.values()) < HARD_AGREE:
         raise AssertionError("the overlap detector's hard decisions disagree")
+    # GTCRN (gtcrn_mc.npz) on 10 s of a noisy file: the card against the CPU
+    noisy10, _ = make_conversation_heldout(np.random.default_rng(5), 10.0,
+                                           n_speakers=2, sr=SR, snr_db=10.0,
+                                           noise_kind="white")
+    g_card = make_enhance_fn("gtcrn", device=dev)
+    y10 = torch.from_numpy(noisy10.astype(np.float32))
+    out_c = g_card(y10.to(dev)).cpu()
+    out_p = make_enhance_fn("gtcrn", device="cpu")(y10)
+    g_err = float((out_c - out_p).abs().max() / out_p.abs().max())
+    g_ms = cuda_time_ms(lambda: g_card(y10.to(dev)), 5)
+    log(f"[3] GTCRN on 10 s, card vs CPU: max rel err {g_err:.3e} (bar "
+        f"{GTCRN_TOL_REL:.0e}); {g_ms:.3f} ms on the card")
+    if not g_err <= GTCRN_TOL_REL:
+        raise AssertionError("GTCRN on the card disagrees with the CPU")
 
     # ---------------------------------------------------------- phase 4 ----
     def bench_cfg(overlap: bool, **kw):
@@ -490,6 +560,73 @@ def main() -> int:
         raise AssertionError("the overlap rescue did not arm, added nothing "
                              "or made DER worse")
 
+    # --------------------------------------------------------- phase 4c ----
+    pipe = DiarizationPipeline(bench_cfg(True), encoder=enc, vad=vad)
+    inner, spans = pipe.enhance_fn, []
+
+    def timed_enhance(y):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = inner(y)
+        e1.record()
+        spans.append((e0, e1))
+        return out
+
+    pipe.enhance_fn = timed_enhance
+    noisy = {}
+    for key in JAX_CPU_DER_PCT_NOISY:
+        noise, snr, dur = key
+        wave, truth = make_conversation_heldout(
+            np.random.default_rng(0), float(dur), n_speakers=3, sr=SR,
+            snr_db=snr, noise_kind=noise)
+        kernels.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = pipe((wave, SR))
+        warm = time.perf_counter() - t0
+        n_launch, n_forms = dict(kernels.LAUNCHES), dict(kernels.LAUNCH_FORMS)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        walls, g_ms = [], []
+        for _ in range(3):
+            spans.clear()
+            t0 = time.perf_counter()
+            pipe((wave, SR))
+            walls.append(time.perf_counter() - t0)
+            torch.cuda.synchronize()
+            g_ms.append(sum(a.elapsed_time(b) for a, b in spans))
+        d = res.diagnostics
+        der = der_pct(truth, res.segments)
+        bar = JAX_CPU_DER_PCT_NOISY[key] + DER_SLACK_PCT
+        t = len(wave)
+        n_v = 1 if t <= 240000 else -(-(t - 240000) // 224000) + 1
+        n_w = num_frames(t, 32000, 1600)
+        n_g = -(-n_w // min(600, 1 << max(6, (n_w - 1).bit_length())))
+        want = {"asp_grid_stats": n_g, "fused_log_mel": -(-n_v // 64) + n_g}
+        want_forms = {"fused_log_mel[B, T]": -(-n_v // 64), "fused_log_mel[T]": n_g}
+        noisy[key] = {"launches": n_launch, "forms": n_forms}
+        log(f"[4c] {noise}{snr:g}, {dur} s: route {d.get('route')}, enhancer "
+            f"{d.get('enhancer')}, est SNR {d.get('snr_db', float('nan')):.2f} dB, "
+            f"floor HF {d.get('floor_hf_frac', float('nan')):.3f}; warm "
+            f"{warm:.3f} s, timed {min(walls):.4f} s (walls "
+            f"{[round(w, 4) for w in walls]}) -> RTF {dur / min(walls):.1f}x; "
+            f"GTCRN {min(g_ms):.2f} ms on the card ({[round(g, 2) for g in g_ms]}); "
+            f"peak device memory {peak_gb:.2f} GB; {len(res.segments)} "
+            f"segments, {res.num_speakers} speakers, DER {der:.4f} % (bar "
+            f"{bar:.4f} %); launches {n_launch} {n_forms}")
+        if d.get("route") != "legacy" or d.get("enhancer") != "gtcrn":
+            raise AssertionError("the noisy file did not take the GTCRN route")
+        probs = d["vad_probs"]
+        if probs.shape != (dur * 100 + 1,) or not (
+                np.isfinite(probs).all() and np.isfinite(d["window_embeddings"]).all()):
+            raise AssertionError(f"bad VAD probabilities or grid {probs.shape}")
+        if n_launch != want or n_forms != want_forms:
+            raise AssertionError(f"launch counts {n_launch} {n_forms}, expected "
+                                 f"{want} {want_forms}")
+        if not der <= bar:
+            raise AssertionError(f"DER {der:.4f} % above the bar {bar:.4f} %")
+
     # ---------------------------------------------------------- phase 5 ----
     enc32 = load_speaker_encoder(wdir / "ecapa_robust_stream.npz")
 
@@ -548,15 +685,46 @@ def main() -> int:
             and abs(ders["cuda"] - ders["cpu"]) <= 1.0):
         raise AssertionError("the card disagrees with the CPU reference with "
                              "the overlap rescue on")
+    # the whole-file path through GTCRN over a noisy file
+    wave, truth = make_conversation_heldout(np.random.default_rng(11), 25.0,
+                                            n_speakers=3, sr=SR, snr_db=10.0,
+                                            noise_kind="white")
+    outs = card_and_cpu(bench_cfg(True), wave)
+    d_c, d_p = outs["cuda"].diagnostics, outs["cpu"].diagnostics
+    s_c, s_p = outs["cuda"].segments, outs["cpu"].segments
+    g_c, g_p = d_c["window_embeddings"], d_p["window_embeddings"]
+    cos = float(((g_c * g_p).sum(1) / np.linalg.norm(g_c, axis=1)
+                 / np.linalg.norm(g_p, axis=1)).min())
+    perr = float(np.abs(d_c["vad_probs"] - d_p["vad_probs"]).max())
+    same_n = len(s_c) == len(s_p)
+    s_err = max([0.0, *np.abs(s_c.starts - s_p.starts),
+                 *np.abs(s_c.ends - s_p.ends)]) if same_n else float("inf")
+    ders = {k: der_pct(truth, v.segments) for k, v in outs.items()}
+    log(f"[5] card vs CPU, 25 s in white noise at 10 dB (whole-file path, "
+        f"GTCRN): routes {d_c.get('route')} / {d_p.get('route')}, est SNR "
+        f"{d_c['snr_db']:.4f} / {d_p['snr_db']:.4f} dB, VAD probs max err "
+        f"{perr:.2e} (bar 1e-3), grid min cos {cos:.6f} (bar 0.9999), "
+        f"{len(s_c)} vs {len(s_p)} final segments (max edge difference "
+        f"{s_err:.3f} s, bar 0.02), DER {ders['cuda']:.4f} % vs "
+        f"{ders['cpu']:.4f} %")
+    if not (d_c.get("route") == d_p.get("route") == "legacy" and perr < 1e-3
+            and cos > 0.9999 and s_err <= 0.02 and (s_c.spks == s_p.spks).all()
+            and abs(ders["cuda"] - ders["cpu"]) <= 1.0):
+        raise AssertionError("the card disagrees with the CPU reference on "
+                             "the noisy-input route")
 
     for r in rows:
         # this slice's path: the bench configuration at the shipped default
         r["launches"] = launches[True, 600][r["name"]]
         r["launches_overlap_off"] = launches[False, 600][r["name"]]
+        # the noisy-input route on the 600 s file in white noise
+        r["launches_noisy"] = noisy["white", 10.0, 600]["launches"][r["name"]]
     rows[0]["batch"]["launches"] = forms[True, 600]["fused_log_mel[B, T]"]
+    rows[0]["batch_vad"]["launches"] = (
+        noisy["white", 10.0, 600]["forms"]["fused_log_mel[B, T]"])
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "launches_overlap_off", "batch")
+            "launches_overlap_off", "launches_noisy", "batch", "batch_vad")
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
                                   for r in rows]}))
     print(smi)

@@ -15,7 +15,16 @@ with it on (the shipped default), and reports for each:
 Then what the detector adds: the difference of the two runs by kernel (device
 time and calls) and by host phase.
 
+``--noisy`` profiles the noisy-input route instead, at the config's defaults
+on ``make_conversation_heldout(rng(0), seconds, n_speakers=3, snr_db=10,
+noise_kind='white')``: the whole-file path through GTCRN.  Host wall by
+stage, device time by kernel and busy share as above, then GTCRN alone on
+the file's padded waveform by module (CUDA events around each encoder
+block, DPGRNN and decoder block, and around each of its GRUs apart), and
+the STFT / iSTFT around the net.
+
     python3 scripts/torch_profile_diarize.py [--seconds 600] [--overlap off|on|both]
+    python3 scripts/torch_profile_diarize.py --noisy [--seconds 600]
 
 Prints a table and one JSON line.  Needs a CUDA card.
 """
@@ -126,22 +135,7 @@ def profile_config(seconds: float, overlap: bool, smi: str) -> dict:
         pipe(wave)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    events = prof.key_averages()
-
-    from torch.autograd import DeviceType
-
-    # device-side entries only (CPU ops also carry their children's device
-    # time, which would count each kernel twice)
-    kern = []
-    for e in events:
-        if getattr(e, "device_type", None) != DeviceType.CUDA:
-            continue
-        v = getattr(e, "self_device_time_total", None)
-        if v is None:
-            v = getattr(e, "self_cuda_time_total", 0.0)
-        if v and v > 0:
-            kern.append((e.key, float(v), e.count))
-    kern.sort(key=lambda r: -r[1])
+    kern = _device_kernels(prof)
     busy_us = sum(v for _, v, _ in kern)
     print(f"card: {smi}; {seconds:.0f} s file; overlap rescue "
           f"{'on' if overlap else 'off'}")
@@ -170,10 +164,171 @@ def profile_config(seconds: float, overlap: bool, smi: str) -> dict:
     return out
 
 
+def _device_kernels(prof) -> list[tuple[str, float, int]]:
+    """(name, device us, calls) of the device-side entries of a profile,
+    largest first (CPU ops also carry their children's device time, which
+    would count each kernel twice)."""
+    from torch.autograd import DeviceType
+
+    kern = []
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) != DeviceType.CUDA:
+            continue
+        v = getattr(e, "self_device_time_total", None)
+        if v is None:
+            v = getattr(e, "self_cuda_time_total", 0.0)
+        if v and v > 0:
+            kern.append((e.key, float(v), e.count))
+    return sorted(kern, key=lambda r: -r[1])
+
+
+def gtcrn_by_module(enhancer, y) -> dict:
+    """GTCRN on ``y`` with CUDA events around each top-level block and each
+    GRU (the GRUs nested in a block are also in its time)."""
+    import torch
+
+    net = enhancer.net
+    blocks = ([f"encoder.en_convs.{i}" for i in range(5)] + ["dpgrnn1", "dpgrnn2"]
+              + [f"decoder.de_convs.{i}" for i in range(5)])
+    grus = [n for n, m in net.named_modules() if isinstance(m, torch.nn.GRU)]
+    spans: dict[str, list] = {}
+    hooks = []
+    for name in blocks + grus + [""]:
+        mod = net.get_submodule(name)
+
+        def pre(_m, _a, name=name):
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            spans.setdefault(name, []).append([e, None])
+
+        def post(_m, _a, _o, name=name):
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            spans[name][-1][1] = e
+
+        hooks += [mod.register_forward_pre_hook(pre), mod.register_forward_hook(post)]
+    enhancer(y)                                  # warm-up (cuDNN plans)
+    torch.cuda.synchronize()
+    spans.clear()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    enhancer(y)
+    e1.record()
+    torch.cuda.synchronize()
+    for h in hooks:
+        h.remove()
+    ms = {k: sum(a.elapsed_time(b) for a, b in v) for k, v in spans.items()}
+    total = e0.elapsed_time(e1)
+    net_ms = ms.pop("")
+    out = {"enhancer_ms": total, "net_ms": net_ms, "stft_istft_ms": total - net_ms,
+           "blocks_ms": {b: ms[b] for b in blocks},
+           "grus_ms": {g: ms[g] for g in grus}}
+    time_grus = [g for g in grus if "intra_rnn" not in g]
+    out["time_grus_ms"] = sum(ms[g] for g in time_grus)
+    out["intra_grus_ms"] = sum(ms[g] for g in grus if "intra_rnn" in g)
+    out["not_gru_ms"] = net_ms - out["time_grus_ms"] - out["intra_grus_ms"]
+    return out
+
+
+def profile_noisy(seconds: float, smi: str) -> dict:
+    """Host stages, device time by kernel and busy share of the noisy-input
+    route, then GTCRN by module."""
+    import torch
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+
+    from speech_diarization_tpu_torch.config import (
+        ClusterConfig, DiarizationConfig, EmbedConfig,
+    )
+    from speech_diarization_tpu_torch.models.port import load_speaker_encoder, load_vad
+    from speech_diarization_tpu_torch.pipelines.diarize import DiarizationPipeline
+    from speech_diarization_tpu_torch.train.heldout import make_conversation_heldout
+    from speech_diarization_tpu_torch.utils.logging import get_logger
+
+    cfg = DiarizationConfig(cluster=ClusterConfig(method="spectral", max_speakers=8),
+                            embed=EmbedConfig(grid_backend="auto"))
+    w = ROOT / "weights"
+    pipe = DiarizationPipeline(
+        cfg, encoder=load_speaker_encoder(w / "ecapa_robust_stream.npz",
+                                          dtype=torch.bfloat16),
+        vad=load_vad(w / "vad_conv_mc.npz"))
+    wave, _ = make_conversation_heldout(np.random.default_rng(0), seconds,
+                                        n_speakers=3, sr=SR, snr_db=10.0,
+                                        noise_kind="white")
+    res = pipe(wave)                             # warm-up (builds kernels)
+    if res.diagnostics.get("route") != "legacy":
+        raise RuntimeError("the noisy file did not take the whole-file path")
+
+    logger = get_logger("diarize")
+    handler = _StageLog()
+    logger.addHandler(handler)
+    root = logging.getLogger("sdtpu")
+    old_level = root.level
+    root.setLevel(logging.INFO)
+    phases = []
+    for _ in range(3):
+        handler.walls = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pipe(wave)
+        phases.append({"wall_s": time.perf_counter() - t0,
+                       **{f"{k}_s": v for k, v in handler.walls.items()}})
+    root.setLevel(old_level)
+    logger.removeHandler(handler)
+    best = min(phases, key=lambda p: p["wall_s"])
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        pipe(wave)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kern = _device_kernels(prof)
+    busy_us = sum(v for _, v, _ in kern)
+    print(f"card: {smi}; {seconds:.0f} s file, white noise at 10 dB, config "
+          f"defaults (whole-file path, GTCRN)")
+    print("best of 3 host stages: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in best.items()))
+    print(f"profiled wall {wall:.4f} s; device busy {busy_us / 1e6:.4f} s "
+          f"({100 * busy_us / 1e6 / wall:.2f} % of the wall)")
+    print(f"{'device time (ms)':>17} {'calls':>6}  name")
+    for name, v, n in kern[:24]:
+        print(f"{v / 1e3:17.3f} {n:6d}  {name[:90]}")
+    own = [r for r in kern if any(k in r[0] for k in PORT_KERNELS)]
+    for name, v, n in own:
+        if (name, v, n) not in kern[:24]:
+            print(f"{v / 1e3:17.3f} {n:6d}  {name[:90]}")
+
+    # GTCRN alone, on the padded waveform the whole-file path hands it
+    bucket = 60 * SR
+    t_pad = max(bucket, -(-len(wave) // bucket) * bucket)
+    y = F.pad(torch.from_numpy(wave.astype(np.float32)), (0, t_pad - len(wave))).cuda()
+    g = gtcrn_by_module(pipe.enhance_fn, y)
+    print(f"GTCRN on {t_pad / SR:.0f} s: {g['enhancer_ms']:.2f} ms (net "
+          f"{g['net_ms']:.2f}, STFT + iSTFT + OLA {g['stft_istft_ms']:.2f}); "
+          f"GRUs over time {g['time_grus_ms']:.2f}, intra GRUs over bins "
+          f"{g['intra_grus_ms']:.2f}, the rest {g['not_gru_ms']:.2f}")
+    for name, v in g["blocks_ms"].items():
+        inner = {k: round(x, 3) for k, x in g["grus_ms"].items()
+                 if k.startswith(name + ".")}
+        print(f"  {name:22s} {v:9.3f} ms   GRUs {inner}")
+    out = {"card": smi, "seconds": seconds, "noisy": True,
+           "host_stages_best": best, "profiled_wall_s": wall,
+           "device_busy_s": busy_us / 1e6, "device_busy_share": busy_us / 1e6 / wall,
+           "top_kernels_ms": {name[:80]: v / 1e3 for name, v, _ in kern[:16]},
+           "port_kernels_ms": {name[:80]: (v / 1e3, n) for name, v, n in own},
+           "gtcrn": g}
+    print(json.dumps(out))
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seconds", type=float, default=600.0)
     ap.add_argument("--overlap", default="both", choices=["off", "on", "both"])
+    ap.add_argument("--noisy", action="store_true",
+                    help="profile the noisy-input route (GTCRN) instead")
     args = ap.parse_args()
 
     import torch
@@ -184,6 +339,9 @@ def main() -> int:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
+    if args.noisy:
+        profile_noisy(args.seconds, smi)
+        return 0
     runs = {ov: profile_config(args.seconds, ov, smi)
             for ov in ((False, True) if args.overlap == "both"
                        else (args.overlap == "on",))}

@@ -4,10 +4,12 @@
 
 Runs on the card unless ``--cpu`` is given, at the defaults of the JAX
 package's CLI: overlap rescue on (the segmentation model runs inside the
-per-chunk device program), frame reassignment on, spectral clustering.
-``--no-overlap``, ``--no-reseg`` and ``--hmm`` are options.  The enhancement
-front-end is not ported: a file whose estimated SNR is under 25 dB is
-refused unless ``--enhance off`` is given.  Writes RTTM, JSON, SRT and CSV.
+per-chunk device program), frame reassignment on, spectral clustering,
+and the GTCRN denoiser engaged on files whose estimated SNR is under 25 dB
+(they take the whole-file path).  ``--no-overlap``, ``--no-reseg``,
+``--hmm``, ``--enhance``, ``--enhance-scope`` and ``--enhance-weights`` are
+options; the ZipEnhancer and demix backends are not ported and raise.
+Writes RTTM, JSON, SRT and CSV.
 """
 from __future__ import annotations
 
@@ -39,10 +41,20 @@ def _add_common_config_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--merge-gap-s", type=float, default=0.5)
     p.add_argument("--merge-max-turn-s", type=float, default=30.0)
     p.add_argument("--merge-min-cos", type=float, default=0.80)
-    p.add_argument("--enhance", default=None, choices=["gtcrn", "off"],
-                   help="'off' disables the enhancement front-end; by "
-                        "default it engages on noisy files only, and noisy "
-                        "files are refused while it is not ported")
+    p.add_argument("--enhance", default=None,
+                   choices=["gtcrn", "zipenhancer", "demix-dialog", "off"],
+                   help="denoise front-end before diarization; default is "
+                        "gtcrn with scope 'auto' (engages only on noisy "
+                        "files); 'off' disables the stage; zipenhancer and "
+                        "demix-dialog are not ported and raise")
+    p.add_argument("--enhance-scope", default="auto",
+                   choices=["full", "vad", "auto"],
+                   help="'vad' denoises only the VAD input (keeps speaker "
+                        "cues raw); 'full' feeds the denoised file to every "
+                        "stage; 'auto' engages vad-scope only when the file "
+                        "measures noisy")
+    p.add_argument("--enhance-weights", type=str, default=None,
+                   help=".npz checkpoint override for the enhancer")
     p.add_argument("--overlap", action=argparse.BooleanOptionalAction,
                    default=None,
                    help="overlap rescue: add second-speaker segments where "
@@ -73,7 +85,10 @@ def build_config(args: argparse.Namespace):
         with open(args.config) as f:
             return config_from_dict(json.load(f))
     return DiarizationConfig(
-        enhance=EnhanceConfig(enabled=args.enhance != "off"),
+        enhance=EnhanceConfig(
+            enabled=args.enhance != "off",
+            backend=args.enhance if args.enhance not in (None, "off") else "gtcrn",
+            scope=args.enhance_scope, weights=args.enhance_weights),
         audio=AudioConfig(
             sample_rate=args.sample_rate,
             target_lufs=None if args.no_loudness_norm else args.target_lufs,

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from .ecapa import EcapaModel, EcapaTdnn
+from .gtcrn import GTCRN
 from .segmentation import SegmentationModel, SegNet
 from .vad import VadConvNet, VadModel
 
@@ -115,3 +116,15 @@ def load_segmentation(path: str | Path) -> SegmentationModel:
     head type and the widths travel in the ``__meta__`` sidecar."""
     return params_from_numpy(load_params_npz(path), load_params_meta(path),
                              kind="segmentation")
+
+
+def load_gtcrn(source: str | Path | dict) -> GTCRN:
+    """GTCRN from a checkpoint path or a flat dict of arrays (a JAX params
+    dict converted to numpy loads as it is): the keys are the net's
+    ``state_dict`` keys, float16 is upcast to float32, and every key must
+    be present and used."""
+    flat = load_params_npz(source) if isinstance(source, (str, Path)) else source
+    net = GTCRN()
+    net.load_state_dict({k: torch.from_numpy(np.array(v, np.float32))
+                         for k, v in flat.items()}, strict=True)
+    return net.eval()

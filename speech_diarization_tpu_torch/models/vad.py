@@ -67,13 +67,15 @@ class VadModel(nn.Module):
         self.win_ms = win_ms
 
     def probs_from_feats(self, feats: torch.Tensor) -> torch.Tensor:
-        """Log-mel [T_f, M] -> probs [T_f].  No per-utterance mean-norm (it
-        would break causality); inputs are loudness-normalized upstream, so
-        a fixed affine rescale suffices."""
-        return self.net(((feats.float() + 6.0) * 0.25)[None])[0]
+        """Log-mel [T_f, M] or [B, T_f, M] -> probs [T_f] or [B, T_f].  No
+        per-utterance mean-norm (it would break causality); inputs are
+        loudness-normalized upstream, so a fixed affine rescale suffices."""
+        x = (feats.float() + 6.0) * 0.25
+        return self.net(x[None])[0] if feats.ndim == 2 else self.net(x)
 
     def probs(self, y: torch.Tensor) -> torch.Tensor:
-        """[T] waveform -> [T//hop + 1] probs."""
+        """[T] or [B, T] waveform -> [..., T//hop + 1] probs (a batch is one
+        log-mel launch; its rows may be a strided view)."""
         from ..dsp.mel import fused_log_mel
 
         feats = fused_log_mel(y, sample_rate=self.sample_rate,

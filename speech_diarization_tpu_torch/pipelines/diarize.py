@@ -1,19 +1,29 @@
-"""The flagship diarizer on its streamed ingest, in PyTorch.
+"""The flagship diarizer in PyTorch: the streamed ingest, and the
+whole-file path that noisy input takes through the GTCRN denoiser.
 
-read -> quantize to int16 -> 60 s chunks with neighbour context -> ONE
-per-chunk device program (dequantize; the overlap detector's hard decisions
-on 5 s windows of the raw chunk; loudness gain metered on the chunk's core,
-DC, pre-emphasis, log-mel, VAD probabilities, frame energy, streaming ECAPA
-grid) -> one packed device-to-host copy -> host tail (VAD post, SCD, segment
-embeddings, spectral clustering, window refine, conservative merge, frame
-reassignment when on, adjacent merge, overlap rescue).
+Streamed: read -> quantize to int16 -> 60 s chunks with neighbour context
+-> ONE per-chunk device program (dequantize; the overlap detector's hard
+decisions on 5 s windows of the raw chunk; loudness gain metered on the
+chunk's core, DC, pre-emphasis, log-mel, VAD probabilities, frame energy,
+streaming ECAPA grid) -> one packed device-to-host copy -> host tail (VAD
+post, SCD, segment embeddings, spectral clustering, window refine,
+conservative merge, frame reassignment when on, adjacent merge, overlap
+rescue).
 
-The counterpart of the JAX package's ``pipelines/diarize.py`` streamed path
-(``__call__`` -> ``_streamed_start`` -> ``_streamed_collect`` ->
-``stream_finish`` -> ``_segments_from_grid``), at its defaults: overlap
-rescue on, reassignment as the config says.  Not ported yet, and refused
-with ``NotImplementedError`` rather than dropped: the enhancement front-end
-(engaged on noisy input), the non-streamed (whole-file) path, and
+Whole-file ("legacy") path, taken when the enhancement front-end engages
+(scope ``auto`` and a probe SNR under ``auto_snr_db``, or a forced scope)
+or the chunk geometry cannot stream: quantize the whole file -> SNR and
+noise-floor probe -> GTCRN on the dequantized file (the VAD's input only
+under scopes ``auto`` and ``vad``, everything under ``full``) ->
+whole-file loudness, DC, pre-emphasis -> VAD over 15 s chunks (one batched
+log-mel launch a group) and frame energy -> the streaming ECAPA grid in
+chunks of up to 600 windows -> one device-to-host copy -> the same host
+tail.
+
+The counterpart of the JAX package's ``pipelines/diarize.py`` (``__call__``
+-> ``_streamed_start`` / ``_legacy_call`` -> ``_segments_from_grid``), at
+its defaults.  Not ported, and refused with ``NotImplementedError`` rather
+than dropped: the ZipEnhancer and demix front-ends, the windowed grid, and
 clustering methods other than spectral.
 """
 from __future__ import annotations
@@ -27,7 +37,7 @@ import torch
 from .. import cluster as cluster_mod
 from ..config import DiarizationConfig
 from ..dsp.framing import num_frames
-from ..dsp.loudness import integrated_loudness
+from ..dsp.loudness import integrated_loudness, loudness_normalize
 from ..dsp.mel import fused_log_mel
 from ..dsp.preprocess import preemphasis
 from ..io.audio import read_audio
@@ -35,6 +45,7 @@ from ..segment import (
     add_overlap_segments,
     conservative_merge,
     detect_overlap_regions,
+    embed_windows_streaming,
     frame_energy_db_chunk,
     frame_reassign,
     make_seg_hard_fn,
@@ -48,11 +59,11 @@ from ..segment import (
 from ..types import Segment, SegmentArray
 from ..utils.device import disable_tf32, resolve_device
 from ..utils.logging import get_logger, stage_timer
+from .chunking import chunked_framewise
 
 log = get_logger("diarize")
 
-_NEXT_SLICE = ("is not ported yet (next slice of the PyTorch port, ROADMAP "
-               "Queue 1)")
+_UNPORTED = "is not ported yet (ROADMAP Queue 1)"
 
 
 @dataclass
@@ -77,6 +88,10 @@ class DiarizationPipeline:
             default: the first shipped encoder of ``ENCODER_PREFERENCE``.
         vad: a :class:`~..models.vad.VadModel`; default: the shipped conv VAD.
         device: ``None`` (the card; raises without CUDA) or ``"cpu"``.
+
+    ``enhance.enabled`` (the default) loads the GTCRN denoiser for the
+    whole-file path, or drops the stage with a warning when no trained
+    weights ship.
     """
 
     _PAD_BUCKET_S = 60.0   # chunk length of the streamed ingest
@@ -97,6 +112,20 @@ class DiarizationPipeline:
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             disable_tf32()
+        self.enhance_fn = None
+        e = cfg.enhance
+        if e.enabled:
+            from .enhance import default_weights_path, make_enhance_fn
+
+            if e.weights is None and default_weights_path(e.backend) is None:
+                # random-weight 'denoising' is worse than none
+                log.warning("enhance: enabled but no trained %s weights ship: "
+                            "stage disabled (pass EnhanceConfig.weights to "
+                            "force)", e.backend)
+            else:
+                self.enhance_fn = make_enhance_fn(
+                    e.backend, weights=e.weights, device=self.device,
+                    chunk_s=e.chunk_s, overlap_s=e.overlap_s)
         if encoder is None:
             from ..models.port import load_speaker_encoder
             from ..utils.weights import ENCODER_PREFERENCE, prefer_weights
@@ -121,6 +150,8 @@ class DiarizationPipeline:
         self.vad = vad.to(self.device).eval()
         self._programs: dict = {}
         self._last_snr_db: float | None = None
+        self._last_floor_hf_frac = 1.0
+        self._demix_warned = False
 
     # ------------------------------------------------------------------ io --
     @staticmethod
@@ -138,8 +169,9 @@ class DiarizationPipeline:
         return out, scale
 
     def _host_snr_db(self, x: np.ndarray) -> float:
-        """10*log10(p95/p05) of 50 ms frame energies: the noise probe that
-        gates the enhancement front-end and the refine splitting."""
+        """10*log10(p95/p05) of 50 ms frame energies: the streamed path's
+        noise probe, which gates the enhancement front-end, the refine
+        splitting and the overlap detector."""
         frame = self._SNR_FRAME
         t = (x.shape[-1] // frame) * frame
         if t == 0:
@@ -222,8 +254,8 @@ class DiarizationPipeline:
         self._programs[key] = program
         return program
 
-    def _geometry(self, sr: int) -> tuple[int, int, int, int, int]:
-        """-> (u, m_l, m_r, grid_win, grid_hop); raises when the config's
+    def _geometry(self, sr: int) -> tuple[int, int, int, int, int] | None:
+        """-> (u, m_l, m_r, grid_win, grid_hop), or None when the config's
         geometry cannot take the streamed path."""
         cfg = self.cfg
         mel_hop = sr * 10 // 1000
@@ -236,18 +268,26 @@ class DiarizationPipeline:
         m_r = m_l + grid_win - grid_hop
         if (grid_win % mel_hop or grid_hop % mel_hop or u % grid_hop
                 or u % hop_v or m_l % hop_v or u < m_r):
-            raise NotImplementedError(
-                "this grid/chunk geometry cannot take the streamed path, and "
-                "the non-streamed path is not ported")
+            return None
         return u, m_l, m_r, grid_win, grid_hop
 
-    def _streamed_start(self, y: np.ndarray, sr: int) -> dict:
+    def _streamed_start(self, y: np.ndarray, sr: int) -> dict | None:
         """Dispatch phase: pinned-memory chunk uploads, one program per
         chunk, and the device-side pack into one flat tensor whose copy to
-        pinned host memory is queued — nothing here waits for the device."""
+        pinned host memory is queued — nothing here waits for the device.
+        None when the file takes the whole-file path before any work: the
+        geometry cannot stream, or a scope forces the enhancement front-end.
+        When the probe engages the front-end, the whole-file path's inputs
+        instead: ``legacy_source`` and ``quantized`` (host int16 samples,
+        their upload, scale, probe SNR)."""
         cfg = self.cfg
         dev = self.device
-        u, m_l, m_r, grid_win, grid_hop = self._geometry(sr)
+        geo = self._geometry(sr)
+        if geo is None:
+            return None
+        if self.enhance_fn is not None and cfg.enhance.scope != "auto":
+            return None           # enhancement forced on: whole-file path
+        u, m_l, m_r, grid_win, grid_hop = geo
         hop_v = int(round(cfg.vad.hop_ms / 1000.0 * sr))
         t = int(y.shape[-1])
         n_chunks = max(1, -(-t // u))
@@ -263,13 +303,12 @@ class DiarizationPipeline:
         # the noise-sensitive refine splitting
         x = q[:t].astype(np.float32) * (scale / 32767.0)
         self._last_snr_db = self._host_snr_db(x)
-        ecfg = cfg.enhance
-        if ecfg.enabled and (ecfg.scope != "auto"
-                             or self._last_snr_db < ecfg.auto_snr_db):
-            raise NotImplementedError(
-                f"the enhancement front-end (engaged: scope {ecfg.scope!r}, "
-                f"est SNR {self._last_snr_db:.1f} dB) " + _NEXT_SLICE
-                + "; use EnhanceConfig(enabled=False) to diarize without it")
+        if (self.enhance_fn is not None
+                and self._last_snr_db < cfg.enhance.auto_snr_db):
+            # enhancement engaged: the whole-file path goes on from the
+            # quantized file, its uploads and the probe
+            return {"legacy_source": y, "quantized": (
+                q, torch.cat(chunks), scale, self._last_snr_db)}
 
         # overlap detector inside the chunk program: only when enabled, the
         # noise veto passes (the conversation-trained detector reads a babble
@@ -332,6 +371,7 @@ class DiarizationPipeline:
             "t": t, "sr": sr,
             "snr_db": self._last_snr_db,
             "ov": ov,
+            "legacy_source": None,
         }
         if ov:
             st["ov_shape"] = tuple(hard.shape)
@@ -370,15 +410,22 @@ class DiarizationPipeline:
 
     def stream_start(self, source) -> dict:
         """Dispatch a file's streamed ingest without waiting for the device;
-        finish it with :meth:`stream_finish`."""
+        finish it with :meth:`stream_finish`.  A file that takes the
+        whole-file path carries its waveform as ``legacy_source`` and runs
+        in :meth:`stream_finish`."""
         self._last_snr_db = None
         y = np.asarray(self._host_array(source), np.float32)
         st = self._streamed_start(y, self.cfg.audio.sample_rate)
-        st["y_host"] = y    # for the standalone detect, when the fused
-        return st           # detector could not arm
+        if st is None:
+            return {"legacy_source": y}
+        if st["legacy_source"] is None:
+            st["y_host"] = y    # for the standalone detect, when the fused
+        return st               # detector could not arm
 
     def stream_finish(self, st: dict) -> DiarizationResult:
         """One packed pull + VAD post + clustering/segments."""
+        if st.get("legacy_source") is not None:
+            return self._legacy_call(st["legacy_source"], st.get("quantized"))
         cfg = self.cfg
         probs, energy_db, win_embs, starts_s, total_s = self._streamed_collect(st)
         with stage_timer(log, "vad-post"):
@@ -398,12 +445,176 @@ class DiarizationPipeline:
         if st.get("ov_acts") is not None:
             res.diagnostics["overlap_hard"] = st["ov_acts"]
             res.diagnostics["overlap_regions"] = overlap_regions
+        res.diagnostics["route"] = "streamed"
         return res
 
     def __call__(self, source) -> DiarizationResult:
         with stage_timer(log, "streamed-ingest"):
             st = self.stream_start(source)
         return self.stream_finish(st)
+
+    # ------------------------------------------------------ whole-file path --
+    def _floor_hf_frac(self, q: np.ndarray, t: int) -> float:
+        """The noise floor's high-frequency fraction on the int16 samples:
+        of the summed rfft power of the 50 ms frames (inside the ``t``
+        valid samples) at or below the 10th energy percentile, the share
+        above ``sr/8``.  Competing speech has a speech-shaped floor, under
+        0.25; broadband noise about 0.5.  1.0 when undecidable."""
+        frame = self._SNR_FRAME
+        n = t // frame
+        if n == 0:
+            return 1.0
+        fr = q[:n * frame].astype(np.float32).reshape(n, frame)
+        e = np.mean(np.square(fr), axis=1)
+        ps = np.sum(np.square(np.abs(np.fft.rfft(
+            fr[e <= np.percentile(e, 10.0)], axis=1))), axis=0)
+        hf = float(np.sum(ps[frame // 4:]) / (np.sum(ps) + 1e-30))
+        return hf if np.isfinite(hf) and hf > 0.0 else 1.0
+
+    def _demix_frontend(self) -> None:
+        """The auto-route's separation front-end for a speech-shaped noise
+        floor.  It needs a separation-grade demixer (ported ``.th``
+        checkpoints or ``demix_mc.npz``; the shipped ``demix_synthetic.npz``
+        does not separate and is excluded): with one present this raises,
+        since demixing is not ported; with none the route keeps the
+        denoiser, as the JAX package does, with a warning (once per
+        pipeline)."""
+        import os
+
+        from ..utils.weights import WEIGHTS_ROOT
+
+        env = os.environ.get("SDTPU_DEMUCS_CKPTS", "")
+        if ([p for p in env.split(":") if p] or sorted(WEIGHTS_ROOT.glob("*.th"))
+                or (WEIGHTS_ROOT / "demix_mc.npz").exists()):
+            raise NotImplementedError("the demix-dialog separation front-end "
+                                      + _UNPORTED)
+        if not self._demix_warned:
+            self._demix_warned = True
+            log.warning("enhance auto-route: no separation-grade demixer "
+                        "available (ported .th or demix_mc.npz): keeping the "
+                        "denoise backend for babble-like background")
+
+    def _preprocess(self, y: torch.Tensor, t: int, sr: int) -> torch.Tensor:
+        """Whole-file loudness normalization, DC (the padded sum over the
+        ``t`` valid samples), pre-emphasis, clip."""
+        acfg = self.cfg.audio
+        if acfg.target_lufs is not None:
+            y = loudness_normalize(y, sr, acfg.target_lufs)
+        if acfg.remove_dc:
+            y = y - y.sum() / float(t)
+        if acfg.preemphasis is not None:
+            y = preemphasis(y, acfg.preemphasis)
+        return torch.clamp(y, -0.99, 0.99)
+
+    def _load_waves(self, y_host: np.ndarray, quantized=None):
+        """-> (wave, vad_wave, info) on the device, both ``len(y_host)``
+        samples.  ``vad_wave`` is the denoised signal under scopes ``auto``
+        (when the probe engages) and ``vad``; under ``full`` both are.
+        ``quantized``: the streamed start's (host int16, its upload, scale,
+        probe SNR), padded to whole 60 s chunks; else the file is quantized
+        (and probed) here."""
+        cfg = self.cfg
+        sr = cfg.audio.sample_rate
+        t = int(y_host.shape[-1])
+        if quantized is None:
+            bucket = int(self._PAD_BUCKET_S * sr)
+            t_pad = max(bucket, -(-t // bucket) * bucket)
+            q, scale = self._quantize_host(y_host, t_pad)
+            q_dev = torch.from_numpy(q)
+            if self.device.type == "cuda":
+                q_dev = q_dev.pin_memory()
+            q_dev = q_dev.to(self.device, non_blocking=True)
+            snr = None
+        else:
+            q, q_dev, scale, snr = quantized
+        # the JAX package dequantizes with a float32 quotient here and with
+        # a float64 one before the enhancer; both are kept
+        y = q_dev.float() * float(np.float32(scale) / np.float32(32767.0))
+        y_enh = None
+        info = {"route": "legacy", "enhancer": None}
+        ecfg = cfg.enhance
+        if self.enhance_fn is not None:
+            engage = True
+            if ecfg.scope == "auto":
+                if snr is None:
+                    snr = self._host_snr_db(
+                        q[:t].astype(np.float32) * (scale / 32767.0))
+                hf = self._floor_hf_frac(q, t)
+                self._last_snr_db, self._last_floor_hf_frac = snr, hf
+                engage = snr < ecfg.auto_snr_db
+                info.update(snr_db=snr, floor_hf_frac=hf)
+                log.info("enhance auto-scope: est SNR %.1f dB (thr %.1f) -> %s",
+                         snr, ecfg.auto_snr_db,
+                         "denoise for VAD" if engage else "skip")
+            if engage:
+                y = q_dev.float() * float(np.float32(scale / 32767.0))
+                if (ecfg.scope == "auto" and ecfg.auto_route_demix
+                        and ecfg.backend != "demix-dialog"
+                        and self._last_floor_hf_frac < ecfg.babble_floor_hf_frac):
+                    info["demix_requested"] = True
+                    self._demix_frontend()
+                with stage_timer(log, "enhance"):
+                    y_enh = self.enhance_fn(y)
+                info["enhancer"] = ecfg.backend
+                if ecfg.scope == "full":
+                    y, y_enh = y_enh, None
+        y = self._preprocess(y, t, sr)[:t]
+        y_vad = y if y_enh is None else self._preprocess(y_enh, t, sr)[:t]
+        return y, y_vad, info
+
+    def vad_probs(self, y: torch.Tensor, sr: int) -> torch.Tensor:
+        """VAD probabilities of a whole waveform over 15 s chunks."""
+        hop = int(round(self.cfg.vad.hop_ms / 1000.0 * sr))
+        return chunked_framewise(self.vad.probs, y, sr, frame_hop=hop)
+
+    def vad_frame_energy(self, y: torch.Tensor, sr: int) -> torch.Tensor:
+        """Frame energy (dB) on the VAD's grid, chunked as the probs are."""
+        hop = int(round(self.cfg.vad.hop_ms / 1000.0 * sr))
+        return chunked_framewise(
+            lambda rows: frame_energy_db_chunk(rows, hop=hop, n_extra=1),
+            y, sr, frame_hop=hop)
+
+    def _legacy_call(self, y_host: np.ndarray, quantized=None) -> DiarizationResult:
+        """The whole-file path: preprocess (and denoise), VAD and the
+        streaming grid over the whole waveform, one copy to the host, then
+        the host tail.  ``quantized``: as :meth:`_load_waves` takes it."""
+        cfg = self.cfg
+        sr = cfg.audio.sample_rate
+        mel_hop = sr * 10 // 1000
+        if (int(round(cfg.reseg.win_s * sr)) % mel_hop
+                or int(round(cfg.reseg.hop_s * sr)) % mel_hop):
+            raise NotImplementedError(
+                "the grid is not a multiple of the 10 ms mel hop: the "
+                "windowed grid " + _UNPORTED)
+        want_energy = cfg.vad.energy_floor_db is not None
+        with torch.inference_mode():
+            with stage_timer(log, "load+preprocess"):
+                y, y_vad, info = self._load_waves(y_host, quantized)
+            with stage_timer(log, "dispatch"):
+                probs = self.vad_probs(y_vad, sr)
+                parts = [probs]
+                if want_energy:
+                    parts.append(self.vad_frame_energy(y_vad, sr))
+                grid = embed_windows_streaming(self.encoder, y, sr,
+                                               cfg.reseg.win_s, cfg.reseg.hop_s)
+                parts.append(grid.reshape(-1).float())
+                flat = torch.cat(parts).cpu().numpy()    # one copy to the host
+        n = probs.shape[0]
+        probs_h = flat[:n]
+        energy_h = flat[n:2 * n] if want_energy else None
+        grid_h = flat[(2 if want_energy else 1) * n:].reshape(-1, grid.shape[-1])
+        t = y.shape[-1]
+        with stage_timer(log, "vad-post"):
+            speech = vad_segments_from_probs(probs_h, cfg.vad,
+                                             frame_energy_db=energy_h)
+        if len(speech) == 0:
+            empty = SegmentArray.from_pairs([])
+            return DiarizationResult(empty, empty, 0, info)
+        starts_s = window_starts(t, sr, cfg.reseg.win_s, cfg.reseg.hop_s) / sr
+        res = self._segments_from_grid(speech, probs_h, grid_h, starts_s, t / sr,
+                                       y=y, sr=sr)
+        res.diagnostics.update(info)
+        return res
 
     def _segments_from_grid(self, speech, probs, win_embs, starts_s, total_s,
                             y=None, sr=None,
@@ -515,7 +726,7 @@ class DiarizationPipeline:
             if seg is None:
                 return final
             regions = detect_overlap_regions(
-                np.asarray(y, np.float32), sr, make_seg_hard_fn(seg),
+                y, sr, make_seg_hard_fn(seg),
                 chunk_s=ocfg.chunk_s, chunk_hop_s=ocfg.chunk_hop_s,
                 min_on_s=ocfg.min_on_s, min_gap_s=ocfg.min_gap_s,
                 device=self.device)

@@ -1,4 +1,8 @@
-from .embed import segment_embeddings_from_grid, window_starts
+from .embed import (
+    embed_windows_streaming,
+    segment_embeddings_from_grid,
+    window_starts,
+)
 from .merge import conservative_merge, merge_adjacent
 from .overlap import (
     add_overlap_segments,
@@ -19,6 +23,7 @@ __all__ = [
     "apply_energy_veto",
     "conservative_merge",
     "detect_overlap_regions",
+    "embed_windows_streaming",
     "frame_energy_db_chunk",
     "frame_reassign",
     "make_seg_hard_fn",

@@ -1,12 +1,17 @@
-"""Grid geometry and segment embeddings over the dense window grid.
+"""Grid geometry, the whole-file window grid, and segment embeddings over
+it.
 
 Every downstream consumer (SCD distances, segment embeddings, the refine
-bisection) reads the same [W, D] window-embedding matrix computed once per
-file by the per-chunk device program; this module is host numpy.
+bisection) reads the same [W, D] window-embedding matrix, computed once per
+file: by the per-chunk device program on the streamed path, by
+:func:`embed_windows_streaming` on the whole-file path.  The rest of this
+module is host numpy.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
+import torch.nn.functional as F
 
 from ..dsp.framing import num_frames
 from ..types import SegmentArray
@@ -18,6 +23,35 @@ def window_starts(n_samples: int, sr: int, win_s: float, hop_s: float) -> np.nda
     hop = int(round(hop_s * sr))
     n = num_frames(n_samples, win, hop, pad_tail=True)
     return np.arange(n) * hop
+
+
+GRID_MARGIN_S = 4.0   # real context each side of a grid chunk: > the trunk's reach
+
+
+def embed_windows_streaming(model, y: torch.Tensor, sr: int, win_s: float,
+                            hop_s: float, windows_per_chunk: int = 600) -> torch.Tensor:
+    """The whole-file window grid of a streaming encoder: [T] -> [W, D] on
+    ``y``'s device.  The trunk runs once per chunk of ``wpc`` windows
+    (``EcapaModel.encode_grid_chunk``: one log-mel and one pooling launch a
+    chunk), each chunk carrying ``GRID_MARGIN_S`` (rounded up to whole hops)
+    of real context on both sides; ``wpc`` is ``windows_per_chunk`` or, for a
+    short file, the next power of two (at least 64) above its window
+    count."""
+    win = int(round(win_s * sr))
+    hop = int(round(hop_s * sr))
+    w = num_frames(y.shape[-1], win, hop, pad_tail=True)
+    if w == 0:
+        return y.new_zeros((0, 1))
+    wpc = min(windows_per_chunk, 1 << max(6, (w - 1).bit_length()))
+    margin = -(-int(round(GRID_MARGIN_S * sr)) // hop) * hop
+    span = 2 * margin + (wpc - 1) * hop + win
+    n_chunks = -(-w // wpc)
+    needed = margin + ((n_chunks - 1) * wpc + wpc - 1) * hop + win + margin
+    y_pad = F.pad(y, (margin, max(0, needed - margin - y.shape[-1])))
+    outs = [model.encode_grid_chunk(y_pad[c * wpc * hop:c * wpc * hop + span],
+                                    wpc, margin, win, hop)
+            for c in range(n_chunks)]
+    return torch.cat(outs)[:w]
 
 
 def segment_embeddings_from_grid(

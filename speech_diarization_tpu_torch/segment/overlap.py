@@ -50,7 +50,7 @@ def make_seg_hard_fn(model):
 
 
 def detect_overlap_regions(
-    y: np.ndarray,
+    y: np.ndarray | torch.Tensor,
     sr: int,
     hard_fn,
     chunk_s: float = 5.0,
@@ -65,15 +65,17 @@ def detect_overlap_regions(
     ``hard_fn`` maps a ``[n, chunk]`` tensor on ``device`` to ``[n, F, K]``
     hard decisions (:func:`make_seg_hard_fn`; any callable returning a
     tensor or an array does).  Chunks tile the file with centre-trim.  The
-    waveform is uploaded once, zero-padded to whole batches; each batch of
+    waveform is uploaded once (not at all when it is a tensor on
+    ``device`` already), zero-padded to whole batches; each batch of
     ``GATHER_BATCH`` windows is an ``unfold`` view of it."""
-    y = np.asarray(y, np.float32)
+    y = torch.as_tensor(y, dtype=torch.float32, device=device)
+    t = y.shape[-1]
     chunk = int(chunk_s * sr)
     stride = max(1, int(chunk_hop_s * sr))
-    n_chunks = max(1, -(-max(len(y) - chunk, 0) // stride) + 1)
+    n_chunks = max(1, -(-max(t - chunk, 0) // stride) + 1)
     n_batches = -(-n_chunks // GATHER_BATCH)
     pad_to = (n_batches * GATHER_BATCH - 1) * stride + chunk
-    yp = torch.from_numpy(np.pad(y, (0, max(0, pad_to - len(y))))).to(device)
+    yp = torch.nn.functional.pad(y, (0, max(0, pad_to - t)))
     span = (GATHER_BATCH - 1) * stride + chunk
     parts = []
     for b in range(n_batches):
@@ -83,7 +85,7 @@ def detect_overlap_regions(
         parts.append(out.cpu().numpy() if isinstance(out, torch.Tensor)
                      else np.asarray(out))
     acts = np.concatenate(parts, axis=0)[:n_chunks]
-    return regions_from_hard_acts(acts, len(y) / sr, chunk_hop_s=chunk_hop_s,
+    return regions_from_hard_acts(acts, t / sr, chunk_hop_s=chunk_hop_s,
                                   hop_ms=hop_ms, min_on_s=min_on_s,
                                   min_gap_s=min_gap_s)
 

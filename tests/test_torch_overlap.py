@@ -155,6 +155,30 @@ def test_detect_hands_the_scorer_batches_of_24_windows_cut_in_place():
     assert seen == [((24, 5000), (2500, 1))] * 2
 
 
+def test_detect_takes_a_tensor_as_it_takes_an_array():
+    """A waveform already on the device is scored in place, with the same
+    windows and regions as its host array."""
+    sr = 1000
+    y = np.random.default_rng(1).standard_normal(12 * sr).astype(np.float32)
+    mask = np.zeros(12 * 100 + 1, np.float32)
+    mask[420:610] = 1.0
+    seen = {}
+
+    def record(key):
+        stub = _stub(mask)
+
+        def fn(chunks):
+            seen[key] = chunks.clone()
+            return stub(chunks)
+        return fn
+
+    a = detect_overlap_regions(y, sr, record("array"))
+    b = detect_overlap_regions(torch.from_numpy(y), sr, record("tensor"))
+    assert len(a) == 1
+    _same(a, b)
+    torch.testing.assert_close(seen["tensor"], seen["array"], rtol=0, atol=0)
+
+
 # ---- add_overlap_segments: the cases of
 # tests/test_overlap.py::TestAddOverlapSegments -----------------------------
 def _two_turns(cls):

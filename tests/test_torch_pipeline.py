@@ -304,16 +304,16 @@ def test_unported_stages_raise(kw, what):
                             device="cpu")
 
 
-def test_noisy_input_refused_while_enhancement_is_unported():
-    """Enhancement on (the config default) engages on noisy input: the port
-    refuses instead of diarizing without it."""
-    pipe = DiarizationPipeline(
-        _port_cfg(enhance=port.EnhanceConfig()),
-        encoder=load_speaker_encoder(WEIGHTS / "ecapa_robust_stream.npz"),
-        vad=load_vad(WEIGHTS / "vad_conv_mc.npz"), device="cpu")
-    noise = (0.1 * np.random.default_rng(0).standard_normal(SR * 3)).astype(np.float32)
-    with pytest.raises(NotImplementedError, match="enhancement"):
-        pipe(noise)
+@pytest.mark.parametrize("backend,weights", [
+    ("zipenhancer", None), ("demix-dialog", None), ("zipenhancer-ref", "x.npz")])
+def test_unported_enhancement_backends_raise(backend, weights):
+    """GTCRN is ported; the other enhancement backends raise when the
+    pipeline is built with weights for them (shipped, or given: with
+    neither, the stage is dropped, as in the JAX package)."""
+    with pytest.raises(NotImplementedError, match=backend):
+        DiarizationPipeline(
+            _port_cfg(enhance=port.EnhanceConfig(backend=backend, weights=weights)),
+            encoder=object(), vad=object(), device="cpu")
 
 
 def test_default_device_is_the_card():
@@ -359,6 +359,27 @@ def test_cli_defaults_are_the_jax_clis():
     assert not c.overlap.enabled and not c.reseg.enabled
     c = cfg("--hmm", "--overlap-weights", "x.npz")
     assert c.reseg.hmm and c.overlap.weights == "x.npz"
+
+
+@pytest.mark.parametrize("argv", [
+    [], ["--enhance", "off"], ["--enhance", "gtcrn", "--enhance-scope", "vad"],
+    ["--enhance-scope", "full", "--enhance-weights", "x.npz"],
+    ["--enhance", "zipenhancer"], ["--enhance", "demix-dialog"],
+], ids=["defaults", "off", "vad", "full-weights", "zipenhancer", "demix"])
+def test_cli_enhancement_flags_are_the_jax_clis(argv):
+    import argparse
+
+    from speech_diarization_tpu.cli import _add_common_config_args as jadd
+    from speech_diarization_tpu.cli import build_config as jbuild
+    from speech_diarization_tpu_torch.cli import _add_common_config_args, build_config
+
+    def cfg(add, build):
+        p = argparse.ArgumentParser()
+        add(p)
+        return build(p.parse_args(argv)).enhance
+
+    a, b = cfg(_add_common_config_args, build_config), cfg(jadd, jbuild)
+    assert dataclasses.asdict(a) == dataclasses.asdict(b)
 
 
 def test_pipeline_at_the_config_defaults_runs_on_the_cpu(conversation):
