@@ -48,6 +48,22 @@ Phases (any failure exits nonzero and prints no result line):
      CPU plus one point, and the launch counts (the log-mel's ``[B, T]``
      entry once per VAD group of up to 64 15 s chunks; its ``[T]`` entry
      and the pooling once per grid chunk of up to 600 windows).
+  4d. The other enhancement back-ends on the whole-file path
+     (``EnhanceConfig(backend=...)``): ZipEnhancer (``zipenhancer_mc.npz``)
+     on white10 60 s and 600 s and babble15 60 s, the demix-dialog
+     separator (``demix_synthetic.npz``, host resampling 16 <-> 44.1 kHz) on
+     babble15 60 s and white10 600 s: the route and enhancer, the launch
+     counts as in 4c, the enhancer's span on the card's clock (events
+     around it; the demixer's includes its host resampling), peak device
+     memory, and DER against the JAX pipeline's on the CPU plus one point
+     (ZipEnhancer at 600 s: no bar, the JAX run is too long for the CPU).
+     Before it, in phase 3: ZipEnhancer card vs CPU on four 2 s windows,
+     one 64-window batch (device time, peak memory, achieved FLOP/s
+     against the FLOPs of its products), and the demixer card vs CPU on one
+     10 s stereo chunk at the shipped geometry (24/4/1) and at the
+     constructor's (48/5/2, seeded weights), each also timed on the 80
+     chunks of a 600 s file, with the host resampling of that file timed
+     both ways.
   5. Reference agreement on small inputs: the same pipeline (float32
      encoder) on the card and on the CPU (plain versions) over a 25 s file
      cut into three 10 s chunks, with the rescue off; with rescue and
@@ -60,6 +76,7 @@ result line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import copy
 import json
 import subprocess
 import sys
@@ -81,6 +98,16 @@ JAX_CPU_DER_PCT = {False: {60: 0.0, 600: 0.6243},
 JAX_CPU_DER_PCT_NOISY = {("white", 10.0, 60): 0.5717,
                          ("white", 10.0, 600): 0.5601,
                          ("babble", 15.0, 60): 6.0246}
+# the same with the other enhancement back-ends (--noisy --enhance of that
+# script); None: no bar (the JAX ZipEnhancer on 600 s is too long for the
+# CPU), DER printed beside the GTCRN route's.  On the babble draw the
+# shipped separator's dialog stem lies below the loudness meter's gate: the
+# VAD hears silence in both packages and finds no speech (100 %)
+JAX_CPU_DER_PCT_ENHANCED = {("zipenhancer", "white", 10.0, 60): 4.2436,
+                            ("zipenhancer", "white", 10.0, 600): None,
+                            ("zipenhancer", "babble", 15.0, 60): 13.3245,
+                            ("demix-dialog", "babble", 15.0, 60): 100.0,
+                            ("demix-dialog", "white", 10.0, 600): 2.8824}
 DER_SLACK_PCT = 1.0
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and dense rates by type
@@ -97,6 +124,11 @@ TOL_REL = {"fused_log_mel": 1e-4, "asp_grid_stats": 2e-3}
 # waveform, relative to its peak): cuDNN's GRUs and convolutions sum in
 # another order, over ten recurrences of 626 steps on 10 s
 GTCRN_TOL_REL = 1e-3
+# ZipEnhancer and the demixer on the card against the CPU, the same way:
+# cuDNN / cuBLAS and the attention kernel sum in another order, and the
+# mask's power 1/0.3 amplifies a relative error about 3.3 times
+ZIP_TOL_REL = 1e-3
+DEMIX_TOL_REL = 1e-3
 # least share of equal hard decisions of the overlap detector between two
 # ways of computing them (an argmax over 8 logits flips on near-ties)
 HARD_AGREE = 0.999
@@ -188,6 +220,45 @@ def k2_measure(y, n_unique: int) -> dict:
             y, n_fft, 160, window=win, center=True, pad_mode="reflect",
             return_complex=True)),
     }
+
+
+def zipenhancer_flops(n_windows: int, samples: int = 32000, n_fft: int = 400,
+                      hop: int = 100, c: int = 64, blocks: int = 4) -> dict:
+    """Multiply-adds (x2) of ZipEnhancer's products on ``n_windows``
+    windows, by kind: the linears (qkv, proj, fc1, fc2 of both paths), the
+    two attention products of both paths, the convolutions (encoder,
+    both transposed decoders, the 1x1 heads) and the STFT / iSTFT bases."""
+    t = 1 + samples // hop                     # 321 frames
+    f_in = n_fft // 2 + 1                      # 201 bins
+    f = (f_in + 2 - 3) // 2 + 1                # 101 bins after the encoder
+    tokens = t * f
+    linears = blocks * 2 * 2 * tokens * c * (3 * c + c + 2 * c + 2 * c)
+    attention = blocks * 2 * 2 * c * (f * t * t + t * f * f)
+    convs = (2 * t * f_in * c * 2 * 9 + 2 * tokens * c * c * 3
+             + 2 * 2 * tokens * c * c * 3 + 2 * 3 * t * f_in * c)
+    stft = 2 * 2 * t * n_fft * 2 * f_in
+    out = {"linears": linears, "attention": attention, "convs": convs, "stft": stft}
+    return {k: float(v * n_windows) for k, v in out.items()}
+
+
+def seeded_demixer(seed: int = 0):
+    """The demixer at its constructor's geometry (48 channels, depth 5, two
+    bottleneck blocks) with normal weights from a seeded generator, scaled
+    by sqrt(2 / fan-in) over the last two dimensions (the decoder's
+    transposed convolutions x0.1 more, as in the JAX package's init),
+    biases zero."""
+    import torch
+
+    from speech_diarization_tpu_torch.models.demix import DialogDemixer
+
+    net = DialogDemixer()
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in net.named_parameters():
+            if p.ndim == 3:
+                w = torch.randn(p.shape, generator=g) * (2.0 / (p.shape[1] * p.shape[2])) ** 0.5
+                p.copy_(w * (0.1 if name.startswith("dec") and "glu" not in name else 1.0))
+    return net.eval()
 
 
 def agreement(a, b) -> float:
@@ -301,8 +372,8 @@ def main() -> int:
     dev = torch.device("cuda")
 
     from speech_diarization_tpu_torch.config import (
-        ClusterConfig, DiarizationConfig, EmbedConfig, OverlapConfig,
-        ResegConfig,
+        ClusterConfig, DiarizationConfig, EmbedConfig, EnhanceConfig,
+        OverlapConfig, ResegConfig,
     )
     from speech_diarization_tpu_torch.dsp.mel import (
         _log_mel_1d, log_mel_spectrogram,
@@ -318,6 +389,10 @@ def main() -> int:
     from speech_diarization_tpu_torch.ops import kernels
     from speech_diarization_tpu_torch.dsp.framing import num_frames
     from speech_diarization_tpu_torch.pipelines.diarize import DiarizationPipeline
+    from speech_diarization_tpu_torch.dsp.framing import frame_signal
+    from speech_diarization_tpu_torch.dsp.resample import resample_host
+    from speech_diarization_tpu_torch.models.port import load_demixer, load_zipenhancer
+    from speech_diarization_tpu_torch.pipelines.demix import EnsembleDemixer
     from speech_diarization_tpu_torch.pipelines.enhance import make_enhance_fn
     from speech_diarization_tpu_torch.train.heldout import (
         make_conversation_heldout,
@@ -472,6 +547,64 @@ def main() -> int:
         f"{GTCRN_TOL_REL:.0e}); {g_ms:.3f} ms on the card")
     if not g_err <= GTCRN_TOL_REL:
         raise AssertionError("GTCRN on the card disagrees with the CPU")
+    # ZipEnhancer (zipenhancer_mc.npz): four 2 s windows, card against CPU;
+    # then one batch of 64 windows of the 600 s file (the pipeline's batch)
+    zip_card = load_zipenhancer(wdir / "zipenhancer_mc.npz").to(dev)
+    x4 = y10[:4 * 32000].reshape(4, 32000)
+    with torch.inference_mode():
+        z_c = zip_card(x4.to(dev)).cpu()
+        z_p = load_zipenhancer(wdir / "zipenhancer_mc.npz")(x4)
+        z_err = float((z_c - z_p).abs().max() / z_p.abs().max())
+        x64 = y600[:63 * 24000 + 32000].unfold(0, 32000, 24000)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        z64_ms = cuda_time_ms(lambda: zip_card(x64), 5)
+        z64_peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    z64_flops = zipenhancer_flops(64)
+    log(f"[3] ZipEnhancer on four 2 s windows, card vs CPU: max rel err "
+        f"{z_err:.3e} (bar {ZIP_TOL_REL:.0e}); one batch of 64 windows: "
+        f"{z64_ms:.2f} ms on the card, {z64_peak:.2f} GB above the resident "
+        f"set, {sum(z64_flops.values()) / z64_ms / 1e9:.2f} TFLOP/s achieved on "
+        f"{sum(z64_flops.values()):.3e} FLOPs ({', '.join(f'{k} {v:.2e}' for k, v in z64_flops.items())})")
+    if not z_err <= ZIP_TOL_REL:
+        raise AssertionError("ZipEnhancer on the card disagrees with the CPU")
+    # the demixer on one 10 s stereo chunk at 44.1 kHz, card against CPU, at
+    # the shipped geometry and the constructor's; then each on the 80 chunks
+    # of the 600 s file, with the host resampling of that file both ways
+    t0 = time.perf_counter()
+    up600 = resample_host(noisy600.astype(np.float32), SR, 44100)
+    up_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    resample_host(up600, 44100, SR)
+    down_s = time.perf_counter() - t0
+    x80 = frame_signal(torch.from_numpy(np.stack([up600, up600])).to(dev),
+                       441000, 330750).transpose(0, 1)
+    demix_ms = {}
+    for label, cpu_net in (("24/4/1 demix_synthetic.npz",
+                            load_demixer(wdir / "demix_synthetic.npz")),
+                           ("48/5/2 seeded", seeded_demixer(0))):
+        card_net = copy.deepcopy(cpu_net).to(dev)
+        with torch.inference_mode():
+            d_c = card_net(x80[3:4]).cpu()
+            d_p = cpu_net(x80[3:4].cpu())
+            d_err = float((d_c - d_p).abs().max() / d_p.abs().max())
+            ens = EnsembleDemixer([card_net], device=dev)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            demix_ms[label] = cuda_time_ms(lambda: ens._forward(x80), 3)
+            d_peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+        log(f"[3] demixer {label} on one 10 s chunk, card vs CPU: max rel err "
+            f"{d_err:.3e} (bar {DEMIX_TOL_REL:.0e}); {x80.shape[0]} chunks of "
+            f"[2, 441000] (600 s): {demix_ms[label]:.2f} ms on the card, "
+            f"{d_peak:.2f} GB above the resident set")
+        if not d_err <= DEMIX_TOL_REL:
+            raise AssertionError(f"the demixer {label} on the card disagrees "
+                                 "with the CPU")
+    log(f"[3] host resampling of the 600 s file: 16 -> 44.1 kHz {up_s:.3f} s, "
+        f"44.1 -> 16 kHz {down_s:.3f} s")
+    del x80, up600
 
     # ---------------------------------------------------------- phase 4 ----
     def bench_cfg(overlap: bool, **kw):
@@ -560,23 +693,30 @@ def main() -> int:
         raise AssertionError("the overlap rescue did not arm, added nothing "
                              "or made DER worse")
 
-    # --------------------------------------------------------- phase 4c ----
-    pipe = DiarizationPipeline(bench_cfg(True), encoder=enc, vad=vad)
-    inner, spans = pipe.enhance_fn, []
+    # ------------------------------------------------- phases 4c and 4d ----
+    def timed_pipe(backend: str):
+        """The config's defaults with the enhancement ``backend``, its
+        enhancer wrapped in CUDA events (one span a call)."""
+        pipe = DiarizationPipeline(
+            bench_cfg(True, enhance=EnhanceConfig(backend=backend)),
+            encoder=enc, vad=vad)
+        inner, spans = pipe.enhance_fn, []
 
-    def timed_enhance(y):
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        out = inner(y)
-        e1.record()
-        spans.append((e0, e1))
-        return out
+        def timed_enhance(y):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = inner(y)
+            e1.record()
+            spans.append((e0, e1))
+            return out
 
-    pipe.enhance_fn = timed_enhance
-    noisy = {}
-    for key in JAX_CPU_DER_PCT_NOISY:
-        noise, snr, dur = key
+        pipe.enhance_fn = timed_enhance
+        return pipe, spans
+
+    def noisy_route(phase, pipe, spans, backend, noise, snr, dur, bar, n_timed=3):
+        """One held-out draw through the whole-file path: warm and timed
+        walls, the enhancer's span, peak memory, DER, launch counts."""
         wave, truth = make_conversation_heldout(
             np.random.default_rng(0), float(dur), n_speakers=3, sr=SR,
             snr_db=snr, noise_kind=noise)
@@ -588,44 +728,70 @@ def main() -> int:
         warm = time.perf_counter() - t0
         n_launch, n_forms = dict(kernels.LAUNCHES), dict(kernels.LAUNCH_FORMS)
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        walls, g_ms = [], []
-        for _ in range(3):
+        walls, e_ms = [], []
+        for _ in range(n_timed):
             spans.clear()
             t0 = time.perf_counter()
             pipe((wave, SR))
             walls.append(time.perf_counter() - t0)
             torch.cuda.synchronize()
-            g_ms.append(sum(a.elapsed_time(b) for a, b in spans))
+            e_ms.append(sum(a.elapsed_time(b) for a, b in spans))
         d = res.diagnostics
         der = der_pct(truth, res.segments)
-        bar = JAX_CPU_DER_PCT_NOISY[key] + DER_SLACK_PCT
         t = len(wave)
         n_v = 1 if t <= 240000 else -(-(t - 240000) // 224000) + 1
         n_w = num_frames(t, 32000, 1600)
         n_g = -(-n_w // min(600, 1 << max(6, (n_w - 1).bit_length())))
         want = {"asp_grid_stats": n_g, "fused_log_mel": -(-n_v // 64) + n_g}
         want_forms = {"fused_log_mel[B, T]": -(-n_v // 64), "fused_log_mel[T]": n_g}
-        noisy[key] = {"launches": n_launch, "forms": n_forms}
-        log(f"[4c] {noise}{snr:g}, {dur} s: route {d.get('route')}, enhancer "
-            f"{d.get('enhancer')}, est SNR {d.get('snr_db', float('nan')):.2f} dB, "
-            f"floor HF {d.get('floor_hf_frac', float('nan')):.3f}; warm "
-            f"{warm:.3f} s, timed {min(walls):.4f} s (walls "
-            f"{[round(w, 4) for w in walls]}) -> RTF {dur / min(walls):.1f}x; "
-            f"GTCRN {min(g_ms):.2f} ms on the card ({[round(g, 2) for g in g_ms]}); "
-            f"peak device memory {peak_gb:.2f} GB; {len(res.segments)} "
-            f"segments, {res.num_speakers} speakers, DER {der:.4f} % (bar "
-            f"{bar:.4f} %); launches {n_launch} {n_forms}")
-        if d.get("route") != "legacy" or d.get("enhancer") != "gtcrn":
-            raise AssertionError("the noisy file did not take the GTCRN route")
+        log(f"[{phase}] {backend}, {noise}{snr:g}, {dur} s: route {d.get('route')}, "
+            f"enhancer {d.get('enhancer')}, est SNR "
+            f"{d.get('snr_db', float('nan')):.2f} dB, floor HF "
+            f"{d.get('floor_hf_frac', float('nan')):.3f}; warm {warm:.3f} s, "
+            f"timed {min(walls):.4f} s (walls {[round(w, 4) for w in walls]}) "
+            f"-> RTF {dur / min(walls):.1f}x; enhancer {min(e_ms):.2f} ms on "
+            f"the card's clock ({[round(g, 2) for g in e_ms]}); peak device "
+            f"memory {peak_gb:.2f} GB; {len(res.segments)} segments, "
+            f"{res.num_speakers} speakers, DER {der:.4f} % (bar "
+            f"{'none' if bar is None else f'{bar:.4f} %'}); launches {n_launch} "
+            f"{n_forms}")
+        if d.get("route") != "legacy" or d.get("enhancer") != backend:
+            raise AssertionError(f"the noisy file did not take the {backend} route")
         probs = d["vad_probs"]
+        grid = d.get("window_embeddings")
         if probs.shape != (dur * 100 + 1,) or not (
-                np.isfinite(probs).all() and np.isfinite(d["window_embeddings"]).all()):
+                np.isfinite(probs).all()
+                and (grid is None or np.isfinite(grid).all())):
             raise AssertionError(f"bad VAD probabilities or grid {probs.shape}")
+        if grid is None and len(res.segments):
+            raise AssertionError("segments without a grid")
         if n_launch != want or n_forms != want_forms:
             raise AssertionError(f"launch counts {n_launch} {n_forms}, expected "
                                  f"{want} {want_forms}")
-        if not der <= bar:
+        if bar is not None and not der <= bar:
             raise AssertionError(f"DER {der:.4f} % above the bar {bar:.4f} %")
+        return {"launches": n_launch, "forms": n_forms, "ms": min(e_ms),
+                "peak_gb": peak_gb, "der": der, "wall": min(walls)}
+
+    pipe, spans = timed_pipe("gtcrn")
+    noisy = {key: noisy_route("4c", pipe, spans, "gtcrn", *key,
+                              JAX_CPU_DER_PCT_NOISY[key] + DER_SLACK_PCT)
+             for key in JAX_CPU_DER_PCT_NOISY}
+    enhanced = {}
+    for backend in ("zipenhancer", "demix-dialog"):
+        pipe, spans = timed_pipe(backend)
+        for key, jax_der in JAX_CPU_DER_PCT_ENHANCED.items():
+            if key[0] == backend:
+                enhanced[key] = noisy_route(
+                    "4d", pipe, spans, *key,
+                    None if jax_der is None else jax_der + DER_SLACK_PCT,
+                    n_timed=2 if key[3] == 600 else 3)
+    z600 = enhanced["zipenhancer", "white", 10.0, 600]
+    z_flops = sum(zipenhancer_flops(num_frames(600 * SR, 32000, 24000)).values())
+    log(f"[4d] ZipEnhancer on the 600 s white10 file: {z600['ms']:.2f} ms, "
+        f"{z_flops:.3e} FLOPs -> {z_flops / z600['ms'] / 1e9:.2f} TFLOP/s; DER "
+        f"{z600['der']:.4f} % beside the GTCRN route's "
+        f"{noisy['white', 10.0, 600]['der']:.4f} % (no JAX bar at 600 s)")
 
     # ---------------------------------------------------------- phase 5 ----
     enc32 = load_speaker_encoder(wdir / "ecapa_robust_stream.npz")
@@ -717,14 +883,19 @@ def main() -> int:
         # this slice's path: the bench configuration at the shipped default
         r["launches"] = launches[True, 600][r["name"]]
         r["launches_overlap_off"] = launches[False, 600][r["name"]]
-        # the noisy-input route on the 600 s file in white noise
+        # the noisy-input route on the 600 s file in white noise, through
+        # GTCRN, ZipEnhancer and the demixer
         r["launches_noisy"] = noisy["white", 10.0, 600]["launches"][r["name"]]
+        for backend in ("zipenhancer", "demix-dialog"):
+            r[f"launches_{backend.split('-')[0]}"] = (
+                enhanced[backend, "white", 10.0, 600]["launches"][r["name"]])
     rows[0]["batch"]["launches"] = forms[True, 600]["fused_log_mel[B, T]"]
     rows[0]["batch_vad"]["launches"] = (
         noisy["white", 10.0, 600]["forms"]["fused_log_mel[B, T]"])
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "launches_overlap_off", "launches_noisy", "batch", "batch_vad")
+            "launches_overlap_off", "launches_noisy", "launches_zipenhancer",
+            "launches_demix", "batch", "batch_vad")
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
                                   for r in rows]}))
     print(smi)

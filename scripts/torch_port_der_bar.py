@@ -19,8 +19,18 @@ forward (``batch_chunks=1``) instead of padding each batch to four rows
 with zero rows: the rows are independent, and it keeps the CPU's memory
 small.  One JSON line.
 
+``--noisy --enhance zipenhancer`` / ``demix-dialog``: the same with that
+enhancement backend (shipped ``zipenhancer_mc.npz``, or the demix ensemble's
+default, ``demix_synthetic.npz``) on the draws (white, 10, 60 s) and
+(babble, 15, 60 s) for ZipEnhancer, (babble, 15, 60 s) and (white, 10,
+600 s) for the demixer.  ZipEnhancer runs 8 windows a batch
+(``EnhanceConfig(batch_size=8)``; the rows are independent): the JAX model
+costs about 2.4 s a window on the CPU, so its 600 s run (400 windows) is
+left out.
+
     JAX_PLATFORMS=cpu python scripts/torch_port_der_bar.py [--overlap off|on|both]
     JAX_PLATFORMS=cpu python scripts/torch_port_der_bar.py --noisy [--seconds 60]
+    JAX_PLATFORMS=cpu python scripts/torch_port_der_bar.py --noisy --enhance zipenhancer
 """
 from __future__ import annotations
 
@@ -44,6 +54,9 @@ def main() -> None:
                     help="the noisy draws instead of the bench draws")
     ap.add_argument("--seconds", type=float, default=None,
                     help="with --noisy: only the draws of this length")
+    ap.add_argument("--enhance", default="gtcrn",
+                    choices=["gtcrn", "zipenhancer", "demix-dialog"],
+                    help="with --noisy: the enhancement backend")
     args = ap.parse_args()
 
     import jax
@@ -64,21 +77,30 @@ def main() -> None:
                                       dtype=jnp.bfloat16)
     vad, vad_p = load_vad(w / "vad_conv_mc.npz")
     if args.noisy:
+        from speech_diarization_tpu.config import EnhanceConfig
         from speech_diarization_tpu.pipelines.enhance import make_enhance_fn
         from speech_diarization_tpu.train.heldout import make_conversation_heldout
 
         cfg = DiarizationConfig(
             cluster=ClusterConfig(method="spectral", max_speakers=8),
-            embed=EmbedConfig(grid_backend="auto"))
+            embed=EmbedConfig(grid_backend="auto"),
+            enhance=EnhanceConfig(backend=args.enhance, batch_size=8))
+        enhance_fn = None     # the pipeline's own, from the config
+        if args.enhance == "gtcrn":
+            enhance_fn = make_enhance_fn("gtcrn", chunk_s=cfg.enhance.chunk_s,
+                                         overlap_s=cfg.enhance.overlap_s,
+                                         batch_chunks=1)
         pipe = DiarizationPipeline(
             cfg, encoder=(enc, enc_p),
             vad_probs_fn=jax.jit(partial(vad.probs, vad_p)),
-            enhance_fn=make_enhance_fn("gtcrn", chunk_s=cfg.enhance.chunk_s,
-                                       overlap_s=cfg.enhance.overlap_s,
-                                       batch_chunks=1))
-        out = {"device": jax.devices()[0].platform, "noisy": True}
-        for kind, snr, dur in (("white", 10.0, 60.0), ("white", 10.0, 600.0),
-                               ("babble", 15.0, 60.0)):
+            enhance_fn=enhance_fn)
+        out = {"device": jax.devices()[0].platform, "noisy": True,
+               "enhance": args.enhance}
+        draws = {"gtcrn": (("white", 10.0, 60.0), ("white", 10.0, 600.0),
+                           ("babble", 15.0, 60.0)),
+                 "zipenhancer": (("white", 10.0, 60.0), ("babble", 15.0, 60.0)),
+                 "demix-dialog": (("babble", 15.0, 60.0), ("white", 10.0, 600.0))}
+        for kind, snr, dur in draws[args.enhance]:
             if args.seconds is not None and dur != args.seconds:
                 continue
             wave, truth = make_conversation_heldout(

@@ -17,14 +17,18 @@ time and calls) and by host phase.
 
 ``--noisy`` profiles the noisy-input route instead, at the config's defaults
 on ``make_conversation_heldout(rng(0), seconds, n_speakers=3, snr_db=10,
-noise_kind='white')``: the whole-file path through GTCRN.  Host wall by
-stage, device time by kernel and busy share as above, then GTCRN alone on
-the file's padded waveform by module (CUDA events around each encoder
-block, DPGRNN and decoder block, and around each of its GRUs apart), and
-the STFT / iSTFT around the net.
+noise_kind='white')``: the whole-file path through the enhancer of
+``--enhance`` (default GTCRN).  Host wall by stage, device time by kernel
+and busy share as above, then the enhancer alone on the file's padded
+waveform: GTCRN by module (CUDA events around each encoder block, DPGRNN
+and decoder block, and around each of its GRUs apart) and the STFT / iSTFT
+around the net; ZipEnhancer split into its linears, the attention proper
+(the attention modules less their linears and norms) and the rest, with
+peak device memory, by batch of 64 windows; the demixer as host
+resampling each way and the separator's host wall and device time.
 
     python3 scripts/torch_profile_diarize.py [--seconds 600] [--overlap off|on|both]
-    python3 scripts/torch_profile_diarize.py --noisy [--seconds 600]
+    python3 scripts/torch_profile_diarize.py --noisy [--seconds 600] [--enhance gtcrn|zipenhancer|demix-dialog]
 
 Prints a table and one JSON line.  Needs a CUDA card.
 """
@@ -231,15 +235,113 @@ def gtcrn_by_module(enhancer, y) -> dict:
     return out
 
 
-def profile_noisy(seconds: float, smi: str) -> dict:
+def _event_spans(modules: dict, run) -> tuple[dict, float]:
+    """CUDA events around every call of each named module while ``run()``
+    runs (after one warm-up run): (ms by name, total ms)."""
+    import torch
+
+    spans: dict[str, list] = {}
+    hooks = []
+    for name, mod in modules.items():
+        def pre(_m, _a, name=name):
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            spans.setdefault(name, []).append([e, None])
+
+        def post(_m, _a, _o, name=name):
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            spans[name][-1][1] = e
+
+        hooks += [mod.register_forward_pre_hook(pre), mod.register_forward_hook(post)]
+    run()
+    torch.cuda.synchronize()
+    spans.clear()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    run()
+    e1.record()
+    torch.cuda.synchronize()
+    for h in hooks:
+        h.remove()
+    return ({k: sum(a.elapsed_time(b) for a, b in v) for k, v in spans.items()},
+            e0.elapsed_time(e1))
+
+
+def zipenhancer_by_part(y) -> dict:
+    """ZipEnhancer (shipped weights) through ``windowed_enhance`` on ``y``:
+    linears, attention proper, the rest; time and peak memory of one batch
+    of 64 windows."""
+    import torch
+
+    from speech_diarization_tpu_torch.models.port import load_zipenhancer
+    from speech_diarization_tpu_torch.models.zipenhancer import _Attention
+    from speech_diarization_tpu_torch.pipelines.enhance import windowed_enhance
+
+    net = load_zipenhancer(ROOT / "weights" / "zipenhancer_mc.npz").cuda()
+    mods = {n: m for n, m in net.named_modules()
+            if isinstance(m, (_Attention, torch.nn.Linear, torch.nn.LayerNorm))}
+    with torch.inference_mode():
+        ms, total = _event_spans(mods, lambda: windowed_enhance(net, y))
+        linears = sum(v for k, v in ms.items() if isinstance(mods[k], torch.nn.Linear))
+        att_mods = [k for k in ms if isinstance(mods[k], _Attention)]
+        attention = sum(ms[k] - sum(v for j, v in ms.items() if j.startswith(k + "."))
+                        for k in att_mods)
+        x64 = y[:63 * 24000 + 32000].unfold(0, 32000, 24000)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        _, batch_ms = _event_spans({}, lambda: net(x64))
+        peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    return {"enhancer_ms": total, "linears_ms": linears, "attention_ms": attention,
+            "rest_ms": total - linears - attention, "batch64_ms": batch_ms,
+            "batch64_peak_gb_above_resident": peak}
+
+
+def demix_by_part(y) -> dict:
+    """The demix-dialog enhancer's legs on ``y`` (the pipeline's default
+    demixer): host resampling each way, and the separator's host wall and
+    its span on the card's clock (events around it: the upload, the
+    separator and the dialog stem's copy back)."""
+    import numpy as np
+    import torch
+
+    from speech_diarization_tpu_torch.dsp.resample import resample_host
+    from speech_diarization_tpu_torch.pipelines.demix import EnsembleDemixer
+
+    dmx = EnsembleDemixer()
+    yn = y.cpu().numpy()
+    dmx.separate(np.zeros((2, 44100 * 25), np.float32), 44100)     # warm-up
+    t0 = time.perf_counter()
+    up = resample_host(yn, SR, 44100)
+    up_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    e0.record()
+    dialog = dmx.separate_on_device(np.stack([up, up]), 44100)[2].mean(dim=0).cpu()
+    e1.record()
+    torch.cuda.synchronize()
+    sep_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    resample_host(dialog.numpy(), 44100, SR)
+    down_s = time.perf_counter() - t0
+    return {"resample_up_s": up_s, "separate_wall_s": sep_s,
+            "separate_span_ms": e0.elapsed_time(e1), "resample_down_s": down_s,
+            "samples_44k": int(up.shape[-1])}
+
+
+def profile_noisy(seconds: float, smi: str, backend: str = "gtcrn") -> dict:
     """Host stages, device time by kernel and busy share of the noisy-input
-    route, then GTCRN by module."""
+    route through ``backend``, then the enhancer by part."""
     import torch
     import torch.nn.functional as F
     from torch.profiler import ProfilerActivity, profile
 
     from speech_diarization_tpu_torch.config import (
-        ClusterConfig, DiarizationConfig, EmbedConfig,
+        ClusterConfig, DiarizationConfig, EmbedConfig, EnhanceConfig,
     )
     from speech_diarization_tpu_torch.models.port import load_speaker_encoder, load_vad
     from speech_diarization_tpu_torch.pipelines.diarize import DiarizationPipeline
@@ -247,7 +349,8 @@ def profile_noisy(seconds: float, smi: str) -> dict:
     from speech_diarization_tpu_torch.utils.logging import get_logger
 
     cfg = DiarizationConfig(cluster=ClusterConfig(method="spectral", max_speakers=8),
-                            embed=EmbedConfig(grid_backend="auto"))
+                            embed=EmbedConfig(grid_backend="auto"),
+                            enhance=EnhanceConfig(backend=backend))
     w = ROOT / "weights"
     pipe = DiarizationPipeline(
         cfg, encoder=load_speaker_encoder(w / "ecapa_robust_stream.npz",
@@ -287,7 +390,7 @@ def profile_noisy(seconds: float, smi: str) -> dict:
     kern = _device_kernels(prof)
     busy_us = sum(v for _, v, _ in kern)
     print(f"card: {smi}; {seconds:.0f} s file, white noise at 10 dB, config "
-          f"defaults (whole-file path, GTCRN)")
+          f"defaults with --enhance {backend} (whole-file path)")
     print("best of 3 host stages: " + ", ".join(
         f"{k} {v:.4f}" for k, v in best.items()))
     print(f"profiled wall {wall:.4f} s; device busy {busy_us / 1e6:.4f} s "
@@ -300,10 +403,23 @@ def profile_noisy(seconds: float, smi: str) -> dict:
         if (name, v, n) not in kern[:24]:
             print(f"{v / 1e3:17.3f} {n:6d}  {name[:90]}")
 
-    # GTCRN alone, on the padded waveform the whole-file path hands it
+    out = {"card": smi, "seconds": seconds, "noisy": True, "enhance": backend,
+           "host_stages_best": best, "profiled_wall_s": wall,
+           "device_busy_s": busy_us / 1e6, "device_busy_share": busy_us / 1e6 / wall,
+           "top_kernels_ms": {name[:80]: v / 1e3 for name, v, _ in kern[:16]},
+           "port_kernels_ms": {name[:80]: (v / 1e3, n) for name, v, n in own}}
+    # the enhancer alone, on the padded waveform the whole-file path hands it
     bucket = 60 * SR
     t_pad = max(bucket, -(-len(wave) // bucket) * bucket)
     y = F.pad(torch.from_numpy(wave.astype(np.float32)), (0, t_pad - len(wave))).cuda()
+    if backend != "gtcrn":
+        part = (zipenhancer_by_part(y) if backend == "zipenhancer"
+                else demix_by_part(y))
+        print(f"{backend} on {t_pad / SR:.0f} s: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in part.items()))
+        out[backend] = part
+        print(json.dumps(out))
+        return out
     g = gtcrn_by_module(pipe.enhance_fn, y)
     print(f"GTCRN on {t_pad / SR:.0f} s: {g['enhancer_ms']:.2f} ms (net "
           f"{g['net_ms']:.2f}, STFT + iSTFT + OLA {g['stft_istft_ms']:.2f}); "
@@ -313,12 +429,7 @@ def profile_noisy(seconds: float, smi: str) -> dict:
         inner = {k: round(x, 3) for k, x in g["grus_ms"].items()
                  if k.startswith(name + ".")}
         print(f"  {name:22s} {v:9.3f} ms   GRUs {inner}")
-    out = {"card": smi, "seconds": seconds, "noisy": True,
-           "host_stages_best": best, "profiled_wall_s": wall,
-           "device_busy_s": busy_us / 1e6, "device_busy_share": busy_us / 1e6 / wall,
-           "top_kernels_ms": {name[:80]: v / 1e3 for name, v, _ in kern[:16]},
-           "port_kernels_ms": {name[:80]: (v / 1e3, n) for name, v, n in own},
-           "gtcrn": g}
+    out["gtcrn"] = g
     print(json.dumps(out))
     return out
 
@@ -328,7 +439,10 @@ def main() -> int:
     ap.add_argument("--seconds", type=float, default=600.0)
     ap.add_argument("--overlap", default="both", choices=["off", "on", "both"])
     ap.add_argument("--noisy", action="store_true",
-                    help="profile the noisy-input route (GTCRN) instead")
+                    help="profile the noisy-input route instead")
+    ap.add_argument("--enhance", default="gtcrn",
+                    choices=["gtcrn", "zipenhancer", "demix-dialog"],
+                    help="with --noisy: the enhancement backend")
     args = ap.parse_args()
 
     import torch
@@ -340,7 +454,7 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     if args.noisy:
-        profile_noisy(args.seconds, smi)
+        profile_noisy(args.seconds, smi, args.enhance)
         return 0
     runs = {ov: profile_config(args.seconds, ov, smi)
             for ov in ((False, True) if args.overlap == "both"

@@ -1,15 +1,20 @@
-"""Command-line entry point of the PyTorch port: ``sdtpu-torch diarize``.
+"""Command-line entry point of the PyTorch port: ``sdtpu-torch``.
 
     python -m speech_diarization_tpu_torch.cli diarize x.wav [--cpu]
+    python -m speech_diarization_tpu_torch.cli enhance <root> [--backend gtcrn|zipenhancer]
+    python -m speech_diarization_tpu_torch.cli demix <root> [--output out]
 
-Runs on the card unless ``--cpu`` is given, at the defaults of the JAX
-package's CLI: overlap rescue on (the segmentation model runs inside the
-per-chunk device program), frame reassignment on, spectral clustering,
-and the GTCRN denoiser engaged on files whose estimated SNR is under 25 dB
-(they take the whole-file path).  ``--no-overlap``, ``--no-reseg``,
-``--hmm``, ``--enhance``, ``--enhance-scope`` and ``--enhance-weights`` are
-options; the ZipEnhancer and demix backends are not ported and raise.
-Writes RTTM, JSON, SRT and CSV.
+Runs on the card unless ``--cpu`` is given.  ``diarize`` runs at the
+defaults of the JAX package's CLI: overlap rescue on (the segmentation
+model runs inside the per-chunk device program), frame reassignment on,
+spectral clustering, and the GTCRN denoiser engaged on files whose
+estimated SNR is under 25 dB (they take the whole-file path).
+``--no-overlap``, ``--no-reseg``, ``--hmm``, ``--enhance`` (gtcrn,
+zipenhancer, demix-dialog or off), ``--enhance-scope`` and
+``--enhance-weights`` are options.  Writes RTTM, JSON, SRT and CSV.
+``enhance`` writes a ``<root>-enhanced`` tree of denoised 16 kHz WAVs
+(files already there are skipped); ``demix`` writes
+``<output>/{music,effect,dialog}/`` stereo 44.1 kHz stems.
 """
 from __future__ import annotations
 
@@ -45,8 +50,8 @@ def _add_common_config_args(p: argparse.ArgumentParser) -> None:
                    choices=["gtcrn", "zipenhancer", "demix-dialog", "off"],
                    help="denoise front-end before diarization; default is "
                         "gtcrn with scope 'auto' (engages only on noisy "
-                        "files); 'off' disables the stage; zipenhancer and "
-                        "demix-dialog are not ported and raise")
+                        "files); 'demix-dialog' runs the dialog-stem "
+                        "separation front-end; 'off' disables the stage")
     p.add_argument("--enhance-scope", default="auto",
                    choices=["full", "vad", "auto"],
                    help="'vad' denoises only the VAD input (keeps speaker "
@@ -160,6 +165,31 @@ def cmd_diarize(args) -> int:
     return 0
 
 
+def cmd_enhance(args) -> int:
+    from .pipelines.enhance import enhance_batch
+
+    if args.backend == "zipenhancer-ref" or (
+            args.weights and not str(args.weights).endswith(".npz")):
+        raise NotImplementedError(
+            "the published ZipEnhancer graph (zipenhancer-ref) and torch "
+            "checkpoints (.tar, ModelScope) are not ported yet (ROADMAP "
+            "Queue 1: models/zipenhancer_ref.py + models/port_zipenhancer.py, "
+            "the next slice); use .npz weights with gtcrn or zipenhancer")
+    written = enhance_batch(args.root, backend=args.backend, weights=args.weights,
+                            device="cpu" if args.cpu else None)
+    print(f"enhanced {len(written)} files")
+    return 0
+
+
+def cmd_demix(args) -> int:
+    from .pipelines.demix import EnsembleDemixer, separate_dialog
+
+    written = separate_dialog(args.root, args.output, EnsembleDemixer(
+        device="cpu" if args.cpu else None))
+    print(f"wrote {len(written)} stems")
+    return 0
+
+
 def main(argv: list[str] | None = None) -> int:
     parser = argparse.ArgumentParser(
         prog="sdtpu-torch", description="speaker diarization (PyTorch/CUDA)")
@@ -171,6 +201,27 @@ def main(argv: list[str] | None = None) -> int:
                    choices=["rttm", "json", "srt", "csv", "all"])
     _add_common_config_args(p)
     p.set_defaults(fn=cmd_diarize)
+
+    p = sub.add_parser("enhance", help="batch speech enhancement")
+    p.add_argument("root")
+    p.add_argument("--backend", default="gtcrn",
+                   choices=["gtcrn", "zipenhancer", "zipenhancer-ref"],
+                   help="zipenhancer-ref (the published graph) is not ported "
+                        "and raises")
+    p.add_argument("--weights", default=None, help=".npz checkpoint override")
+    p.add_argument("--cpu", action="store_true",
+                   help="run on the CPU instead of the card")
+    p.add_argument("--verbose", "-v", action="store_true")
+    p.set_defaults(fn=cmd_enhance)
+
+    p = sub.add_parser("demix", help="dialog/effect/music separation")
+    p.add_argument("root")
+    p.add_argument("--output", default=None)
+    p.add_argument("--cpu", action="store_true",
+                   help="run on the CPU instead of the card")
+    p.add_argument("--verbose", "-v", action="store_true")
+    p.set_defaults(fn=cmd_demix)
+
     args = parser.parse_args(argv)
     if args.verbose:
         import os

@@ -6,22 +6,11 @@ this package yet (convert to WAV first).
 from __future__ import annotations
 
 import wave
-from math import gcd
 from pathlib import Path
 
 import numpy as np
 
-
-def resample_host(y: np.ndarray, orig_sr: int, target_sr: int) -> np.ndarray:
-    """Host polyphase resampling (scipy ``resample_poly``), float32 out."""
-    if orig_sr == target_sr:
-        return np.asarray(y, dtype=np.float32)
-    from scipy import signal as sps
-
-    g = gcd(orig_sr, target_sr)
-    up, down = target_sr // g, orig_sr // g
-    out = sps.resample_poly(np.asarray(y, dtype=np.float64), up, down, axis=-1)
-    return out.astype(np.float32)
+from ..dsp.resample import resample_host
 
 
 def read_wav(path: str | Path) -> tuple[np.ndarray, int]:

@@ -16,10 +16,12 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from .demix import DialogDemixer
 from .ecapa import EcapaModel, EcapaTdnn
 from .gtcrn import GTCRN
 from .segmentation import SegmentationModel, SegNet
 from .vad import VadConvNet, VadModel
+from .zipenhancer import ZipEnhancerModel
 
 _DTYPES = {None: torch.float32, "float32": torch.float32,
            "bfloat16": torch.bfloat16, torch.float32: torch.float32,
@@ -118,13 +120,30 @@ def load_segmentation(path: str | Path) -> SegmentationModel:
                              kind="segmentation")
 
 
-def load_gtcrn(source: str | Path | dict) -> GTCRN:
-    """GTCRN from a checkpoint path or a flat dict of arrays (a JAX params
-    dict converted to numpy loads as it is): the keys are the net's
-    ``state_dict`` keys, float16 is upcast to float32, and every key must
+def _load_flat(net: torch.nn.Module, source: str | Path | dict) -> torch.nn.Module:
+    """Load a checkpoint path or a flat dict of arrays (a JAX params dict
+    converted to numpy loads as it is) whose keys are ``net``'s
+    ``state_dict`` keys: float16 is upcast to float32, and every key must
     be present and used."""
     flat = load_params_npz(source) if isinstance(source, (str, Path)) else source
-    net = GTCRN()
     net.load_state_dict({k: torch.from_numpy(np.array(v, np.float32))
                          for k, v in flat.items()}, strict=True)
     return net.eval()
+
+
+def load_gtcrn(source: str | Path | dict) -> GTCRN:
+    """GTCRN (the DNS3 architecture) from a checkpoint or a flat dict."""
+    return _load_flat(GTCRN(), source)
+
+
+def load_zipenhancer(source: str | Path | dict) -> ZipEnhancerModel:
+    """ZipEnhancer at its default geometry (n_fft 400, hop 100, 64
+    channels, 4 blocks, 4 heads) from a checkpoint or a flat dict."""
+    return _load_flat(ZipEnhancerModel(), source)
+
+
+def load_demixer(path: str | Path) -> DialogDemixer:
+    """Demixer checkpoint -> :class:`DialogDemixer`; the geometry travels
+    in the ``__meta__`` sidecar's ``net`` entry (the constructor's defaults
+    when absent)."""
+    return _load_flat(DialogDemixer(**load_params_meta(path).get("net", {})), path)

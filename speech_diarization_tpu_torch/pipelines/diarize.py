@@ -1,5 +1,5 @@
 """The flagship diarizer in PyTorch: the streamed ingest, and the
-whole-file path that noisy input takes through the GTCRN denoiser.
+whole-file path that noisy input takes through an enhancement front-end.
 
 Streamed: read -> quantize to int16 -> 60 s chunks with neighbour context
 -> ONE per-chunk device program (dequantize; the overlap detector's hard
@@ -13,18 +13,20 @@ rescue).
 Whole-file ("legacy") path, taken when the enhancement front-end engages
 (scope ``auto`` and a probe SNR under ``auto_snr_db``, or a forced scope)
 or the chunk geometry cannot stream: quantize the whole file -> SNR and
-noise-floor probe -> GTCRN on the dequantized file (the VAD's input only
-under scopes ``auto`` and ``vad``, everything under ``full``) ->
-whole-file loudness, DC, pre-emphasis -> VAD over 15 s chunks (one batched
-log-mel launch a group) and frame energy -> the streaming ECAPA grid in
-chunks of up to 600 windows -> one device-to-host copy -> the same host
-tail.
+noise-floor probe -> the enhancer (GTCRN, ZipEnhancer or the demix-dialog
+separator) on the dequantized file (the VAD's input only under scopes
+``auto`` and ``vad``, everything under ``full``; on the auto-route a
+speech-shaped floor swaps the whole file for its dialog stem when a
+separation-grade demixer is present) -> whole-file loudness, DC,
+pre-emphasis -> VAD over 15 s chunks (one batched log-mel launch a group)
+and frame energy -> the streaming ECAPA grid in chunks of up to 600
+windows -> one device-to-host copy -> the same host tail.
 
 The counterpart of the JAX package's ``pipelines/diarize.py`` (``__call__``
 -> ``_streamed_start`` / ``_legacy_call`` -> ``_segments_from_grid``), at
 its defaults.  Not ported, and refused with ``NotImplementedError`` rather
-than dropped: the ZipEnhancer and demix front-ends, the windowed grid, and
-clustering methods other than spectral.
+than dropped: the published ZipEnhancer graph and HTDemucs checkpoints, the
+windowed grid, and clustering methods other than spectral.
 """
 from __future__ import annotations
 
@@ -89,9 +91,9 @@ class DiarizationPipeline:
         vad: a :class:`~..models.vad.VadModel`; default: the shipped conv VAD.
         device: ``None`` (the card; raises without CUDA) or ``"cpu"``.
 
-    ``enhance.enabled`` (the default) loads the GTCRN denoiser for the
-    whole-file path, or drops the stage with a warning when no trained
-    weights ship.
+    ``enhance.enabled`` (the default) loads the enhancer of
+    ``enhance.backend`` (GTCRN by default) for the whole-file path, or
+    drops the stage with a warning when no trained weights ship.
     """
 
     _PAD_BUCKET_S = 60.0   # chunk length of the streamed ingest
@@ -123,9 +125,15 @@ class DiarizationPipeline:
                             "stage disabled (pass EnhanceConfig.weights to "
                             "force)", e.backend)
             else:
+                if e.backend == "gtcrn":
+                    kwargs = {"chunk_s": e.chunk_s, "overlap_s": e.overlap_s}
+                elif e.backend == "demix-dialog":
+                    kwargs = {}
+                else:
+                    kwargs = {"window_s": e.window_s, "hop_ratio": e.hop_ratio,
+                              "batch_size": e.batch_size}
                 self.enhance_fn = make_enhance_fn(
-                    e.backend, weights=e.weights, device=self.device,
-                    chunk_s=e.chunk_s, overlap_s=e.overlap_s)
+                    e.backend, weights=e.weights, device=self.device, **kwargs)
         if encoder is None:
             from ..models.port import load_speaker_encoder
             from ..utils.weights import ENCODER_PREFERENCE, prefer_weights
@@ -151,7 +159,8 @@ class DiarizationPipeline:
         self._programs: dict = {}
         self._last_snr_db: float | None = None
         self._last_floor_hf_frac = 1.0
-        self._demix_warned = False
+        self._demix_fe = None
+        self._demix_checked = False
 
     # ------------------------------------------------------------------ io --
     @staticmethod
@@ -471,28 +480,46 @@ class DiarizationPipeline:
         hf = float(np.sum(ps[frame // 4:]) / (np.sum(ps) + 1e-30))
         return hf if np.isfinite(hf) and hf > 0.0 else 1.0
 
-    def _demix_frontend(self) -> None:
+    def _demix_frontend(self):
         """The auto-route's separation front-end for a speech-shaped noise
-        floor.  It needs a separation-grade demixer (ported ``.th``
-        checkpoints or ``demix_mc.npz``; the shipped ``demix_synthetic.npz``
-        does not separate and is excluded): with one present this raises,
-        since demixing is not ported; with none the route keeps the
-        denoiser, as the JAX package does, with a warning (once per
-        pipeline)."""
-        import os
+        floor, built once per pipeline: ``[T]`` tensor -> the dialog stem
+        rescaled to the input's RMS (over the whole padded vector).  It
+        needs a separation-grade demixer: ported ``.th`` checkpoints (not
+        ported yet: building raises) or ``demix_mc.npz``; the shipped
+        ``demix_synthetic.npz`` does not separate and is excluded.  With
+        none, None and a warning: the route keeps the denoiser, as in the
+        JAX package."""
+        if not self._demix_checked:
+            import os
 
-        from ..utils.weights import WEIGHTS_ROOT
+            from ..utils import weights
+            from .enhance import make_enhance_fn
 
-        env = os.environ.get("SDTPU_DEMUCS_CKPTS", "")
-        if ([p for p in env.split(":") if p] or sorted(WEIGHTS_ROOT.glob("*.th"))
-                or (WEIGHTS_ROOT / "demix_mc.npz").exists()):
-            raise NotImplementedError("the demix-dialog separation front-end "
-                                      + _UNPORTED)
-        if not self._demix_warned:
-            self._demix_warned = True
-            log.warning("enhance auto-route: no separation-grade demixer "
-                        "available (ported .th or demix_mc.npz): keeping the "
-                        "denoise backend for babble-like background")
+            env = os.environ.get("SDTPU_DEMUCS_CKPTS", "")
+            # as in the JAX package, a path in the variable counts even when
+            # no such file exists; the ensemble then drops it and falls back
+            # to the shipped npz (ROADMAP F9)
+            has_ported = bool([p for p in env.split(":") if p]
+                              or sorted(weights.WEIGHTS_ROOT.glob("*.th")))
+            mc = weights.WEIGHTS_ROOT / "demix_mc.npz"
+            if has_ported or mc.exists():
+                raw_fe = make_enhance_fn("demix-dialog",
+                                         weights=None if has_ported else str(mc),
+                                         device=self.device)
+
+                def fe(y: torch.Tensor) -> torch.Tensor:
+                    out = raw_fe(y)
+                    r_in = torch.sqrt(torch.mean(y * y) + 1e-12)
+                    r_out = torch.sqrt(torch.mean(out * out) + 1e-12)
+                    return out * (r_in / r_out)
+
+                self._demix_fe = fe
+            else:
+                log.warning("enhance auto-route: no separation-grade demixer "
+                            "available (ported .th or demix_mc.npz): keeping the "
+                            "denoise backend for babble-like background")
+            self._demix_checked = True
+        return self._demix_fe
 
     def _preprocess(self, y: torch.Tensor, t: int, sr: int) -> torch.Tensor:
         """Whole-file loudness normalization, DC (the padded sum over the
@@ -548,16 +575,25 @@ class DiarizationPipeline:
                          "denoise for VAD" if engage else "skip")
             if engage:
                 y = q_dev.float() * float(np.float32(scale / 32767.0))
+                fe = self.enhance_fn
                 if (ecfg.scope == "auto" and ecfg.auto_route_demix
                         and ecfg.backend != "demix-dialog"
                         and self._last_floor_hf_frac < ecfg.babble_floor_hf_frac):
+                    # a speech-shaped floor is competing speech, which a
+                    # denoiser keeps: the file itself becomes the dialog stem
                     info["demix_requested"] = True
-                    self._demix_frontend()
-                with stage_timer(log, "enhance"):
-                    y_enh = self.enhance_fn(y)
-                info["enhancer"] = ecfg.backend
-                if ecfg.scope == "full":
-                    y, y_enh = y_enh, None
+                    dfe = self._demix_frontend()
+                    if dfe is not None:
+                        with stage_timer(log, "demix"):
+                            y = dfe(y)
+                        fe = None
+                        info["enhancer"] = "demix-dialog"
+                if fe is not None:
+                    with stage_timer(log, "enhance"):
+                        y_enh = fe(y)
+                    info["enhancer"] = ecfg.backend
+                    if ecfg.scope == "full":
+                        y, y_enh = y_enh, None
         y = self._preprocess(y, t, sr)[:t]
         y_vad = y if y_enh is None else self._preprocess(y_enh, t, sr)[:t]
         return y, y_vad, info
@@ -609,7 +645,7 @@ class DiarizationPipeline:
                                              frame_energy_db=energy_h)
         if len(speech) == 0:
             empty = SegmentArray.from_pairs([])
-            return DiarizationResult(empty, empty, 0, info)
+            return DiarizationResult(empty, empty, 0, {**info, "vad_probs": probs_h})
         starts_s = window_starts(t, sr, cfg.reseg.win_s, cfg.reseg.hop_s) / sr
         res = self._segments_from_grid(speech, probs_h, grid_h, starts_s, t / sr,
                                        y=y, sr=sr)

@@ -1,30 +1,39 @@
-"""Speech enhancement before diarization: GTCRN, wav -> wav, on the
-net's device.
+"""Speech enhancement before diarization, wav -> wav at 16 kHz on the
+net's device: the JAX package's ``pipelines/enhance.py``.
 
-The JAX package's ``pipelines/enhance.py`` for the ``gtcrn`` backend:
-STFT (sqrt-Hann, 512 / 256, centred) -> GTCRN -> iSTFT, and for audio
-longer than ``chunk_s`` chunks of ``chunk_s`` at a stride of ``chunk_s -
-overlap_s`` merged by a Hann-windowed overlap-add.  The JAX package pads
-each batch of chunks to four rows with zero rows; the rows are independent
-in eval mode, so only the real chunks run here (up to four a forward).
+* ``gtcrn``: STFT (sqrt-Hann, 512 / 256, centred) -> GTCRN -> iSTFT; audio
+  longer than ``chunk_s`` runs in chunks of ``chunk_s`` at a stride of
+  ``chunk_s - overlap_s`` merged by a Hann-windowed overlap-add.
+* ``zipenhancer``: :func:`windowed_enhance` over ``ZipEnhancerModel``: 2 s
+  windows at a 75 % hop in batches, a sqrt-Hann overlap-add normalized by
+  the window sum, and a peak limit.
+* ``demix-dialog``: the separation front-end, 16 kHz mono -> 44.1 kHz
+  stereo on the host -> :class:`~.demix.EnsembleDemixer` on the device ->
+  the dialog stem -> 16 kHz on the host.
 
-The ZipEnhancer and demix backends are not ported (ROADMAP Queue 1) and
-raise.
+The JAX package pads each last batch of chunks or windows with zero rows to
+a fixed shape; the rows are independent in eval mode, so only the real ones
+run here.  The published ZipEnhancer graph (``zipenhancer-ref``) is not
+ported yet and raises.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ..dsp.framing import num_frames
 from ..dsp.ola import ola_normalization, overlap_add
-from ..dsp.stft import hann_window, istft_ri, stft_ri
+from ..dsp.stft import hann_window, istft_ri, sqrt_hann_window, stft_ri
 from ..models.gtcrn import GTCRN
+from ..utils.device import resolve_device
 from ..utils.logging import get_logger
 
 log = get_logger("enhance")
 
-_UNPORTED = "is not ported yet (ROADMAP Queue 1: the next enhancer slice)"
+_REF_UNPORTED = ("the published ZipEnhancer graph (zipenhancer-ref) is not "
+                 "ported yet (ROADMAP Queue 1: models/zipenhancer_ref.py + "
+                 "models/port_zipenhancer.py, the next slice)")
 
 
 class GtcrnEnhancer:
@@ -66,6 +75,55 @@ class GtcrnEnhancer:
             return (num / den)[:t]
 
 
+def windowed_enhance(model_fn, y: torch.Tensor, sample_rate: int = 16000,
+                     window_s: float = 2.0, hop_ratio: float = 0.75,
+                     batch_size: int = 64, peak_limit: float = 0.99) -> torch.Tensor:
+    """Windowed batch enhancement of a [T] waveform with sqrt-Hann OLA.
+
+    ``model_fn``: a ``[B, L] -> [B, L]`` denoiser on ``y``'s device.  The
+    windows (``window_s`` long, every ``window_s * hop_ratio``) are an
+    ``unfold`` view of the zero-padded wave, run ``batch_size`` at a time;
+    the overlap-add is normalized by the folded window sum, and an output
+    whose peak exceeds 1.0 is scaled by ``peak_limit / peak``."""
+    t = y.shape[-1]
+    l = int(window_s * sample_rate)
+    hop = int(round(l * hop_ratio))
+    n = num_frames(t, l, hop, pad_tail=True) if t > l else 1
+    patches = F.pad(y, (0, max(0, (n - 1) * hop + l - t))).unfold(0, l, hop)
+    enh = torch.cat([model_fn(patches[i:i + batch_size])
+                     for i in range(0, n, batch_size)])
+    w = sqrt_hann_window(l, periodic=False, device=y.device)
+    out = (overlap_add(enh * w, hop) / ola_normalization(n, hop, w))[:t]
+    peak = out.abs().max()
+    return torch.where(peak > 1.0, out * (peak_limit / peak), out)
+
+
+def enhance_batch(root, backend: str = "gtcrn", weights=None, device=None,
+                  **kwargs) -> list:
+    """Enhance every audio file under ``root`` into a sibling
+    ``<root>-enhanced`` tree of 16 kHz mono WAVs, skipping files whose
+    output exists (resume).  The enhancer is :func:`make_enhance_fn`'s."""
+    from pathlib import Path
+
+    from ..io.audio import read_audio, write_wav
+    from ..io.walk import expand_audios
+
+    audios, proot = expand_audios(root)
+    troot = proot.with_name(f"{proot.stem}-enhanced")
+    fn = make_enhance_fn(backend, weights=weights, device=device, **kwargs)
+    written = []
+    for apath in audios:
+        rel = apath.relative_to(proot) if apath.is_relative_to(proot) else Path(apath.name)
+        tpath = (troot / rel).with_suffix(".wav")
+        if tpath.exists():
+            continue
+        y, sr = read_audio(apath, target_sr=16000, mono=True)
+        write_wav(tpath, fn(torch.from_numpy(y)).cpu().numpy(), sr)
+        written.append(tpath)
+        log.info("enhanced %s -> %s", apath, tpath)
+    return written
+
+
 def default_weights_path(backend: str):
     """Shipped default checkpoint for ``backend`` (None when nothing
     ships): lets a caller that enables enhancement by default check that a
@@ -79,19 +137,55 @@ def default_weights_path(backend: str):
     }.get(backend, ()))
 
 
-def make_enhance_fn(backend: str, weights=None, device=None,
-                    chunk_s: float = 360.0, overlap_s: float = 1.0):
-    """The pipeline's enhancer: ``[T]`` tensor -> ``[T]`` tensor on
-    ``device``.  ``weights``: a checkpoint path overriding the shipped one.
-    ``gtcrn`` only; the other backends raise ``NotImplementedError``."""
-    if backend in ("zipenhancer", "zipenhancer-ref", "demix-dialog"):
-        raise NotImplementedError(f"enhancement backend {backend!r} " + _UNPORTED)
-    if backend != "gtcrn":
-        raise ValueError(f"unknown enhancement backend: {backend}")
-    from ..models.port import load_gtcrn
-
-    path = weights if weights is not None else default_weights_path("gtcrn")
+def _checkpoint(backend: str, weights):
+    path = weights if weights is not None else default_weights_path(backend)
     if path is None:
-        raise FileNotFoundError("gtcrn: no weights given and none ship")
-    log.info("gtcrn: loading weights %s", path)
-    return GtcrnEnhancer(load_gtcrn(path).to(device or "cpu"), chunk_s, overlap_s)
+        raise FileNotFoundError(f"{backend}: no weights given and none ship")
+    log.info("%s: loading weights %s", backend, path)
+    return path
+
+
+def make_enhance_fn(backend: str, weights=None, device=None, **kwargs):
+    """The pipeline's enhancer: ``[T]`` float32 tensor -> ``[T]`` tensor on
+    ``device`` (``None``: the card; raises without CUDA).  ``weights``: a
+    checkpoint path overriding the shipped one.  ``kwargs`` go to the
+    backend: ``chunk_s`` / ``overlap_s`` (gtcrn), ``window_s`` /
+    ``hop_ratio`` / ``batch_size`` (zipenhancer), and the
+    :class:`~.demix.EnsembleDemixer` options (demix-dialog)."""
+    if backend == "zipenhancer-ref":
+        raise NotImplementedError(_REF_UNPORTED)
+    if backend not in ("gtcrn", "zipenhancer", "demix-dialog"):
+        raise ValueError(f"unknown enhancement backend: {backend}")
+    dev = resolve_device(device)
+    from ..models.port import load_demixer, load_gtcrn, load_zipenhancer
+
+    if backend == "gtcrn":
+        return GtcrnEnhancer(load_gtcrn(_checkpoint(backend, weights)).to(dev),
+                             **kwargs)
+    if backend == "zipenhancer":
+        net = load_zipenhancer(_checkpoint(backend, weights)).to(dev)
+
+        def zip_fn(y: torch.Tensor) -> torch.Tensor:
+            with torch.inference_mode():
+                return windowed_enhance(net, y.to(dev, torch.float32), **kwargs)
+
+        return zip_fn
+    # demix-dialog: the default demixer is the ensemble's own choice
+    # (ported .th checkpoints, then demix_mc.npz, then demix_synthetic.npz)
+    from ..dsp.resample import resample_host
+    from .demix import DEMIX_SR, EnsembleDemixer
+
+    nets = None if weights is None else [load_demixer(_checkpoint(backend, weights))]
+    dmx = EnsembleDemixer(nets, device=dev, **kwargs)
+    sr = 16000
+
+    def demix_fn(y: torch.Tensor) -> torch.Tensor:
+        yn = y.detach().to("cpu", torch.float32).numpy()
+        up = resample_host(yn, sr, DEMIX_SR)
+        stems = dmx.separate_on_device(np.stack([up, up]), DEMIX_SR)
+        dialog = stems[2].mean(dim=0).cpu().numpy()
+        out = resample_host(dialog, DEMIX_SR, sr)
+        out = np.pad(out, (0, max(0, yn.shape[-1] - out.shape[-1])))[:yn.shape[-1]]
+        return torch.from_numpy(out).to(dev)
+
+    return demix_fn

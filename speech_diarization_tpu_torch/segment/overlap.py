@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from ..types import SegmentArray
+from ..utils.device import resolve_device
 from ..utils.logging import get_logger
 
 log = get_logger("overlap")
@@ -58,7 +59,7 @@ def detect_overlap_regions(
     hop_ms: float = 10.0,
     min_on_s: float = 0.3,
     min_gap_s: float = 0.15,
-    device: str | torch.device = "cpu",
+    device: str | torch.device | None = None,
 ) -> SegmentArray:
     """Frames where the segmentation model decodes >= 2 active speakers.
 
@@ -67,8 +68,9 @@ def detect_overlap_regions(
     tensor or an array does).  Chunks tile the file with centre-trim.  The
     waveform is uploaded once (not at all when it is a tensor on
     ``device`` already), zero-padded to whole batches; each batch of
-    ``GATHER_BATCH`` windows is an ``unfold`` view of it."""
-    y = torch.as_tensor(y, dtype=torch.float32, device=device)
+    ``GATHER_BATCH`` windows is an ``unfold`` view of it.  ``device``:
+    ``None`` is the card (raises without CUDA)."""
+    y = torch.as_tensor(y, dtype=torch.float32, device=resolve_device(device))
     t = y.shape[-1]
     chunk = int(chunk_s * sr)
     stride = max(1, int(chunk_hop_s * sr))

@@ -162,7 +162,26 @@ def test_make_enhance_fn_gtcrn_is_the_shipped_net(noisy, net):
 @pytest.mark.parametrize("backend", ["zipenhancer", "zipenhancer-ref",
                                      "demix-dialog"])
 def test_unported_backends_raise(backend):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
+    """Only the published ZipEnhancer graph is still unported.  The
+    shipped-weight ZipEnhancer and demix backends build and keep a
+    waveform's length (their parity with the JAX package:
+    test_torch_zipenhancer.py, test_torch_demix.py)."""
+    if backend == "zipenhancer-ref":
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
+            make_enhance_fn(backend, device="cpu")
+        return
+    y = torch.from_numpy(_wave(SR + 123, 6))
+    out = make_enhance_fn(backend, device="cpu")(y)
+    assert out.shape == y.shape and torch.isfinite(out).all()
+
+
+@pytest.mark.parametrize("backend", ["gtcrn", "zipenhancer", "demix-dialog"])
+def test_make_enhance_fn_defaults_to_the_card(backend):
+    """Without ``device`` the enhancer is built on the card; without CUDA
+    that raises rather than running on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    with pytest.raises(RuntimeError, match="CUDA"):
         make_enhance_fn(backend)
 
 

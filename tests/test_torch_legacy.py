@@ -483,10 +483,14 @@ def test_the_windowed_grid_still_raises(models, runs):
         pipe(runs["white10"]["w"][:12 * SR])
 
 
-def test_a_separation_grade_demixer_is_refused(models, runs, monkeypatch):
-    """With a demixer checkpoint present the babble route would demix,
-    which is not ported: the port raises instead of denoising."""
-    monkeypatch.setenv("SDTPU_DEMUCS_CKPTS", "htdemucs.th")
+def test_a_separation_grade_demixer_is_refused(models, runs, monkeypatch,
+                                               tmp_path):
+    """With an HTDemucs checkpoint present the babble route would demix
+    through it, which is not ported yet: the port raises instead of
+    denoising."""
+    ckpt = tmp_path / "htdemucs.th"
+    ckpt.write_bytes(b"")
+    monkeypatch.setenv("SDTPU_DEMUCS_CKPTS", str(ckpt))
     pipe = DiarizationPipeline(port.DiarizationConfig(), encoder=models["enc"],
                                vad=models["vad"], device="cpu")
     with pytest.raises(NotImplementedError, match="demix"):

@@ -112,7 +112,7 @@ def test_detect_recovers_global_span():
     mask = np.zeros(10 * 100 + 1, np.float32)
     mask[400:550] = 1.0
     regions = detect_overlap_regions(y, sr, _stub(mask), chunk_s=5.0,
-                                     chunk_hop_s=2.5)
+                                     chunk_hop_s=2.5, device="cpu")
     assert len(regions) == 1
     assert regions.starts[0] == pytest.approx(4.0, abs=0.02)
     assert regions.ends[0] == pytest.approx(5.5, abs=0.02)
@@ -128,7 +128,7 @@ def test_detect_min_on_drops_blips_and_min_gap_merges():
     mask[300:340] = 1.0
     mask[348:400] = 1.0
     kw = dict(chunk_s=5.0, chunk_hop_s=2.5, min_on_s=0.3, min_gap_s=0.15)
-    regions = detect_overlap_regions(y, sr, _stub(mask), **kw)
+    regions = detect_overlap_regions(y, sr, _stub(mask), **kw, device="cpu")
     assert len(regions) == 1
     assert regions.starts[0] == pytest.approx(3.0, abs=0.02)
     assert regions.ends[0] == pytest.approx(4.0, abs=0.02)
@@ -139,7 +139,17 @@ def test_detect_no_overlap_empty():
     sr = 1000
     y = np.zeros(5 * sr, np.float32)
     mask = np.zeros(5 * 100 + 1, np.float32)
-    assert len(detect_overlap_regions(y, sr, _stub(mask))) == 0
+    assert len(detect_overlap_regions(y, sr, _stub(mask), device="cpu")) == 0
+
+
+def test_detect_defaults_to_the_card():
+    """Without ``device`` the waveform goes to the card; without CUDA that
+    raises rather than running on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    y = np.zeros(6 * 1000, np.float32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        detect_overlap_regions(y, 1000, _stub(np.zeros(601, np.float32)))
 
 
 def test_detect_hands_the_scorer_batches_of_24_windows_cut_in_place():
@@ -150,7 +160,7 @@ def test_detect_hands_the_scorer_batches_of_24_windows_cut_in_place():
         return np.zeros((chunks.shape[0], 501, 3), np.float32)
 
     y = np.random.default_rng(0).standard_normal(70 * 1000).astype(np.float32)
-    detect_overlap_regions(y, 1000, fn)
+    detect_overlap_regions(y, 1000, fn, device="cpu")
     # 70 s -> 27 windows -> two batches of 24, views at the 2.5 s stride
     assert seen == [((24, 5000), (2500, 1))] * 2
 
@@ -172,8 +182,9 @@ def test_detect_takes_a_tensor_as_it_takes_an_array():
             return stub(chunks)
         return fn
 
-    a = detect_overlap_regions(y, sr, record("array"))
-    b = detect_overlap_regions(torch.from_numpy(y), sr, record("tensor"))
+    a = detect_overlap_regions(y, sr, record("array"), device="cpu")
+    b = detect_overlap_regions(torch.from_numpy(y), sr, record("tensor"),
+                               device="cpu")
     assert len(a) == 1
     _same(a, b)
     torch.testing.assert_close(seen["tensor"], seen["array"], rtol=0, atol=0)
@@ -293,7 +304,7 @@ def test_standalone_detect_matches_jax_with_the_shipped_detector():
     wave, _ = make_conversation_heldout(np.random.default_rng(4000), 12.5,
                                         n_speakers=3, overlap_frac=0.3)
     model = load_segmentation(WEIGHTS / "segmentation_conv.npz")
-    out = detect_overlap_regions(wave, 16000, make_seg_hard_fn(model))
+    out = detect_overlap_regions(wave, 16000, make_seg_hard_fn(model), device="cpu")
     ref = jdetect_overlap_regions(
         wave, 16000, make_seg_activities_fn(*jload_seg(WEIGHTS / "segmentation_conv.npz")))
     assert len(out) == len(ref) > 0

@@ -255,7 +255,7 @@ def test_fused_regions_match_standalone_detect(ov_runs, overlapped):
     w, _ = overlapped
     fused = ov_runs["bench"][1].diagnostics["overlap_regions"]
     ref = detect_overlap_regions(
-        w, SR, make_seg_hard_fn(ov_runs["tpipe"]._overlap_seg()))
+        w, SR, make_seg_hard_fn(ov_runs["tpipe"]._overlap_seg()), device="cpu")
     assert len(fused) == len(ref)
     np.testing.assert_allclose(fused.starts, ref.starts, atol=0.02)
     np.testing.assert_allclose(fused.ends, ref.ends, atol=0.02)
@@ -307,13 +307,22 @@ def test_unported_stages_raise(kw, what):
 @pytest.mark.parametrize("backend,weights", [
     ("zipenhancer", None), ("demix-dialog", None), ("zipenhancer-ref", "x.npz")])
 def test_unported_enhancement_backends_raise(backend, weights):
-    """GTCRN is ported; the other enhancement backends raise when the
-    pipeline is built with weights for them (shipped, or given: with
-    neither, the stage is dropped, as in the JAX package)."""
-    with pytest.raises(NotImplementedError, match=backend):
-        DiarizationPipeline(
-            _port_cfg(enhance=port.EnhanceConfig(backend=backend, weights=weights)),
-            encoder=object(), vad=object(), device="cpu")
+    """The published ZipEnhancer graph is not ported: a pipeline built with
+    weights for it raises.  The shipped-weight ZipEnhancer and demix
+    backends are: the pipeline builds their enhancer (their whole-file
+    runs: test_torch_enhancers.py, test_torch_demix.py)."""
+    cfg = _port_cfg(enhance=port.EnhanceConfig(backend=backend, weights=weights))
+    if backend == "zipenhancer-ref":
+        with pytest.raises(NotImplementedError, match=backend):
+            DiarizationPipeline(cfg, encoder=object(), vad=object(), device="cpu")
+        return
+    pipe = DiarizationPipeline(
+        cfg, encoder=load_speaker_encoder(WEIGHTS / "ecapa_robust_stream.npz"),
+        vad=load_vad(WEIGHTS / "vad_conv_mc.npz"), device="cpu")
+    y = torch.from_numpy(np.random.default_rng(0).standard_normal(SR)
+                         .astype(np.float32) * 0.1)
+    out = pipe.enhance_fn(y)
+    assert out.shape == y.shape and torch.isfinite(out).all()
 
 
 def test_default_device_is_the_card():
