@@ -4,7 +4,8 @@
 
 Phases (any failure exits nonzero and prints no result line):
   1. CUDA present; the card's name and power limit (nvidia-smi); TF32 off
-     for matrix products and convolutions.
+     for matrix products and convolutions; the native audio runtime builds
+     and loads (its resampler timed on 600 s).
   2. Build every kernel of the main path from ``speech_diarization_tpu_torch/
      csrc`` (one nvcc per source, all started together).
   3. Each kernel against its plain PyTorch version on the card, at the
@@ -64,9 +65,30 @@ Phases (any failure exits nonzero and prints no result line):
      constructor's (48/5/2, seeded weights), each also timed on the 80
      chunks of a 600 s file, with the host resampling of that file timed
      both ways.
+  4e. The other encoders, VADs and clustering methods on the 60 s bench
+     draw (overlap on), each within one point of the JAX pipeline's DER on
+     the CPU, either way (``torch_port_der_bar.py --encoders``), with its
+     route and exact launch counts by kernel, form and shape:
+     ``ecapa_synthetic_full_stream.npz`` (streamed; K1 at A 128, K2 at 80
+     mels; and forced onto the windowed grid, K2's windowed batch at 80
+     mels) and ``ecapa_proto_small.npz`` (K1 at A 32), ``ecapa_synthetic.npz``
+     on the windowed grid (K2's ``[B, T]`` entry on batches of 512
+     overlapping 2 s windows) with the GRU VAD and with the energy VAD, and
+     AHC and HDBSCAN clustering on the default encoder; the windowed grid
+     also on the 600 s draw (launches per 600 s).  Phase 3
+     holds K1 at A 32 / CC 384 and A 128 / CC 1536 on a 60 s chunk and K2 at
+     80 mels on the chunk and on the windowed batch at 40 and 80 mels.
+  4f. Held-out file 0 (seed 1000) of each of ``eval_heldout.py``'s eight
+     domains at the CLI's defaults: DER (collar 0.25 s) within one point of
+     the JAX pipeline's on the CPU, either way (``--heldout --cli``).
+  4g. The corpus worker on three 60 s draws, the second in white noise at
+     10 dB (the whole-file path): every file's segments equal its lone
+     call's and the report has no errors.
   5. Reference agreement on small inputs: the same pipeline (float32
      encoder) on the card and on the CPU (plain versions) over a 25 s file
-     cut into three 10 s chunks, with the rescue off; with rescue and
+     cut into three 10 s chunks, with the rescue off; the windowed grid
+     (float32 ``ecapa_synthetic.npz``, energy VAD) on the same file, window
+     embeddings compared; with rescue and
      reassignment on over a 25 s held-out file, where the detector's hard
      decisions, the overlap regions and the final segments are compared;
      and over a 25 s file in white noise at 10 dB (the whole-file path
@@ -103,6 +125,26 @@ JAX_CPU_DER_PCT_NOISY = {("white", 10.0, 60): 0.5717,
 # CPU), DER printed beside the GTCRN route's.  On the babble draw the
 # shipped separator's dialog stem lies below the loudness meter's gate: the
 # VAD hears silence in both packages and finds no speech (100 %)
+# the same on the 60 s bench draw (overlap on) with the other shipped
+# encoders, VADs and clustering methods (--encoders of that script): the
+# streaming encoders at attention widths 128 and 32, the full-width one on
+# the windowed grid (80 mels), the windowed grid of ecapa_synthetic.npz (not
+# streaming-trained) with the GRU VAD and with the energy VAD, and the
+# default encoder with AHC and HDBSCAN clustering
+JAX_CPU_DER_PCT_OPTIONS = {"full_stream": 0.0, "full_stream_windowed": 1.3439,
+                           "proto_small": 0.0, "windowed_gru": 33.5964,
+                           "windowed_energy": 93.2381, "ahc": 0.0,
+                           "hdbscan": 0.0}
+# held-out file 0 (seed 1000) of each domain at the CLI's defaults
+# (--heldout --cli of that script)
+JAX_CPU_DER_PCT_HELDOUT_CLI = {
+    "indomain": 1.9551, "heldout-dry": 1.5989, "heldout-reverb3": 2.2841,
+    "heldout-reverb6": 2.307, "heldout-babble15": 4.9338,
+    "heldout-babble5": 6.2586, "heldout-white10": 1.9187,
+    "heldout-overlap": 6.9316}
+ENCODERS = {"full_stream": "ecapa_synthetic_full_stream.npz",
+            "proto_small": "ecapa_proto_small.npz",
+            "windowed": "ecapa_synthetic.npz"}
 JAX_CPU_DER_PCT_ENHANCED = {("zipenhancer", "white", 10.0, 60): 4.2436,
                             ("zipenhancer", "white", 10.0, 600): None,
                             ("zipenhancer", "babble", 15.0, 60): 13.3245,
@@ -172,23 +214,24 @@ def bound(bytes_moved: float, ops: dict[str, float]) -> tuple[float, str]:
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def k2_measure(y, n_unique: int) -> dict:
-    """K2 on ``y`` ([T] or [B, T], possibly a view with overlapping rows of
-    ``n_unique`` distinct samples) against its plain version, with kernel,
-    plain and library times and the bound."""
+def k2_measure(y, n_unique: int, n_mels: int = 40) -> dict:
+    """K2 at ``n_mels`` on ``y`` ([T] or [B, T], possibly a view with
+    overlapping rows of ``n_unique`` distinct samples) against its plain
+    version, with kernel, plain and library times and the bound."""
     import torch
 
     from speech_diarization_tpu_torch.dsp.mel import (
         _mel_filterbank_np, fused_log_mel, log_mel_spectrogram,
     )
 
-    n_mels, n_fft, n_bins = 40, 400, 201
+    n_fft, n_bins = 400, 201
     out = fused_log_mel(y, n_mels=n_mels)
     ref = log_mel_spectrogram(y, n_mels=n_mels).reshape(out.shape)
     torch.cuda.synchronize()
     n_frames = out.numel() // n_mels
     err = (out - ref).abs().max().item()
     ref_max = ref.abs().max().item()
+    tol = TOL_REL["fused_log_mel"] * ref_max
     # the function's inputs: waveform, the two windowed [n_fft, n_bins]
     # DFT bases and the mel filterbank, whatever form a kernel stores
     k2_bytes = 4 * (n_unique + 2 * n_fft * n_bins + n_bins * n_mels
@@ -210,15 +253,51 @@ def k2_measure(y, n_unique: int) -> dict:
     b_ms, b_by = bound(k2_bytes, {"tf32_tensor": 3 * dft_ops, "f32": f32_ops})
     win = torch.hann_window(n_fft, periodic=True, device=y.device)
     return {
-        "shape": list(y.shape), "frames": n_frames,
-        "max_abs_err": err, "tol": TOL_REL["fused_log_mel"] * ref_max,
-        "ref_max": ref_max,
+        "shape": list(y.shape), "n_mels": n_mels, "frames": n_frames,
+        "max_abs_err": err, "tol": tol, "ref_max": ref_max,
         "ms": cuda_time_ms(lambda: fused_log_mel(y, n_mels=n_mels)),
         "plain_ms": cuda_time_ms(lambda: log_mel_spectrogram(y, n_mels=n_mels)),
         "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": cuda_time_ms(lambda: torch.stft(
             y, n_fft, 160, window=win, center=True, pad_mode="reflect",
             return_complex=True)),
+    }
+
+
+def k1_measure(net, x, n_w: int, first_f: int, hop_f: int = 10,
+               win_f: int = 201) -> dict:
+    """K1 on the trunk features ``x`` [CC, T_f] of ``net`` over a grid of
+    ``n_w`` windows against its plain version, with kernel and plain times
+    and the bound.  The bound counts the net's own attention width (the
+    kernel's zero padding to a multiple of 64 is not the function's work)."""
+    import torch
+
+    from speech_diarization_tpu_torch.models.ecapa import (
+        _asp_grid_stats_plain, asp_grid_stats,
+    )
+
+    args = net.k1_inputs(x, first_f, hop_f, win_f, n_w)
+    out = asp_grid_stats(*args)
+    ref = _asp_grid_stats_plain(*args)
+    torch.cuda.synchronize()
+    err = (out - ref).abs().max().item()
+    ref_max = ref.abs().max().item()
+    cc, a_dim = x.shape[0], net.att_channels
+    n_rows = (n_w - 1) * hop_f + win_f
+    k1_bytes = (2 * n_rows * cc + 4 * n_w * a_dim + 2 * 2 * a_dim * cc
+                + 4 * (2 * a_dim + cc) + 4 * out.numel())
+    k1_tensor = 2 * n_rows * cc * a_dim + 2 * n_w * win_f * a_dim * cc
+    # per (window, row, channel): bias, max, sub, exp, sum, p*x (2),
+    # p*x^2 (3) = 10; per (window, row, a): bias, relu, BN fma, tanh = 5
+    k1_f32 = n_w * win_f * (10 * cc + 5 * a_dim)
+    b_ms, b_by = bound(k1_bytes, {"bf16_tensor": k1_tensor, "f32": k1_f32})
+    return {
+        "a_dim": a_dim, "a_padded": args[2].shape[0], "cc": cc, "windows": n_w,
+        "max_abs_err": err, "tol": TOL_REL["asp_grid_stats"] * ref_max,
+        "ref_max": ref_max,
+        "ms": cuda_time_ms(lambda: asp_grid_stats(*args)),
+        "plain_ms": cuda_time_ms(lambda: _asp_grid_stats_plain(*args), 5),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
     }
 
 
@@ -400,6 +479,18 @@ def main() -> int:
     from speech_diarization_tpu_torch.train.synthetic import make_conversation
     from speech_diarization_tpu_torch.types import SegmentArray
 
+    # the native audio runtime (the resampler of read_audio), built with g++
+    from speech_diarization_tpu_torch import native
+
+    if not native.available():
+        raise AssertionError(f"native audio runtime: {native.build_error()}")
+    sig = np.random.default_rng(0).standard_normal(600 * 44100).astype(np.float32)
+    t0 = time.perf_counter()
+    native.resample_poly(sig, 44100, SR)
+    log(f"[1] native audio runtime {native._lib_path().name} loaded, "
+        f"{native.num_threads()} threads; 600 s 44.1 -> 16 kHz in "
+        f"{time.perf_counter() - t0:.3f} s")
+
     # ---------------------------------------------------------- phase 2 ----
     t0 = time.perf_counter()
     reports = kernels.build()
@@ -439,31 +530,11 @@ def main() -> int:
         feats = ref[None]
         feats = feats - sliding_mean_time(feats.transpose(1, 2), 201).transpose(1, 2)
         x = enc.net.trunk(feats, se_win=201)[0]                  # [768, 6991] bf16
-        n_w, first_f, hop_f, win_f = u // 1600, m_l // 160, 10, 201
-        args = enc.net.k1_inputs(x, first_f, hop_f, win_f, n_w)
-        out = asp_grid_stats(*args)
-        ref = _asp_grid_stats_plain(*args)
-        torch.cuda.synchronize()
-        err = (out - ref).abs().max().item()
-        ref_max = ref.abs().max().item()
-        tol = TOL_REL["asp_grid_stats"] * ref_max
-        cc, a_dim = x.shape[0], args[2].shape[0]
-        n_rows = (n_w - 1) * hop_f + win_f
-        k1_bytes = (2 * n_rows * cc + 4 * n_w * a_dim + 2 * 2 * a_dim * cc
-                    + 4 * (2 * a_dim + cc) + 4 * out.numel())
-        k1_tensor = 2 * n_rows * cc * a_dim + 2 * n_w * win_f * a_dim * cc
-        # per (window, row, channel): bias, max, sub, exp, sum, p*x (2),
-        # p*x^2 (3) = 10; per (window, row, a): bias, relu, BN fma, tanh = 5
-        k1_f32 = n_w * win_f * (10 * cc + 5 * a_dim)
-        b_ms, b_by = bound(k1_bytes, {"bf16_tensor": k1_tensor, "f32": k1_f32})
         rows.append({
             "name": "asp_grid_stats", "route": "cuda",
             "source": "speech_diarization_tpu_torch/csrc/asp_grid.cu",
             "replaces": "speech_diarization_tpu/ops/pallas/asp_grid.py:168",
-            "max_abs_err": err, "tol": tol, "ref_max": ref_max,
-            "ms": cuda_time_ms(lambda: asp_grid_stats(*args)),
-            "plain_ms": cuda_time_ms(lambda: _asp_grid_stats_plain(*args), 5),
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            **k1_measure(enc.net, x, u // 1600, m_l // 160),
         })
         # K2 on the whole-file path's VAD batch of the 600 s noisy file: its
         # 43 chunks of 240,000 samples at a 224,000 hop, a view of the
@@ -492,8 +563,33 @@ def main() -> int:
                 f"{xs.shape[1]}): max_abs_err {e:.3e} (tol {tol:.3e})")
             if not e <= tol:
                 raise AssertionError(f"asp_grid_stats disagrees at W={n_w}")
+        # K1 at the other shipped attention widths, on the trunk features of
+        # this chunk: ecapa_proto_small.npz (A 32, padded to 64, CC 384, 40
+        # mels) and ecapa_synthetic_full_stream.npz (A 128, CC 1536, 80
+        # mels), as bench.py loads an encoder (bf16 trunk)
+        encs = {tag: load_speaker_encoder(wdir / name, dtype=torch.bfloat16)
+                .to(dev).eval() for tag, name in ENCODERS.items()}
+        for tag in ("proto_small", "full_stream"):
+            net = encs[tag].net
+            f = _log_mel_1d(y, n_mels=net.n_mels)[None]
+            f = f - sliding_mean_time(f.transpose(1, 2), 201).transpose(1, 2)
+            rows[1][f"a{net.att_channels}"] = k1_measure(
+                net, net.trunk(f, se_win=201)[0], u // 1600, m_l // 160)
+        # K2 at 80 mels on the chunk (the full-width streaming encoder's
+        # log-mel), and on the windowed grid's batch: 512 windows of 32,000
+        # samples every 1,600 (one encode batch), read in place, at 40 mels
+        # (ecapa_synthetic.npz) and 80
+        rows[0]["t_80"] = k2_measure(y, y.numel(), n_mels=80)
+        yw = y[:511 * 1600 + 32000].unfold(0, 32000, 1600)
+        for n_mels in (40, 80):
+            rows[0][f"batch_windowed_{n_mels}"] = k2_measure(
+                yw, 511 * 1600 + 32000, n_mels=n_mels)
+    k1_rows = [{"name": "asp_grid_stats", "shape": f"A {rows[1][k]['a_dim']}",
+                **rows[1][k]} for k in ("a32", "a128")]
+    k2_rows = [{"name": "fused_log_mel", **rows[0][k]}
+               for k in ("t_80", "batch_windowed_40", "batch_windowed_80")]
     for r in rows + [{"name": "fused_log_mel", **k2b},
-                     {"name": "fused_log_mel", **k2v}]:
+                     {"name": "fused_log_mel", **k2v}] + k1_rows + k2_rows:
         log(f"[3] {r['name']}{r.get('shape', '')}: max_abs_err "
             f"{r['max_abs_err']:.3e} (tol "
             f"{r['tol']:.3e}), max_rel_err {r['max_abs_err'] / r['ref_max']:.3e} "
@@ -793,6 +889,179 @@ def main() -> int:
         f"{z600['der']:.4f} % beside the GTCRN route's "
         f"{noisy['white', 10.0, 600]['der']:.4f} % (no JAX bar at 600 s)")
 
+    # -------------------------------------------------------- phase 4e ----
+    # the other encoders, VADs and clustering methods on the 60 s bench draw
+    # (overlap on): streamed with K1 at A 128 / K2 at 80 mels and with K1 at
+    # A 32; the full-width encoder on the windowed grid (K2's windowed batch
+    # at 80 mels); the windowed grid with the GRU VAD and the energy VAD;
+    # AHC and HDBSCAN on the default encoder.  Each is held within one DER
+    # point of its JAX CPU bar, either way.  Besides the counts by kernel
+    # and by form, the counts by shape of the rows that the kernels line
+    # reads: K1 by padded attention width, K2 by row length and mel count
+    wave, truth = make_conversation(np.random.default_rng(0), 60.0,
+                                    n_speakers=3, sr=SR)
+    gru = load_vad(wdir / "vad_synthetic.npz")
+    k1_a128, k1_a64_384 = "asp_grid_stats A 128, CC 1536", "asp_grid_stats A 64, CC 384"
+    k2_t80, k2_t40 = "fused_log_mel [T] 80 mels", "fused_log_mel [T] 40 mels"
+    k2_w40 = "fused_log_mel [B, T] rows of 32000, 40 mels"
+    k2_w80 = "fused_log_mel [B, T] rows of 32000, 80 mels"
+    options = {
+        # tag: (encoder, VAD, method, grid backend, route, grid, launches,
+        #       launch forms, launches of the shapes read below)
+        "full_stream": (encs["full_stream"], vad, "spectral", "auto", "streamed",
+                        None, {"asp_grid_stats": 1, "fused_log_mel": 3},
+                        {"fused_log_mel[T]": 2, "fused_log_mel[B, T]": 1},
+                        {k1_a128: 1, k2_t80: 1, k2_t40: 1}),
+        # the windowed grid: one batch launch for the VAD's 15 s chunks
+        # (conv and GRU; the energy VAD has no log-mel), two for 581
+        # windows in batches of 512, one for the standalone overlap
+        # detector's 23 windows
+        "full_stream_windowed": (encs["full_stream"], vad, "spectral",
+                                 "windowed", "legacy", "windowed",
+                                 {"asp_grid_stats": 0, "fused_log_mel": 4},
+                                 {"fused_log_mel[B, T]": 4}, {k2_w80: 2}),
+        "proto_small": (encs["proto_small"], vad, "spectral", "auto", "streamed",
+                        None, {"asp_grid_stats": 1, "fused_log_mel": 2},
+                        {"fused_log_mel[T]": 1, "fused_log_mel[B, T]": 1},
+                        {k1_a64_384: 1, k2_t40: 1}),
+        "windowed_gru": (encs["windowed"], gru, "spectral", "auto", "legacy",
+                         "windowed", {"asp_grid_stats": 0, "fused_log_mel": 4},
+                         {"fused_log_mel[B, T]": 4}, {k2_w40: 2}),
+        "windowed_energy": (encs["windowed"], None, "spectral", "auto", "legacy",
+                            "windowed", {"asp_grid_stats": 0, "fused_log_mel": 3},
+                            {"fused_log_mel[B, T]": 3}, {k2_w40: 2}),
+        "ahc": (enc, vad, "ahc", "auto", "streamed", None,
+                {"asp_grid_stats": 1, "fused_log_mel": 2},
+                {"fused_log_mel[T]": 1, "fused_log_mel[B, T]": 1}, {}),
+        "hdbscan": (enc, vad, "hdbscan", "auto", "streamed", None,
+                    {"asp_grid_stats": 1, "fused_log_mel": 2},
+                    {"fused_log_mel[T]": 1, "fused_log_mel[B, T]": 1}, {}),
+    }
+    opt_launches, opt_shapes = {}, {}
+    for tag, (encoder, v, method, backend, route, grid_kind, want, want_forms,
+              want_shapes) in options.items():
+        pipe = DiarizationPipeline(
+            DiarizationConfig(cluster=ClusterConfig(method=method, max_speakers=8),
+                              embed=EmbedConfig(grid_backend=backend),
+                              overlap=OverlapConfig(enabled=True)),
+            encoder=encoder, vad=v)
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = pipe((wave, SR))
+        warm = time.perf_counter() - t0
+        n_launch, n_forms = dict(kernels.LAUNCHES), dict(kernels.LAUNCH_FORMS)
+        opt_launches[tag] = n_launch
+        opt_shapes[tag] = n_shapes = dict(kernels.LAUNCH_SHAPES)
+        t0 = time.perf_counter()
+        pipe((wave, SR))
+        wall = time.perf_counter() - t0
+        d = res.diagnostics
+        der = der_pct(truth, res.segments)
+        jax_der = JAX_CPU_DER_PCT_OPTIONS[tag]
+        log(f"[4e] {tag} ({type(encoder.net).__name__} A "
+            f"{encoder.net.att_channels}, {encoder.net.n_mels} mels; VAD "
+            f"{type(getattr(pipe.vad, 'net', pipe.vad)).__name__}; {method}): route "
+            f"{d.get('route')}, grid {d.get('grid', 'streaming')}; warm "
+            f"{warm:.3f} s, timed {wall:.4f} s; {len(res.segments)} segments, "
+            f"{res.num_speakers} speakers, DER {der:.4f} % (JAX CPU {jax_der:.4f} "
+            f"% +- {DER_SLACK_PCT}); launches {n_launch} {n_forms} {n_shapes}")
+        if d.get("route") != route or (grid_kind and d.get("grid") != grid_kind):
+            raise AssertionError(f"{tag}: took route {d.get('route')} / grid "
+                                 f"{d.get('grid')}")
+        probs, grid = d["vad_probs"], d["window_embeddings"]
+        if not (np.isfinite(probs).all() and np.isfinite(grid).all()
+                and grid.shape == (581, encoder.net.emb_dim)):
+            raise AssertionError(f"{tag}: bad VAD probabilities or grid "
+                                 f"{probs.shape} {grid.shape}")
+        got_shapes = {k: n_shapes.get(k, 0) for k in want_shapes}
+        if n_launch != want or n_forms != want_forms or got_shapes != want_shapes:
+            raise AssertionError(f"{tag}: launch counts {n_launch} {n_forms} "
+                                 f"{got_shapes}, expected {want} {want_forms} "
+                                 f"{want_shapes}")
+        if not abs(der - jax_der) <= DER_SLACK_PCT:
+            raise AssertionError(f"{tag}: DER {der:.4f} % more than "
+                                 f"{DER_SLACK_PCT} point from the JAX CPU "
+                                 f"{jax_der:.4f} %")
+    # the windowed grid on the 600 s bench draw: launches per 600 s (VAD 0,
+    # grid ceil(5981 / 512) = 12, detector ceil(239 / 24) = 10), no JAX bar
+    wave600, truth600 = make_conversation(np.random.default_rng(0), 600.0,
+                                          n_speakers=3, sr=SR)
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    pipe_w = DiarizationPipeline(bench_cfg(True), encoder=encs["windowed"])
+    t0 = time.perf_counter()
+    res = pipe_w((wave600, SR))
+    warm = time.perf_counter() - t0
+    n_launch, n_shapes = dict(kernels.LAUNCHES), dict(kernels.LAUNCH_SHAPES)
+    t0 = time.perf_counter()
+    pipe_w((wave600, SR))
+    wall = time.perf_counter() - t0
+    log(f"[4e] windowed_energy, 600 s: warm {warm:.3f} s, timed {wall:.4f} s; "
+        f"DER {der_pct(truth600, res.segments):.4f} % (no JAX bar); launches "
+        f"{n_launch} {n_shapes}")
+    if n_launch != {"asp_grid_stats": 0, "fused_log_mel": 22} or (
+            n_shapes.get(k2_w40) != 12):
+        raise AssertionError(f"windowed 600 s: launch counts {n_launch} {n_shapes}")
+    opt_launches["windowed_600"], opt_shapes["windowed_600"] = n_launch, n_shapes
+
+    # -------------------------------------------------------- phase 4f ----
+    # held-out file 0 (seed 1000) of each domain at the CLI's defaults
+    from speech_diarization_tpu_torch.cli import (
+        _add_common_config_args, build_config, build_pipeline_kwargs,
+    )
+    from speech_diarization_tpu_torch.train.heldout import make_domain_file
+
+    import argparse
+
+    ap = argparse.ArgumentParser()
+    _add_common_config_args(ap)
+    cli_args = ap.parse_args([])
+    pipe = DiarizationPipeline(build_config(cli_args),
+                               **build_pipeline_kwargs(cli_args))
+    held_der = {}
+    for domain, jax_der in JAX_CPU_DER_PCT_HELDOUT_CLI.items():
+        wave, truth = make_domain_file(domain, 0)
+        res = pipe((wave, SR))
+        held_der[domain] = der = 100.0 * diarization_error_rate(
+            SegmentArray(*truth), res.segments, collar_s=0.25).der
+        log(f"[4f] {domain}: route {res.diagnostics.get('route')}, "
+            f"{res.num_speakers} speakers, DER {der:.4f} % (collar 0.25 s; "
+            f"JAX CPU {jax_der:.4f} % +- {DER_SLACK_PCT})")
+        if not abs(der - jax_der) <= DER_SLACK_PCT:
+            raise AssertionError(f"held-out {domain}: DER {der:.4f} % more than "
+                                 f"{DER_SLACK_PCT} point from the JAX CPU bar")
+
+    # -------------------------------------------------------- phase 4g ----
+    # the corpus worker on three 60 s draws, the second noisy (whole-file
+    # path): each file's segments are its lone call's, no errors
+    from speech_diarization_tpu_torch.pipelines.corpus import corpus_diarize
+
+    pipe = DiarizationPipeline(bench_cfg(True), encoder=enc, vad=vad)
+    draws = [make_conversation(np.random.default_rng(40), 60.0, n_speakers=3,
+                               sr=SR)[0],
+             make_conversation_heldout(np.random.default_rng(41), 60.0,
+                                       n_speakers=3, sr=SR, snr_db=10.0,
+                                       noise_kind="white")[0],
+             make_conversation(np.random.default_rng(42), 60.0, n_speakers=3,
+                               sr=SR)[0]]
+    lone = [pipe((w, SR)) for w in draws]
+    report = corpus_diarize([(w, SR) for w in draws],
+                            pipeline_factory=lambda: pipe, keep_results=True)
+    log(f"[4g] corpus of three 60 s files: {report.summary()}, routes "
+        f"{[r.diagnostics.get('route') for r in lone]}, per-file walls "
+        f"{[f['wall_s'] for f in sorted(report.files, key=lambda f: f['index'])]}")
+    if report.errors or len(report.files) != 3:
+        raise AssertionError(f"corpus errors {report.errors}")
+    for f in report.files:
+        a, b = f["result"].segments, lone[f["index"]].segments
+        if not (len(a) == len(b) and np.array_equal(a.starts, b.starts)
+                and np.array_equal(a.ends, b.ends) and np.array_equal(a.spks, b.spks)):
+            raise AssertionError(f"corpus file {f['index']}: segments differ "
+                                 "from its lone call's")
+    if [r.diagnostics.get("route") for r in lone] != ["streamed", "legacy", "streamed"]:
+        raise AssertionError("the corpus draws did not take both routes")
+
     # ---------------------------------------------------------- phase 5 ----
     enc32 = load_speaker_encoder(wdir / "ecapa_robust_stream.npz")
 
@@ -823,6 +1092,28 @@ def main() -> int:
             and abs(ders["cuda"] - ders["cpu"]) <= 1.0
             and outs["cuda"].num_speakers == outs["cpu"].num_speakers):
         raise AssertionError("the card disagrees with the CPU reference")
+    # the windowed grid (ecapa_synthetic.npz in float32, the energy VAD) on
+    # the same file: its window embeddings on the card against the CPU
+    enc_w32 = load_speaker_encoder(wdir / ENCODERS["windowed"])
+    outs = {where: DiarizationPipeline(bench_cfg(False), encoder=enc_w32,
+                                       device=where)(wave)
+            for where in ("cuda", "cpu")}
+    d_c, d_p = outs["cuda"].diagnostics, outs["cpu"].diagnostics
+    g_c, g_p = d_c["window_embeddings"], d_p["window_embeddings"]
+    cos = float(((g_c * g_p).sum(1) / np.linalg.norm(g_c, axis=1)
+                 / np.linalg.norm(g_p, axis=1)).min()) if g_c.shape == g_p.shape else -1.0
+    perr = float(np.abs(d_c["vad_probs"] - d_p["vad_probs"]).max())
+    ders = {k: der_pct(truth, v.segments) for k, v in outs.items()}
+    log(f"[5] card vs CPU, 25 s, windowed grid (float32 {ENCODERS['windowed']}, "
+        f"energy VAD): grids {d_c.get('grid')} / {d_p.get('grid')} "
+        f"{g_c.shape}, min cos {cos:.6f} (bar 0.9999), VAD probs max err "
+        f"{perr:.2e} (bar 1e-3), DER {ders['cuda']:.4f} % vs {ders['cpu']:.4f} "
+        f"%, speakers {outs['cuda'].num_speakers} vs {outs['cpu'].num_speakers}")
+    if not (d_c.get("grid") == d_p.get("grid") == "windowed" and cos > 0.9999
+            and perr < 1e-3 and abs(ders["cuda"] - ders["cpu"]) <= 1.0
+            and outs["cuda"].num_speakers == outs["cpu"].num_speakers):
+        raise AssertionError("the windowed grid on the card disagrees with the "
+                             "CPU reference")
     # the same with the rescue and reassignment on, over a file that has
     # overlapped speech
     wave, truth = make_conversation_heldout(np.random.default_rng(4000), 25.0,
@@ -892,10 +1183,23 @@ def main() -> int:
     rows[0]["batch"]["launches"] = forms[True, 600]["fused_log_mel[B, T]"]
     rows[0]["batch_vad"]["launches"] = (
         noisy["white", 10.0, 600]["forms"]["fused_log_mel[B, T]"])
+    # phase 4e's runs, counted by shape at the point of launch: K1 at A 32
+    # (padded to 64) and A 128 and K2's [T] at 80 mels on the 60 s draw,
+    # the windowed grid's batches at 40 mels per 600 s and at 80 mels (the
+    # full-width encoder on the windowed grid) on the 60 s draw
+    rows[1]["a32"]["launches_60s"] = opt_shapes["proto_small"][k1_a64_384]
+    rows[1]["a128"]["launches_60s"] = opt_shapes["full_stream"][k1_a128]
+    rows[0]["t_80"]["launches_60s"] = opt_shapes["full_stream"][k2_t80]
+    rows[0]["batch_windowed_40"]["launches"] = opt_shapes["windowed_600"][k2_w40]
+    rows[0]["batch_windowed_80"]["launches_60s"] = (
+        opt_shapes["full_stream_windowed"][k2_w80])
+    rows[0]["launches_options"] = {k: v["fused_log_mel"] for k, v in opt_launches.items()}
+    rows[1]["launches_options"] = {k: v["asp_grid_stats"] for k, v in opt_launches.items()}
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "launches_overlap_off", "launches_noisy", "launches_zipenhancer",
-            "launches_demix", "batch", "batch_vad")
+            "launches_demix", "launches_options", "batch", "batch_vad", "t_80",
+            "batch_windowed_40", "batch_windowed_80", "a32", "a128")
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
                                   for r in rows]}))
     print(smi)

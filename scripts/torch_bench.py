@@ -7,7 +7,17 @@ milestones, on the same files and configuration:
 1. the 60 s draw: one warm call (it builds the CUDA kernels the first time),
    then the minimum of 4 timed calls;
 2. the 600 s draw (``SDTPU_BENCH_FULL_S`` overrides the length): the same,
-   skipped when the 60 s speed says it would pass ``SDTPU_BENCH_BUDGET_S``.
+   skipped when the 60 s speed says it would pass ``SDTPU_BENCH_BUDGET_S``;
+3. corpus throughput (``SDTPU_BENCH_CORPUS=0`` skips it): six draws
+   ``make_conversation(default_rng(40 + i), FULL_S)`` as ``(wave, sr)``
+   pairs through ``pipelines/corpus.py::corpus_diarize`` on the one
+   pipeline, ``SDTPU_BENCH_CORPUS_PASSES`` (3) passes.  Each file's wall is
+   its minimum over the passes; the censored aggregate is the sum of those
+   minima plus the smallest time a pass spent outside its files, beside the
+   raw best pass; corpus DER is the mean over the six files.  A corpus
+   error, or a corpus DER more than one point from the JAX pipeline's on
+   the CPU on the same draws, either way (``scripts/torch_port_der_bar.py
+   --corpus``), exits nonzero (``bench.py`` logs corpus failures and goes on; this does not).
 
 Files are ``make_conversation(np.random.default_rng(0), D, n_speakers=3)``;
 the configuration is spectral clustering (max 8 speakers), the shipped
@@ -15,8 +25,7 @@ the configuration is spectral clustering (max 8 speakers), the shipped
 overlap rescue at its config default (on, ``segmentation_conv.npz``);
 ``SDTPU_BENCH_OVERLAP=0`` or ``1`` overrides it, as in ``bench.py``.  Frame
 reassignment is off, as in the config default.  Every run is scored: DER
-against the generator truth rides each line.  The corpus milestone is not
-here (the corpus worker is not ported).
+against the generator truth rides each line.
 
     python3 scripts/torch_bench.py [--cpu]
 
@@ -42,6 +51,11 @@ SR = 16000
 SMALL_S = 60.0
 FULL_S = float(os.environ.get("SDTPU_BENCH_FULL_S", "600"))
 FULL_BUDGET_S = float(os.environ.get("SDTPU_BENCH_BUDGET_S", "300"))
+# mean DER (%, collar 0.25 s) of the JAX pipeline on the CPU over the six
+# 600 s corpus draws, overlap rescue on (scripts/torch_port_der_bar.py
+# --corpus)
+JAX_CPU_CORPUS_DER_PCT = 0.3907
+DER_SLACK_PCT = 1.0
 
 
 def log(msg: str) -> None:
@@ -146,9 +160,57 @@ def main() -> int:
             f"{FULL_BUDGET_S:.0f}s; keeping the 60 s result")
         return 0
     rtf, der, wall = run_milestone(pipe, FULL_S, tag, score)
-    emit(rtf, f"{int(FULL_S)}s_full", {
-        "wall_s": round(wall, 4), "rtf_60s_bucket": round(small_rtf, 2),
-        "der_pct": der, "der_60s_pct": small_der, **tag})
+    extra = {"wall_s": round(wall, 4), "rtf_60s_bucket": round(small_rtf, 2),
+             "der_pct": der, "der_60s_pct": small_der, **tag}
+    emit(rtf, f"{int(FULL_S)}s_full", extra)
+    if os.environ.get("SDTPU_BENCH_CORPUS", "1") != "1":
+        return 0
+    # -- milestone 3: corpus throughput ----------------------------------------
+    from speech_diarization_tpu_torch.pipelines.corpus import corpus_diarize
+    from speech_diarization_tpu_torch.train.synthetic import make_conversation
+
+    pairs = [make_conversation(np.random.default_rng(40 + i), FULL_S,
+                               n_speakers=3, sr=SR) for i in range(6)]
+    files = [(wv, SR) for wv, _ in pairs]
+    n_pass = int(os.environ.get("SDTPU_BENCH_CORPUS_PASSES", "3"))
+    raw_wall, overhead, file_walls, report = float("inf"), float("inf"), {}, None
+    for _ in range(n_pass):
+        t0 = time.perf_counter()
+        report = corpus_diarize(files, cfg, pipeline_factory=lambda: pipe,
+                                keep_results=True)
+        w = time.perf_counter() - t0
+        if report.errors:
+            log(f"[corpus] errors: {report.errors}")
+            return 1
+        raw_wall = min(raw_wall, w)
+        for f in report.files:
+            file_walls[f["index"]] = min(file_walls.get(f["index"], float("inf")),
+                                         f["wall_s"])
+        overhead = min(overhead, max(0.0, w - sum(f["wall_s"] for f in report.files)))
+    cwall = sum(file_walls.values()) + overhead
+    ders = {f["index"]: score(f["result"], pairs[f["index"]][1])
+            for f in report.files}
+    for i in sorted(ders):
+        log(f"[corpus] file {i}: der {ders[i]:.2f}% best wall {file_walls[i]:.4f}s")
+    corpus_der = round(float(np.mean(list(ders.values()))), 4)
+    fw = sorted(file_walls.values())
+    log(f"[corpus] 6x{int(FULL_S)}s: censored {cwall:.4f}s -> "
+        f"{6 * FULL_S / cwall:.1f}x (raw best pass {raw_wall:.4f}s -> "
+        f"{6 * FULL_S / raw_wall:.1f}x; per-file walls min {fw[0]:.4f} max "
+        f"{fw[-1]:.4f}s over {n_pass} passes; mean der {corpus_der}%)")
+    extra.update({"corpus_rtf": round(6 * FULL_S / cwall, 2),
+                  "corpus_rtf_raw": round(6 * FULL_S / raw_wall, 2),
+                  "corpus_file_wall_min_s": round(fw[0], 4),
+                  "corpus_file_wall_max_s": round(fw[-1], 4),
+                  "corpus_overhead_s": round(overhead, 4),
+                  "corpus_der_pct": corpus_der,
+                  "corpus_der_pct_files": [ders[i] for i in sorted(ders)]})
+    emit(rtf, f"{int(FULL_S)}s_full", extra)
+    if FULL_S == 600.0:
+        if not abs(corpus_der - JAX_CPU_CORPUS_DER_PCT) <= DER_SLACK_PCT:
+            log(f"[corpus] DER {corpus_der}% more than {DER_SLACK_PCT} point "
+                f"from the JAX CPU {JAX_CPU_CORPUS_DER_PCT}%")
+            return 1
     return 0
 
 

@@ -10,6 +10,11 @@ check.
 ``KERNEL=SOURCE.cu`` (``asp_grid_stats`` or ``fused_log_mel``) builds that
 kernel from another source with the same C entry for this run: a variant
 is checked and timed without replacing the kernel in ``csrc/``.
+``--widths`` also checks and times the pooling at the other shipped
+attention widths (``ecapa_proto_small.npz``: A 32 padded to 64, CC 384;
+``ecapa_synthetic_full_stream.npz``: A 128, CC 1536) and the log-mel on the
+windowed grid's batch (512 rows of 32,000 samples at a 1,600-sample
+stride) at 40 and 80 mels.
 
 It also disassembles the built libraries (``cuobjdump -sass``) and prints,
 per ``__global__`` function, its instruction count and the length of its
@@ -63,7 +68,10 @@ def main() -> int:
     from speech_diarization_tpu_torch.models.port import load_speaker_encoder
     from speech_diarization_tpu_torch.ops import kernels
 
+    widths = "--widths" in sys.argv[1:]
     for arg in sys.argv[1:]:
+        if arg == "--widths":
+            continue
         name, _, src = arg.partition("=")
         kernels.KERNELS[name] = (str(Path(src).resolve()), *kernels.KERNELS[name][1:])
         print(f"{name}: built from {src}")
@@ -103,6 +111,39 @@ def main() -> int:
         print(f"asp_grid_stats: max abs err {(out - ref).abs().max().item():.3e} "
               f"of max {ref.abs().max().item():.3f}")
         chip_smoke.ragged_sweep(enc, dev)
+        if widths:
+            for w_name in ("ecapa_proto_small.npz",
+                           "ecapa_synthetic_full_stream.npz"):
+                e = load_speaker_encoder(ROOT / "weights" / w_name,
+                                         dtype=torch.bfloat16).to(dev).eval()
+                # the main path's 201 rows, and 450 rows (three chunks of
+                # 208, the running state)
+                for win_f, n_w in ((201, 600), (450, 50)):
+                    xw = torch.randn(e.net.cat_channels, 400 + 10 * n_w + win_f,
+                                     generator=g).to(dev).to(torch.bfloat16)
+                    aw = e.net.k1_inputs(xw, 400, 10, win_f, n_w)
+                    out, ref = asp_grid_stats(*aw), _asp_grid_stats_plain(*aw)
+                    torch.cuda.synchronize()
+                    print(f"asp_grid_stats {w_name} (A {e.net.att_channels}, "
+                          f"padded {aw[2].shape[0]}, CC {e.net.cat_channels}) "
+                          f"win_f {win_f}: max abs err "
+                          f"{(out - ref).abs().max().item():.3e} of max "
+                          f"{ref.abs().max().item():.3f}")
+                    if win_f == 201:
+                        a201 = aw
+                k1w = chip_smoke.cuda_time_ms(lambda: asp_grid_stats(*a201), 50)
+                print(f"asp_grid_stats {w_name}: {k1w:.4f} ms for 600 windows")
+            yw = y[:511 * 1600 + 32000].unfold(0, 32000, 1600)
+            for n_mels in (40, 80):
+                out = fused_log_mel(yw, n_mels=n_mels)
+                ref = _log_mel_batched(yw, n_mels=n_mels)
+                torch.cuda.synchronize()
+                t_w = chip_smoke.cuda_time_ms(
+                    lambda: fused_log_mel(yw, n_mels=n_mels), 20)
+                print(f"fused_log_mel {tuple(yw.shape)} strides {yw.stride()} "
+                      f"{n_mels} mels: max abs err "
+                      f"{(out - ref).abs().max().item():.3e} of max "
+                      f"{ref.abs().max().item():.3f}; {t_w:.4f} ms")
         for _ in range(2):
             k2 = chip_smoke.cuda_time_ms(lambda: fused_log_mel(y, n_mels=40), 50)
             k2b = chip_smoke.cuda_time_ms(lambda: fused_log_mel(yb, n_mels=40), 50)

@@ -28,9 +28,38 @@ default, ``demix_synthetic.npz``) on the draws (white, 10, 60 s) and
 costs about 2.4 s a window on the CPU, so its 600 s run (400 windows) is
 left out.
 
+``--encoders``: the bench configuration (overlap on) on the 60 s bench
+draw with the other shipped encoders and options, each loaded as
+``bench.py`` loads its encoder (bf16 trunk): ``ecapa_synthetic_full_stream
+.npz`` (streamed; attention width 128, 80 mels), ``ecapa_proto_small.npz``
+(streamed; width 32), ``ecapa_synthetic.npz`` (not streaming-trained: the
+windowed grid) with the GRU VAD (``vad_synthetic.npz``) and with the energy
+VAD, and the default encoder with ``ClusterConfig(method='ahc')`` and
+``'hdbscan'``, and the full-width streaming encoder on the windowed grid
+(``EmbedConfig(grid_backend='windowed')``: the grid's log-mel at 80 mels).
+DER at the metric's default collar of 0.25 s, as every bar here.  One JSON
+line.
+
+``--heldout``: the port of ``scripts/eval_heldout.py``'s table: 8 domains x
+3 files of 60 s (seeds 1000 + i), collar 0.25 s, DER / JER / speaker-count
+accuracy per domain, in ``eval_heldout.py``'s configuration (spectral, max
+8 speakers, the overlap and enhancement defaults; ``SDTPU_EVAL_OVERLAP`` /
+``SDTPU_EVAL_ENHANCE`` honoured) with the bench's bf16 trunk, as
+``scripts/torch_eval_heldout.py`` runs the port on the card.  ``--heldout
+--cli``: file 0 of each domain at the CLI's defaults (frame reassignment
+on, float32 encoder), the held-out phase of ``chip_smoke.py``.  One JSON
+line each.
+
+``--corpus``: ``bench.py``'s milestone 3 files, ``synth_audio(600, seed=40
++ i)`` for i < 6, through the JAX ``corpus_diarize`` in the bench
+configuration: per-file and mean DER.  One JSON line.
+
     JAX_PLATFORMS=cpu python scripts/torch_port_der_bar.py [--overlap off|on|both]
     JAX_PLATFORMS=cpu python scripts/torch_port_der_bar.py --noisy [--seconds 60]
     JAX_PLATFORMS=cpu python scripts/torch_port_der_bar.py --noisy --enhance zipenhancer
+    JAX_PLATFORMS=cpu python scripts/torch_port_der_bar.py --encoders
+    JAX_PLATFORMS=cpu python scripts/torch_port_der_bar.py --heldout [--cli]
+    JAX_PLATFORMS=cpu python scripts/torch_port_der_bar.py --corpus
 """
 from __future__ import annotations
 
@@ -57,6 +86,14 @@ def main() -> None:
     ap.add_argument("--enhance", default="gtcrn",
                     choices=["gtcrn", "zipenhancer", "demix-dialog"],
                     help="with --noisy: the enhancement backend")
+    ap.add_argument("--encoders", action="store_true",
+                    help="the other encoders, VADs and clustering methods")
+    ap.add_argument("--heldout", action="store_true",
+                    help="the held-out table (eval_heldout.py's draws)")
+    ap.add_argument("--cli", action="store_true",
+                    help="with --heldout: file 0 per domain, CLI defaults")
+    ap.add_argument("--corpus", action="store_true",
+                    help="bench.py's corpus milestone files")
     args = ap.parse_args()
 
     import jax
@@ -76,6 +113,12 @@ def main() -> None:
     enc, enc_p = load_speaker_encoder(w / "ecapa_robust_stream.npz",
                                       dtype=jnp.bfloat16)
     vad, vad_p = load_vad(w / "vad_conv_mc.npz")
+    if args.encoders:
+        return encoders_bar(w, (enc, enc_p), jax.jit(partial(vad.probs, vad_p)))
+    if args.heldout:
+        return heldout_bar(w, args.cli)
+    if args.corpus:
+        return corpus_bar((enc, enc_p), jax.jit(partial(vad.probs, vad_p)))
     if args.noisy:
         from speech_diarization_tpu.config import EnhanceConfig
         from speech_diarization_tpu.pipelines.enhance import make_enhance_fn
@@ -138,6 +181,155 @@ def main() -> None:
             out[f"segments_{int(dur)}s"] = len(res.segments)
             out[f"wall_s_{int(dur)}s"] = round(time.perf_counter() - t0, 2)
         print(json.dumps(out), flush=True)
+
+
+def _der(truth, segs, collar_s: float = 0.25):
+    """DER of ``segs`` against the draw's truth, at the metric's default
+    collar of 0.25 s, as ``bench.py`` and ``chip_smoke.py`` score."""
+    from speech_diarization_tpu.metrics.der import diarization_error_rate
+    from speech_diarization_tpu.types import SegmentArray
+
+    return diarization_error_rate(SegmentArray(*truth), segs, collar_s=collar_s)
+
+
+def encoders_bar(w, default_enc, conv_vad) -> None:
+    """The bench configuration on the 60 s bench draw with each of the other
+    encoders, VADs and clustering methods of ``chip_smoke.py``'s pipeline
+    phase."""
+    import jax
+    import jax.numpy as jnp
+
+    from speech_diarization_tpu.config import (
+        ClusterConfig, DiarizationConfig, EmbedConfig,
+    )
+    from speech_diarization_tpu.pipelines.diarize import DiarizationPipeline
+    from speech_diarization_tpu.train.recipes import load_speaker_encoder, load_vad
+    from speech_diarization_tpu.train.synthetic import make_conversation
+
+    def enc(name):
+        return load_speaker_encoder(w / name, dtype=jnp.bfloat16)
+
+    gru, gru_p = load_vad(w / "vad_synthetic.npz")
+    full = enc("ecapa_synthetic_full_stream.npz")
+    cases = {
+        # tag: (encoder, VAD, clustering method, grid backend)
+        "full_stream": (full, conv_vad, "spectral", "auto"),
+        "full_stream_windowed": (full, conv_vad, "spectral", "windowed"),
+        "proto_small": (enc("ecapa_proto_small.npz"), conv_vad, "spectral", "auto"),
+        "windowed_gru": (enc("ecapa_synthetic.npz"),
+                         jax.jit(partial(gru.probs, gru_p)), "spectral", "auto"),
+        "windowed_energy": (enc("ecapa_synthetic.npz"), None, "spectral", "auto"),
+        "ahc": (default_enc, conv_vad, "ahc", "auto"),
+        "hdbscan": (default_enc, conv_vad, "hdbscan", "auto"),
+    }
+    wave, truth = make_conversation(np.random.default_rng(0), 60.0,
+                                    n_speakers=3, sr=16000)
+    out = {"device": jax.devices()[0].platform, "draw": "bench 60 s"}
+    for tag, (encoder, vad_fn, method, grid) in cases.items():
+        cfg = DiarizationConfig(
+            cluster=ClusterConfig(method=method, max_speakers=8),
+            embed=EmbedConfig(grid_backend=grid))
+        pipe = DiarizationPipeline(cfg, encoder=encoder, vad_probs_fn=vad_fn)
+        t0 = time.perf_counter()
+        res = pipe((wave, 16000))
+        out[f"der_pct_{tag}"] = round(100.0 * _der(truth, res.segments).der, 4)
+        out[f"speakers_{tag}"] = res.num_speakers
+        out[f"segments_{tag}"] = len(res.segments)
+        out[f"wall_s_{tag}"] = round(time.perf_counter() - t0, 2)
+        print(json.dumps(out), flush=True)
+
+
+def heldout_bar(w, cli: bool) -> None:
+    """The JAX pipeline on ``eval_heldout.py``'s draws: per domain DER, JER
+    and speaker-count accuracy (collar 0.25 s), or with ``cli`` file 0 of
+    each domain at the CLI's defaults."""
+    import argparse
+    import os
+
+    import jax
+    import jax.numpy as jnp
+
+    from speech_diarization_tpu.cli import (
+        _add_common_config_args, build_config, build_pipeline_kwargs,
+    )
+    from speech_diarization_tpu.config import (
+        ClusterConfig, DiarizationConfig, EnhanceConfig, OverlapConfig,
+    )
+    from speech_diarization_tpu.metrics.der import jaccard_error_rate
+    from speech_diarization_tpu.pipelines.diarize import DiarizationPipeline
+    from speech_diarization_tpu.train.recipes import load_speaker_encoder, load_vad
+    from speech_diarization_tpu.types import SegmentArray
+
+    sys.path.insert(0, str(ROOT / "scripts"))
+    from eval_heldout import DOMAINS, make_file
+
+    if cli:
+        p = argparse.ArgumentParser()
+        _add_common_config_args(p)
+        args = p.parse_args(["--cpu"])
+        pipe = DiarizationPipeline(build_config(args), **build_pipeline_kwargs(args))
+        n_files = 1
+    else:
+        enh = os.environ.get("SDTPU_EVAL_ENHANCE")
+        ov = os.environ.get("SDTPU_EVAL_OVERLAP")
+        cfg = DiarizationConfig(
+            cluster=ClusterConfig(method="spectral", max_speakers=8),
+            overlap=OverlapConfig(**({} if ov is None else {"enabled": ov == "1"})),
+            enhance=EnhanceConfig(enabled=enh != "off",
+                                  backend=enh if enh not in (None, "off") else "gtcrn"))
+        vad, vad_p = load_vad(w / "vad_conv_mc.npz")
+        pipe = DiarizationPipeline(
+            cfg, encoder=load_speaker_encoder(w / "ecapa_robust_stream.npz",
+                                              dtype=jnp.bfloat16),
+            vad_probs_fn=jax.jit(partial(vad.probs, vad_p)))
+        n_files = 3
+    out = {"device": jax.devices()[0].platform,
+           "surface": "cli" if cli else "eval_heldout", "domains": {}}
+    for domain in DOMAINS:
+        ders, jers, ok, files = [], [], [], []
+        for i in range(n_files):
+            wave, truth = make_file(domain, i, 60.0, 3, 16000)
+            res = pipe((wave, 16000))
+            d = _der(truth, res.segments, collar_s=0.25).der
+            ders.append(d)
+            jers.append(jaccard_error_rate(SegmentArray(*truth), res.segments,
+                                           collar_s=0.25))
+            ok.append(res.num_speakers == len(np.unique(truth[2])))
+            files.append(round(100.0 * d, 4))
+        out["domains"][domain] = {
+            "der_pct": round(100.0 * float(np.mean(ders)), 4),
+            "jer_pct": round(100.0 * float(np.mean(jers)), 4),
+            "spk_count_acc": round(float(np.mean(ok)), 4), "der_pct_files": files}
+        print(json.dumps(out), flush=True)
+
+
+def corpus_bar(encoder, vad_fn) -> None:
+    """``bench.py``'s milestone 3 draws through the JAX corpus worker."""
+    import jax
+
+    from speech_diarization_tpu.config import (
+        ClusterConfig, DiarizationConfig, EmbedConfig,
+    )
+    from speech_diarization_tpu.pipelines.corpus import corpus_diarize
+    from speech_diarization_tpu.pipelines.diarize import DiarizationPipeline
+    from speech_diarization_tpu.train.synthetic import make_conversation
+
+    cfg = DiarizationConfig(cluster=ClusterConfig(method="spectral", max_speakers=8),
+                            embed=EmbedConfig(grid_backend="auto"))
+    pipe = DiarizationPipeline(cfg, encoder=encoder, vad_probs_fn=vad_fn)
+    pairs = [make_conversation(np.random.default_rng(40 + i), 600.0,
+                               n_speakers=3, sr=16000) for i in range(6)]
+    t0 = time.perf_counter()
+    report = corpus_diarize([(wv, 16000) for wv, _ in pairs], cfg,
+                            pipeline_factory=lambda: pipe, keep_results=True)
+    ders = {f["index"]: round(100.0 * _der(pairs[f["index"]][1],
+                                           f["result"].segments).der, 4)
+            for f in report.files}
+    print(json.dumps({"device": jax.devices()[0].platform, "corpus": "6 x 600 s",
+                      "der_pct_files": [ders.get(i) for i in range(6)],
+                      "der_pct_mean": round(float(np.mean(list(ders.values()))), 4),
+                      "errors": report.errors,
+                      "wall_s": round(time.perf_counter() - t0, 2)}), flush=True)
 
 
 if __name__ == "__main__":

@@ -7,11 +7,17 @@
 Runs on the card unless ``--cpu`` is given.  ``diarize`` runs at the
 defaults of the JAX package's CLI: overlap rescue on (the segmentation
 model runs inside the per-chunk device program), frame reassignment on,
-spectral clustering, and the GTCRN denoiser engaged on files whose
-estimated SNR is under 25 dB (they take the whole-file path).
-``--no-overlap``, ``--no-reseg``, ``--hmm``, ``--enhance`` (gtcrn,
-zipenhancer, demix-dialog or off), ``--enhance-scope`` and
-``--enhance-weights`` are options.  Writes RTTM, JSON, SRT and CSV.
+spectral clustering, the shipped conv VAD, and the GTCRN denoiser engaged
+on files whose estimated SNR is under 25 dB (they take the whole-file
+path).  ``--cluster-method`` (spectral, ahc, hdbscan, hdbscan2) with
+``--cos-threshold``, ``--vad-backend`` (auto: the first shipped neural VAD
+of the conv TCNs and the GRU net, else the energy VAD; energy; neural) with
+``--vad-weights``, ``--encoder-weights`` (a checkpoint that is not
+streaming-trained runs the windowed grid), ``--no-overlap``,
+``--no-reseg``, ``--hmm``, ``--enhance`` (gtcrn, zipenhancer, demix-dialog
+or off), ``--enhance-scope`` and ``--enhance-weights`` are options;
+``--encoder eres2netv2|campp`` is refused (not ported).  Writes RTTM, JSON,
+SRT and CSV.
 ``enhance`` writes a ``<root>-enhanced`` tree of denoised 16 kHz WAVs
 (files already there are skipped); ``demix`` writes
 ``<output>/{music,effect,dialog}/`` stereo 44.1 kHz stems.
@@ -37,6 +43,10 @@ def _add_common_config_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--speech-pad-ms", type=float, default=40.0)
     p.add_argument("--scd-threshold", type=float, default=1.0)
     p.add_argument("--no-scd", action="store_true")
+    p.add_argument("--cluster-method", default="spectral",
+                   choices=["spectral", "ahc", "hdbscan", "hdbscan2"])
+    p.add_argument("--cos-threshold", type=float, default=0.70,
+                   help="AHC cut / HDBSCAN centroid-merge cosine threshold")
     p.add_argument("--min-speakers", type=int, default=1)
     p.add_argument("--max-speakers", type=int, default=8)
     p.add_argument("--no-reseg", action="store_true",
@@ -68,10 +78,19 @@ def _add_common_config_args(p: argparse.ArgumentParser) -> None:
                         "--no-overlap disables")
     p.add_argument("--overlap-weights", type=str, default=None,
                    help="segmentation checkpoint for the overlap detector")
+    p.add_argument("--encoder", default="ecapa",
+                   choices=["ecapa", "eres2netv2", "campp"],
+                   help="eres2netv2 and campp are not ported and raise")
     p.add_argument("--encoder-weights", type=str, default=None,
-                   help="streaming-trained ECAPA npz checkpoint")
+                   help="ECAPA npz checkpoint (one that is not "
+                        "streaming-trained runs the windowed grid)")
+    p.add_argument("--vad-backend", default="auto",
+                   choices=["auto", "energy", "neural"],
+                   help="'auto' uses a trained neural VAD when weights are "
+                        "available (shipped or --vad-weights) and falls back "
+                        "to the deterministic energy VAD otherwise")
     p.add_argument("--vad-weights", type=str, default=None,
-                   help="conv VAD npz checkpoint")
+                   help="neural VAD npz checkpoint (conv TCN or GRU net)")
     p.add_argument("--bf16", action="store_true",
                    help="run the encoder trunk in bfloat16")
     p.add_argument("--cpu", action="store_true",
@@ -104,7 +123,9 @@ def build_config(args: argparse.Namespace):
             speech_pad_ms=args.speech_pad_ms,
         ),
         scd=ScdConfig(enabled=not args.no_scd, peak_z_threshold=args.scd_threshold),
-        cluster=ClusterConfig(method="spectral", min_speakers=args.min_speakers,
+        cluster=ClusterConfig(method=args.cluster_method,
+                              cos_threshold=args.cos_threshold,
+                              min_speakers=args.min_speakers,
                               max_speakers=args.max_speakers),
         reseg=ResegConfig(enabled=not args.no_reseg, hmm=args.hmm),
         merge=MergeConfig(max_gap_s=args.merge_gap_s,
@@ -118,23 +139,46 @@ def build_config(args: argparse.Namespace):
 
 
 def build_pipeline_kwargs(args: argparse.Namespace) -> dict:
+    """The encoder and the VAD, resolved as the JAX CLI resolves them.
+    ``--vad-backend auto`` / ``neural``: ``--vad-weights`` or the first
+    shipped of ``VAD_PREFERENCE``; with none, ``auto`` leaves the pipeline's
+    energy VAD and ``neural`` runs the GRU net on random weights (with a
+    warning).  ``energy``: the pipeline's energy VAD."""
     import torch
 
     from .models.port import load_speaker_encoder, load_vad
     from .utils.weights import ENCODER_PREFERENCE, VAD_PREFERENCE, prefer_weights
 
+    if args.encoder != "ecapa":
+        raise NotImplementedError(
+            f"--encoder {args.encoder} is not ported yet (ROADMAP Queue 1 "
+            "item 4: models/eres2netv2.py, models/campp.py)")
     enc_w = args.encoder_weights or prefer_weights(ENCODER_PREFERENCE)
-    vad_w = args.vad_weights or prefer_weights(VAD_PREFERENCE)
-    if enc_w is None or vad_w is None:
-        raise SystemExit("no encoder/VAD weights: pass --encoder-weights and "
-                         "--vad-weights")
+    if enc_w is None:
+        raise SystemExit("no encoder weights: pass --encoder-weights")
     encoder = load_speaker_encoder(enc_w,
                                    dtype=torch.bfloat16 if args.bf16 else None)
     encoder.sample_rate = args.sample_rate
-    vad = load_vad(vad_w)
-    vad.sample_rate = args.sample_rate
-    return {"encoder": encoder, "vad": vad,
-            "device": "cpu" if args.cpu else None}
+    kwargs = {"encoder": encoder, "device": "cpu" if args.cpu else None}
+    if args.vad_backend in ("neural", "auto"):
+        vad_w = args.vad_weights or prefer_weights(VAD_PREFERENCE)
+        if vad_w is not None:
+            kwargs["vad"] = load_vad(vad_w)
+        elif args.vad_backend == "neural":
+            from .models.vad import VadModel, VadNet
+            from .utils.logging import get_logger
+
+            get_logger("cli").warning(
+                "--vad-backend neural but no weights found; RANDOM VAD params "
+                "(results will be meaningless: pass --vad-weights)")
+            net, g = VadNet(), torch.Generator().manual_seed(1)
+            with torch.no_grad():
+                for p in net.parameters():
+                    p.copy_(torch.randn(p.shape, generator=g) * p.shape[-1] ** -0.5)
+            kwargs["vad"] = VadModel(net)
+        if "vad" in kwargs:
+            kwargs["vad"].sample_rate = args.sample_rate
+    return kwargs
 
 
 def cmd_diarize(args) -> int:
@@ -173,8 +217,9 @@ def cmd_enhance(args) -> int:
         raise NotImplementedError(
             "the published ZipEnhancer graph (zipenhancer-ref) and torch "
             "checkpoints (.tar, ModelScope) are not ported yet (ROADMAP "
-            "Queue 1: models/zipenhancer_ref.py + models/port_zipenhancer.py, "
-            "the next slice); use .npz weights with gtcrn or zipenhancer")
+            "Queue 1 item 5: models/zipenhancer_ref.py + "
+            "models/port_zipenhancer.py); use .npz weights with gtcrn or "
+            "zipenhancer")
     written = enhance_batch(args.root, backend=args.backend, weights=args.weights,
                             device="cpu" if args.cpu else None)
     print(f"enhanced {len(written)} files")

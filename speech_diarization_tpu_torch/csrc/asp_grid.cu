@@ -12,6 +12,24 @@
 // b2 is constant over a channel's rows, so the softmax does not see it and
 // the kernel does not read it.
 //
+// Attention width.  The kernels walk A in 64-wide slices, a count NSL that
+// is a template parameter, instantiated for A 64 and A 128: phase 1 runs
+// one row of blocks per slice, and phase 2 keeps every slice of the
+// window's activations and of each w2 tile in shared memory and
+// accumulates the logits over the slices (more k-steps of the same mma
+// chain).  The caller zero-pads a narrower A (rows of w1x, columns of bw
+// and w2, s_bn, and t_bn with 0): a padded unit gives
+// tanh(relu(0) * s + 0) = 0 and meets a zero column of w2, so the padding
+// is exact.  EcapaTdnn pads once, at load; A 32 runs as A 64.  The slice
+// count is a template parameter and not a runtime loop because the
+// runtime loop cost the shipped main-path encoder (A 64) 10 % on the card
+// (0.1428 -> 0.1566 ms a 60 s chunk): the NSL = 1 instance is the A-64
+// kernel as it was, with the same shared memory (112,384 B) and two blocks
+// an SM.  At A 128 the two slices take 160,768 B, so phase 2 runs one
+// block an SM; the activations are still computed once per window, where
+// keeping one slice resident at a time would recompute them for every
+// channel tile.
+//
 // What bounds it on the H100: one 60 s chunk (W=600 windows of win_f=201
 // rows, CC=768 channels, A=64) needs 11.9 GFLOP of logits and 0.6 GFLOP of
 // pre-projection (both bf16 tensor-core work), against 10.7 MB of bf16
@@ -77,19 +95,21 @@
 
 namespace {
 
-constexpr int A_DIM = 64;        // attention width of the shipped encoders
-constexpr int A_STRIDE = 72;     // bf16 per staged row of a / w2 (144 B)
+constexpr int A_SL = 64;         // attention units per slice
+constexpr int A_STRIDE = 72;     // bf16 per staged row of a / w2 / x (144 B)
 constexpr int CT = 64;           // channels per phase-2 tile
 constexpr int P1_THREADS = 128;  // four warps: 16 rows, a quarter of K each
 constexpr int P2_THREADS = 256;  // eight warps: 4 x 16 channels, 2 row halves
 constexpr int NTW = 13;          // 8-row tiles per warp of phase 2
 constexpr int ROWS = 2 * NTW * 8;   // rows per chunk of a window: 208
-// phase 2's shared memory: activations, two w2 tiles, two x tiles, the row
-// halves' partial stats; past it the running state of a window of several
-// chunks, one float4 a channel
-constexpr size_t P2_SMEM =
-    sizeof(__nv_bfloat16) * (ROWS * A_STRIDE + 2 * CT * A_STRIDE + 2 * ROWS * A_STRIDE) +
-    2 * 2 * CT * sizeof(float4);
+// phase 2's shared memory for n_sl slices of A: activations, two w2 tiles,
+// two x tiles, the row halves' partial stats; past it the running state of
+// a window of several chunks, one float4 a channel
+constexpr size_t p2_smem(int n_sl) {
+  return sizeof(__nv_bfloat16) *
+             (n_sl * ROWS * A_STRIDE + 2 * n_sl * CT * A_STRIDE + 2 * ROWS * A_STRIDE) +
+         2 * 2 * CT * sizeof(float4);
+}
 
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
                                          uint32_t b0, uint32_t b1) {
@@ -141,20 +161,26 @@ __device__ __forceinline__ float quad_sum(float v) {
 }
 
 // hx[r][a] = sum_c x[c][first_f + r] * w1x[a][c], r < n_rows.  A block owns
-// 16 rows; its four warps take a quarter of the channels each (short
-// dependent load chains, four times the warps in flight) and add up
-// through shared memory.
+// 16 rows and one 64-wide slice of A (blockIdx.y); its four warps take a
+// quarter of the channels each (short dependent load chains, four times
+// the warps in flight) and add up through shared memory.  The blocks of
+// slice 0 also write x_t.
+template <int NSL>
 __global__ void __launch_bounds__(P1_THREADS)
 asp_preproj_kernel(const unsigned short* __restrict__ x,   // [cc, t_f] bf16
                    long long t_f, int first_f, int cc,
-                   const __nv_bfloat16* __restrict__ w1x,   // [A_DIM, cc]
+                   const __nv_bfloat16* __restrict__ w1x,   // [a_dim, cc]
                    int n_rows,
                    uint32_t* __restrict__ x_t,   // [n_rows, cc] bf16, in pairs
-                   float* __restrict__ hx) {                // [n_rows, A_DIM]
-  __shared__ float red[P1_THREADS / 32][16 * A_DIM];
+                   float* __restrict__ hx) {                // [n_rows, a_dim]
+  __shared__ float red[P1_THREADS / 32][16 * A_SL];
+  constexpr int a_dim = NSL * A_SL;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, tq = lane & 3;
   const int r0 = blockIdx.x * 16;
+  const int a0 = NSL == 1 ? 0 : blockIdx.y * A_SL;   // this block's slice of A
+  const bool write_xt = NSL == 1 || blockIdx.y == 0;
+  w1x += (size_t)a0 * cc;
   float acc[4][2][4];
 #pragma unroll
   for (int mt = 0; mt < 4; ++mt)
@@ -181,7 +207,8 @@ asp_preproj_kernel(const unsigned short* __restrict__ x,   // [cc, t_f] bf16
         // the B fragment is two neighbouring channels of one row: the
         // time-major copy phase 2 reads
         const int r = r0 + nt * 8 + g;
-        if (r < n_rows) x_t[((size_t)r * cc + k0 + 8 * h + 2 * tq) >> 1] = b[nt][h];
+        if (write_xt && r < n_rows)
+          x_t[((size_t)r * cc + k0 + 8 * h + 2 * tq) >> 1] = b[nt][h];
       }
 #pragma unroll
     for (int mt = 0; mt < 4; ++mt) {
@@ -201,33 +228,41 @@ asp_preproj_kernel(const unsigned short* __restrict__ x,   // [cc, t_f] bf16
     for (int q = 0; q < 4; ++q)
 #pragma unroll
       for (int mt = 0; mt < 4; ++mt)
-        red[warp][(nt * 8 + 2 * tq + (q & 1)) * A_DIM + mt * 16 + g + 8 * (q >> 1)] =
+        red[warp][(nt * 8 + 2 * tq + (q & 1)) * A_SL + mt * 16 + g + 8 * (q >> 1)] =
             acc[mt][nt][q];
   __syncthreads();
-  for (int o = threadIdx.x; o < 16 * A_DIM; o += P1_THREADS) {
-    if (r0 + o / A_DIM >= n_rows) break;
+  for (int o = threadIdx.x; o < 16 * A_SL; o += P1_THREADS) {
+    const int r = r0 + o / A_SL;
+    if (r >= n_rows) break;
     float v = red[0][o];
 #pragma unroll
     for (int w = 1; w < P1_THREADS / 32; ++w) v += red[w][o];
-    hx[(size_t)r0 * A_DIM + o] = v;
+    hx[(size_t)r * a_dim + a0 + o % A_SL] = v;
   }
 }
 
+template <int NSL>
 __global__ void __launch_bounds__(P2_THREADS, 2)
 asp_window_kernel(const __nv_bfloat16* __restrict__ x_t,  // [n_rows, cc]
                   int n_rows, int cc,
-                  const float* __restrict__ hx,            // [n_rows, A_DIM]
-                  const float* __restrict__ bw,            // [W, A_DIM]
-                  const float* __restrict__ s_bn,          // [A_DIM]
-                  const float* __restrict__ t_bn,          // [A_DIM]
-                  const __nv_bfloat16* __restrict__ w2,    // [cc, A_DIM]
+                  const float* __restrict__ hx,            // [n_rows, a_dim]
+                  const float* __restrict__ bw,            // [W, a_dim]
+                  const float* __restrict__ s_bn,          // [a_dim]
+                  const float* __restrict__ t_bn,          // [a_dim]
+                  const __nv_bfloat16* __restrict__ w2,    // [cc, a_dim]
                   int hop_f, int win_f,
                   float* __restrict__ out) {               // [W, 2*cc]
   static_assert(P2_THREADS == 2 * 32 * (CT / 16), "a pair of warps per 16 channels");
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* a_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [ROWS][A_STRIDE]
-  __nv_bfloat16* w2_s = a_s + ROWS * A_STRIDE;                      // [2][CT][A_STRIDE]
-  __nv_bfloat16* x_s = w2_s + 2 * CT * A_STRIDE;                    // [2][ROWS][A_STRIDE]
+  constexpr int a_dim = NSL * A_SL;
+  // a_s [NSL][ROWS][A_STRIDE], w2_s [2][NSL][CT][A_STRIDE],
+  // x_s [2][ROWS][A_STRIDE]: one slice of a_s / of a w2 tile has the layout
+  // of the whole of it at A 64
+  constexpr int A_SLICE_E = ROWS * A_STRIDE;   // elements per slice of a_s
+  constexpr int W_SLICE_E = CT * A_STRIDE;     // elements per slice of a w2 tile
+  __nv_bfloat16* a_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* w2_s = a_s + NSL * A_SLICE_E;
+  __nv_bfloat16* x_s = w2_s + 2 * NSL * W_SLICE_E;
   // per tile buffer, row half and channel: (max, sum p, sum p x, sum p x^2)
   float4* part = reinterpret_cast<float4*>(x_s + 2 * ROWS * A_STRIDE);   // [2][2][CT]
   float4* state = part + 2 * 2 * CT;   // [cc], only when win_f > ROWS
@@ -251,18 +286,19 @@ asp_window_kernel(const __nv_bfloat16* __restrict__ x_t,  // [n_rows, cc]
     asm volatile("bar.sync %0, 64;" ::"r"(1 + cg) : "memory");
   };
 
-  // The pair's slice of a tile: w2 rows of its 16 channels (128 B each, two
-  // pieces a thread) and the chunk's rows of those channels in x_t (32 B a
-  // row, KX pieces a thread).  All but the tile and the chunk is fixed per
-  // thread.
+  // The pair's slice of a tile: w2 rows of its 16 channels (128 B each per
+  // slice of A, two pieces a thread) and the chunk's rows of those channels
+  // in x_t (32 B a row, KX pieces a thread).  All but the tile and the
+  // chunk is fixed per thread.
   constexpr int KX = (ROWS * 2 + 63) / 64;
-  const uint32_t smem_u = (uint32_t)__cvta_generic_to_shared(smem_raw);
   const int w2_row = cg * 16 + (pt >> 3);
-  const uint32_t w2_dst = smem_u + 2 * ((ROWS + w2_row) * A_STRIDE + (pt & 7) * 8);
-  const __nv_bfloat16* w2_src = w2 + (size_t)w2_row * A_DIM + (pt & 7) * 8;
+  const uint32_t w2_dst = (uint32_t)__cvta_generic_to_shared(
+      w2_s + w2_row * A_STRIDE + (pt & 7) * 8);
+  const __nv_bfloat16* w2_src = w2 + (size_t)w2_row * a_dim + (pt & 7) * 8;
   const int x_r = pt >> 1;
   const int x_col = cg * 16 + (pt & 1) * 8;
-  const uint32_t x_dst = smem_u + 2 * ((ROWS + 2 * CT + x_r) * A_STRIDE + x_col);
+  const uint32_t x_dst = (uint32_t)__cvta_generic_to_shared(
+      x_s + x_r * A_STRIDE + x_col);
   const size_t x_step = (size_t)32 * cc;
   // mma row g is channel 2g of the warp's 16, row g+8 channel 2g+1: a
   // thread's two channels are neighbours, one 32-bit word of x_s
@@ -280,10 +316,13 @@ asp_window_kernel(const __nv_bfloat16* __restrict__ x_t,  // [n_rows, cc]
     if (c0) __syncthreads();   // every warp is done with the chunk before
     const __nv_bfloat16* x_src = x_t + (size_t)(c_first + x_r) * cc + x_col;
     auto load_tile = [&](int ct, int buf) {
-      const uint32_t wd = w2_dst + buf * (2 * CT * A_STRIDE);
-      const __nv_bfloat16* ws = w2_src + (size_t)ct * CT * A_DIM;
-      cp_async16s(wd, ws);
-      cp_async16s(wd + 2 * 8 * A_STRIDE, ws + 8 * A_DIM);
+#pragma unroll
+      for (int sl = 0; sl < NSL; ++sl) {
+        const uint32_t wd = w2_dst + 2 * ((buf * NSL + sl) * W_SLICE_E);
+        const __nv_bfloat16* ws = w2_src + (size_t)ct * CT * a_dim + sl * A_SL;
+        cp_async16s(wd, ws);
+        cp_async16s(wd + 2 * 8 * A_STRIDE, ws + 8 * a_dim);
+      }
       const uint32_t xd = x_dst + buf * (2 * ROWS * A_STRIDE);
       const __nv_bfloat16* xs = x_src + ct * CT;
 #pragma unroll
@@ -337,21 +376,24 @@ asp_window_kernel(const __nv_bfloat16* __restrict__ x_t,  // [n_rows, cc]
 
     // the chunk's activations, once: a_s[r][a], zero rows past wl.  A
     // thread keeps its two attention units and walks the rows eight apart.
-    {
-      const int a = (tid & 31) * 2;
-      const float2 b = *reinterpret_cast<const float2*>(bw + (size_t)j * A_DIM + a);
+#pragma unroll
+    for (int sl = 0; sl < NSL; ++sl) {
+      const int al = (tid & 31) * 2;          // unit within the slice
+      const int a = sl * A_SL + al;
+      const float2 b = *reinterpret_cast<const float2*>(bw + (size_t)j * a_dim + a);
       const float2 s = *reinterpret_cast<const float2*>(s_bn + a);
       const float2 sh = *reinterpret_cast<const float2*>(t_bn + a);
-      const float* hw = hx + (size_t)c_first * A_DIM + a;
+      const float* hw = hx + (size_t)c_first * a_dim + a;
+      __nv_bfloat16* as = a_s + sl * A_SLICE_E + al;
 #pragma unroll 13
       for (int r = tid >> 5; r < ROWS; r += P2_THREADS / 32) {
         float v0 = 0.f, v1 = 0.f;
         if (r < wl) {
-          const float2 h = *reinterpret_cast<const float2*>(hw + (size_t)r * A_DIM);
+          const float2 h = *reinterpret_cast<const float2*>(hw + (size_t)r * a_dim);
           v0 = tanh_fast(fmaxf(h.x + b.x, 0.f) * s.x + sh.x);
           v1 = tanh_fast(fmaxf(h.y + b.y, 0.f) * s.y + sh.y);
         }
-        *reinterpret_cast<__nv_bfloat162*>(a_s + r * A_STRIDE + a) =
+        *reinterpret_cast<__nv_bfloat162*>(as + r * A_STRIDE) =
             __floats2bfloat162_rn(v0, v1);
       }
     }
@@ -371,7 +413,7 @@ asp_window_kernel(const __nv_bfloat16* __restrict__ x_t,  // [n_rows, cc]
       if (ct > 0 && pt < 16) merge_store(ct - 1, buf ^ 1);
 
       // logits e^T[this warp's 16 channels][its NTW*8 rows]
-      const __nv_bfloat16* w2b = w2w + buf * (CT * A_STRIDE);
+      const __nv_bfloat16* w2b = w2w + buf * NSL * W_SLICE_E;
       // the accumulators start at 0 inside the window and at -inf outside it,
       // which is all the masking the softmax needs
       float acc[NTW][4];
@@ -380,25 +422,28 @@ asp_window_kernel(const __nv_bfloat16* __restrict__ x_t,  // [n_rows, cc]
         acc[i][0] = acc[i][2] = i * 8 < nv ? 0.f : NEG_INF;
         acc[i][1] = acc[i][3] = i * 8 + 1 < nv ? 0.f : NEG_INF;
       }
-      // two k-steps at a time: their A fragments, then one ldmatrix per row
-      // tile for its B fragments of both
+      // over the slices of A, two k-steps at a time: their A fragments,
+      // then one ldmatrix per row tile for its B fragments of both
 #pragma unroll
-      for (int kp = 0; kp < 2; ++kp) {
-        uint32_t af[2][4];
+      for (int sl = 0; sl < NSL; ++sl) {
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const __nv_bfloat16* w = w2b + (2 * kp + h) * 16;
-          af[h][0] = *reinterpret_cast<const uint32_t*>(w);
-          af[h][1] = *reinterpret_cast<const uint32_t*>(w + A_STRIDE);
-          af[h][2] = *reinterpret_cast<const uint32_t*>(w + 8);
-          af[h][3] = *reinterpret_cast<const uint32_t*>(w + A_STRIDE + 8);
-        }
+        for (int kp = 0; kp < 2; ++kp) {
+          uint32_t af[2][4];
 #pragma unroll
-        for (int i = 0; i < NTW; ++i) {
-          uint32_t b[4];
-          ldmatrix_x4(b, a_l + i * 8 * A_STRIDE + kp * 32);
-          mma_bf16(acc[i], af[0], b[0], b[1]);
-          mma_bf16(acc[i], af[1], b[2], b[3]);
+          for (int h = 0; h < 2; ++h) {
+            const __nv_bfloat16* w = w2b + sl * W_SLICE_E + (2 * kp + h) * 16;
+            af[h][0] = *reinterpret_cast<const uint32_t*>(w);
+            af[h][1] = *reinterpret_cast<const uint32_t*>(w + A_STRIDE);
+            af[h][2] = *reinterpret_cast<const uint32_t*>(w + 8);
+            af[h][3] = *reinterpret_cast<const uint32_t*>(w + A_STRIDE + 8);
+          }
+#pragma unroll
+          for (int i = 0; i < NTW; ++i) {
+            uint32_t b[4];
+            ldmatrix_x4(b, a_l + sl * A_SLICE_E + i * 8 * A_STRIDE + kp * 32);
+            mma_bf16(acc[i], af[0], b[0], b[1]);
+            mma_bf16(acc[i], af[1], b[2], b[3]);
+          }
         }
       }
 
@@ -451,15 +496,40 @@ asp_window_kernel(const __nv_bfloat16* __restrict__ x_t,  // [n_rows, cc]
   }
 }
 
+template <int NSL>
+int launch_k1(const void* x, int t_f, int first_f, int cc, const float* bw,
+              const void* w1x, const float* s_bn, const float* t_bn,
+              const void* w2, int hop_f, int win_f, int n_windows, int n_rows,
+              void* x_t, float* hx, float* out, cudaStream_t st) {
+  const size_t smem = p2_smem(NSL) + (win_f > ROWS ? cc * sizeof(float4) : 0);
+  if (cc % CT || win_f < 1 || first_f + n_rows > t_f || smem > 232448)
+    return (int)cudaErrorInvalidValue;
+  asp_preproj_kernel<NSL><<<dim3((n_rows + 15) / 16, NSL), P1_THREADS, 0, st>>>(
+      static_cast<const unsigned short*>(x), t_f, first_f, cc,
+      static_cast<const __nv_bfloat16*>(w1x), n_rows,
+      static_cast<uint32_t*>(x_t), hx);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(asp_window_kernel<NSL>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  asp_window_kernel<NSL><<<n_windows, P2_THREADS, smem, st>>>(
+      static_cast<const __nv_bfloat16*>(x_t), n_rows, cc, hx, bw, s_bn, t_bn,
+      static_cast<const __nv_bfloat16*>(w2), hop_f, win_f, out);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // C entry point: two launches on `stream`, no synchronisation; returns
 // cudaGetLastError().  x is the whole [cc, t_f] bf16 feature map with
 // first_f + n_rows <= t_f; x_t [n_rows, cc] bf16 and hx [n_rows, a_dim]
 // float32 are caller-allocated scratch, n_rows = (n_windows-1)*hop_f + win_f.
-// cudaErrorInvalidValue for what the kernels do not take: a_dim != 64,
-// cc not a multiple of 64, and with win_f > 208 more channels than the
-// running state has shared memory for (about 7,500).
+// cudaErrorInvalidValue for what the kernels do not take: a_dim other than
+// 64 or 128 (pad a narrower one), cc not a multiple of 64, and with
+// win_f > 208 more channels than the running state has shared memory for
+// (about 7,500 at A 64, 4,400 at A 128).
 extern "C" int sdt_asp_grid_stats(const void* x, int t_f, int first_f, int cc,
                                   const float* bw, const void* w1x,
                                   const float* s_bn, const float* t_bn,
@@ -467,24 +537,12 @@ extern "C" int sdt_asp_grid_stats(const void* x, int t_f, int first_f, int cc,
                                   int win_f, int n_windows, int n_rows,
                                   void* x_t, float* hx, float* out,
                                   void* stream) {
-  const size_t smem = P2_SMEM + (win_f > ROWS ? cc * sizeof(float4) : 0);
-  if (a_dim != A_DIM || cc % CT || win_f < 1 || first_f + n_rows > t_f ||
-      smem > 232448)
-    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const auto* xtb = static_cast<const __nv_bfloat16*>(x_t);
-  const auto* w2b = static_cast<const __nv_bfloat16*>(w2);
-  asp_preproj_kernel<<<(n_rows + 15) / 16, P1_THREADS, 0, st>>>(
-      static_cast<const unsigned short*>(x), t_f, first_f, cc,
-      static_cast<const __nv_bfloat16*>(w1x), n_rows,
-      static_cast<uint32_t*>(x_t), hx);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(asp_window_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  asp_window_kernel<<<n_windows, P2_THREADS, smem, st>>>(
-      xtb, n_rows, cc, hx, bw, s_bn, t_bn, w2b, hop_f, win_f, out);
-  return (int)cudaGetLastError();
+  if (a_dim == A_SL)
+    return launch_k1<1>(x, t_f, first_f, cc, bw, w1x, s_bn, t_bn, w2, hop_f,
+                        win_f, n_windows, n_rows, x_t, hx, out, st);
+  if (a_dim == 2 * A_SL)
+    return launch_k1<2>(x, t_f, first_f, cc, bw, w1x, s_bn, t_bn, w2, hop_f,
+                        win_f, n_windows, n_rows, x_t, hx, out, st);
+  return (int)cudaErrorInvalidValue;
 }

@@ -12,6 +12,8 @@ Holds kernel K2 and its plain version:
   [B, T]: the framed form of the JAX package (``log_mel_spectrogram``,
   B > 1), each row reflect-padded on its own.  :func:`log_mel_spectrogram`
   picks between the two as the JAX function does.
+* :func:`fbank_batch` — K2 over a batch of utterances with per-utterance
+  mean normalization: the per-window encoder's front end.
 * :func:`fused_log_mel` — the wrapper of the CUDA kernel
   ``csrc/fused_fbank.cu`` (the port of the Pallas ``fused_log_mel``), for a
   waveform [T] or a batch [B, T] in one launch.  On a CPU tensor it returns
@@ -323,5 +325,20 @@ def fused_log_mel(y: torch.Tensor, sample_rate: int = 16000, n_mels: int = 80,
         mel_w.data_ptr(), mel_w.numel(), n_fft, hop, n_mels, float(eps),
         out.data_ptr(), n_frames,
         torch.cuda.current_stream(y.device).cuda_stream,
-        form="[T]" if y.ndim == 1 else "[B, T]")
+        form="[T]" if y.ndim == 1 else "[B, T]",
+        shape=(f"[T] {n_mels} mels" if y.ndim == 1
+               else f"[B, T] rows of {t}, {n_mels} mels"))
     return out[0] if y.ndim == 1 else out
+
+
+def fbank_batch(wavs: torch.Tensor, sample_rate: int = 16000, n_mels: int = 80,
+                mean_norm: bool = True) -> torch.Tensor:
+    """The per-utterance encoder's features: [B, T] waveforms -> [B, T//hop
+    + 1, n_mels] log-mel (each row reflect-padded on its own), less each
+    utterance's mean over its frames when ``mean_norm``.  One K2 launch on
+    the card: the rows may be overlapping windows of one signal
+    (``Tensor.unfold``), read in place by their stride."""
+    feat = fused_log_mel(wavs, sample_rate=sample_rate, n_mels=n_mels)
+    if mean_norm:
+        feat = feat - feat.mean(dim=1, keepdim=True)
+    return feat

@@ -1,4 +1,6 @@
-"""Host-side audio I/O: WAV decode, mono mix and polyphase resampling.
+"""Host-side audio I/O: WAV decode, mono mix and polyphase resampling
+(mono input through the native resampler when it builds, as in the JAX
+package; else scipy's, the same filter).
 
 WAV (PCM 8/16/24/32) is decoded with numpy; other containers are not read by
 this package yet (convert to WAV first).
@@ -81,7 +83,14 @@ def read_audio(
     if mono and y.shape[0] > 1:
         y = y.mean(axis=0, keepdims=True)
     if target_sr is not None and sr != target_sr:
-        y = resample_host(y, sr, target_sr)
+        from .. import native
+
+        if mono and native.available():
+            # the OpenMP polyphase resampler (native/audioio.cpp), the same
+            # filter; the JAX package's order
+            y = native.resample_poly(y[0], sr, target_sr)[None, :]
+        else:
+            y = resample_host(y, sr, target_sr)
         sr = target_sr
     if mono:
         y = y[0]

@@ -5,6 +5,8 @@ BASELINE.md makes DER-within-0.5 the accuracy contract, so the framework
 ships its own reference implementation: frame-based scoring at a fixed
 resolution with a NIST-style forgiveness collar around reference boundaries
 and Hungarian optimal speaker mapping (the standard md-eval semantics).
+:func:`jaccard_error_rate` is the DIHARD companion metric (JER).  A copy of
+the JAX package's ``metrics/der.py`` (host numpy and scipy).
 """
 from __future__ import annotations
 
@@ -102,3 +104,48 @@ def diarization_error_rate(
         confusion=confusion / denom,
         total_speech_s=total_ref * resolution_s,
     )
+
+
+def jaccard_error_rate(
+    reference: SegmentArray,
+    hypothesis: SegmentArray,
+    collar_s: float = 0.0,
+    resolution_s: float = 0.01,
+) -> float:
+    """JER: mean over reference speakers of 1 - |ref ∩ hyp| / |ref ∪ hyp|
+    after optimal (Hungarian) speaker mapping — the DIHARD companion metric."""
+    end = max(
+        float(reference.ends.max(initial=0.0)),
+        float(hypothesis.ends.max(initial=0.0)),
+        resolution_s,
+    )
+    n = int(np.ceil(end / resolution_s)) + 1
+    k_ref = max(int(reference.spks.max(initial=-1)) + 1, 1)
+    k_hyp = max(int(hypothesis.spks.max(initial=-1)) + 1, 1)
+    ref = _rasterize(reference, n, resolution_s, k_ref)
+    hyp = _rasterize(hypothesis, n, resolution_s, k_hyp)
+
+    if collar_s > 0:
+        mask = np.ones(n, dtype=bool)
+        c = int(round(collar_s / resolution_s))
+        for t in np.concatenate([reference.starts, reference.ends]):
+            i = int(round(t / resolution_s))
+            mask[max(0, i - c) : min(n, i + c)] = False
+        ref, hyp = ref[:, mask], hyp[:, mask]
+
+    overlap = (ref[:, None, :] & hyp[None, :, :]).sum(axis=2).astype(np.float64)
+    r_idx, h_idx = linear_sum_assignment(-overlap)
+    mapping = dict(zip(r_idx, h_idx))
+
+    errors = []
+    for r in range(k_ref):
+        if not ref[r].any():
+            continue
+        if r in mapping:
+            h = hyp[mapping[r]]
+            inter = (ref[r] & h).sum()
+            union = (ref[r] | h).sum()
+            errors.append(1.0 - inter / max(union, 1))
+        else:
+            errors.append(1.0)
+    return float(np.mean(errors)) if errors else 0.0

@@ -14,7 +14,9 @@ Holds kernel K1 and its plain version:
   the Pallas ``asp_grid_stats``).  On a CPU tensor it returns the plain
   version; on a CUDA tensor it launches the kernel or raises.
 
-``EcapaTdnn.asp_head_grid`` is the decomposed grid head in the net's dtype,
+``EcapaTdnn.embed_utterances`` / ``asp_head`` and ``EcapaModel.encode_batch``
+are the per-utterance encoder of the windowed grid (plain PyTorch; its
+log-mel goes through kernel K2).  ``EcapaTdnn.asp_head_grid`` is the decomposed grid head in the net's dtype,
 which is what the JAX package runs on the CPU; ``asp_head_grid_kernel``
 goes through K1 (bf16 operands even for a float32 net, as the Pallas
 kernel), which is what runs on the card.
@@ -133,6 +135,11 @@ class EcapaTdnn(nn.Module):
         self.post_bn = BNStats(2 * cc)
         self.fc_w = _param(emb_dim, 2 * cc, 1)
         self.fc_b = _param(emb_dim)
+        # K1's constants follow the weights: made now and again after every
+        # load_state_dict
+        self.fold_k1()
+        self.register_load_state_dict_post_hook(
+            lambda module, _keys: module.fold_k1())
 
     def trunk(self, feats: torch.Tensor, se_win: int | None = None) -> torch.Tensor:
         """feats [B, T, n_mels] -> [B, 3C, T] post-MFA features (compute
@@ -144,6 +151,37 @@ class EcapaTdnn(nn.Module):
             x = blk(x, d, se_win=se_win)
             outs.append(x)
         return self.mfa(torch.cat(outs, dim=1))
+
+    def embed_utterances(self, feats: torch.Tensor) -> torch.Tensor:
+        """Per-utterance embeddings: fbank [B, T, n_mels] -> [B, emb_dim]
+        float32 (trunk with utterance-mean SE, then :meth:`asp_head`)."""
+        return self.asp_head(self.trunk(feats))
+
+    def asp_head(self, x: torch.Tensor) -> torch.Tensor:
+        """Attentive-stats pooling with global context over each
+        utterance's frames, then post-BN and the embedding layer: trunk
+        features [B, CC, T] -> [B, emb_dim] float32.  The context and the
+        attention convolutions in the net's dtype, the softmax and the
+        statistics in float32 (SpeechBrain semantics: eps 1e-12, the
+        E[(x - mu)^2] form).  Plain PyTorch, as it is plain XLA in the JAX
+        package."""
+        eps = 1e-12
+        dt = self.dtype
+        x32 = x.float()
+        mu_g = x32.mean(dim=2, keepdim=True)
+        sd_g = torch.sqrt(torch.clamp(
+            ((x32 - mu_g) ** 2).mean(dim=2, keepdim=True), min=eps))
+        ctx = torch.cat([x32, mu_g.expand_as(x32), sd_g.expand_as(x32)],
+                        dim=1).to(dt)
+        a = F.relu(conv1d_torch(ctx, self.att_w1.to(dt), self.att_b1.to(dt)))
+        ab = self.att_bn
+        a = torch.tanh(batch_norm_apply(a, ab.mean, ab.var, ab.gamma, ab.beta))
+        a = conv1d_torch(a, self.att_w2.to(dt), self.att_b2.to(dt)).float()
+        p = torch.softmax(a, dim=2)                                 # [B, CC, T]
+        mu = (p * x32).sum(dim=2)
+        sd = torch.sqrt(torch.clamp(
+            (p * (x32 - mu[:, :, None]) ** 2).sum(dim=2), min=eps))
+        return self._stats_to_emb(torch.cat([mu, sd], dim=1))
 
     def _stats_to_emb(self, stats: torch.Tensor) -> torch.Tensor:
         pb = self.post_bn
@@ -194,24 +232,47 @@ class EcapaTdnn(nn.Module):
         sd = torch.sqrt(torch.clamp(m2 - mu * mu, min=eps))
         return self._stats_to_emb(torch.cat([mu, sd], dim=1))
 
-    def k1_inputs(self, x: torch.Tensor, first_f: int, hop_f: int, win_f: int,
-                  n_windows: int) -> tuple:
-        """The arguments :meth:`asp_head_grid_kernel` hands K1: per-window
-        stats bias ``bw`` [W, A] float32 (global-context window mean/std
-        through the mean/std parts of the attention pre-projection), the
-        pre-projection's feature part, inference BN folded to a float32
-        scale/shift, and the logits projection."""
-        cc = x.shape[0]
-        mu_g, sd_g, _ = self._window_context(x, first_f, hop_f, win_f, n_windows)
-        w1 = self.att_w1[..., 0].float()
-        w1x, w1m, w1s = w1[:, :cc], w1[:, cc:2 * cc], w1[:, 2 * cc:]
-        bw = mu_g @ w1m.T + sd_g @ w1s.T + self.att_b1.float()      # [W, A]
+    def fold_k1(self) -> None:
+        """K1's constants, made from the weights at construction and after
+        every ``load_state_dict`` (they are buffers, so they move with the
+        module): the
+        attention pre-projection split into its feature, mean and std parts
+        and its bias, inference BN folded to a scale and shift, all float32,
+        and the feature part and the logits projection in bf16, the kernel's
+        operand type.  The attention width is zero-padded to a multiple of
+        64, the kernel's slice: a padded unit gives tanh(relu(0) * s + 0) =
+        0 and meets a zero column of ``w2``, so the stats are unchanged."""
+        cc, a = self.cat_channels, self.att_channels
+        pad = -(-a // _K1_A_SLICE) * _K1_A_SLICE - a
+        w1 = F.pad(self.att_w1[..., 0].float(), (0, 0, 0, pad))      # [A', 3CC]
         ab = self.att_bn
         inv = torch.rsqrt(ab.var.float() + 1e-5)
         s_bn = ab.gamma.float() * inv
         t_bn = ab.beta.float() - ab.mean.float() * s_bn
-        return (x, bw, w1x, s_bn, t_bn, self.att_w2[..., 0], self.att_b2,
-                first_f, hop_f, win_f, n_windows)
+        consts = {
+            "k1_w1x": w1[:, :cc].to(torch.bfloat16).contiguous(),
+            "k1_w1m": w1[:, cc:2 * cc].contiguous(),
+            "k1_w1s": w1[:, 2 * cc:].contiguous(),
+            "k1_b1": F.pad(self.att_b1.float(), (0, pad)),
+            "k1_s_bn": F.pad(s_bn, (0, pad)),
+            "k1_t_bn": F.pad(t_bn, (0, pad)),
+            "k1_w2": F.pad(self.att_w2[..., 0].float(), (0, pad))
+            .to(torch.bfloat16).contiguous(),                       # [CC, A']
+        }
+        for name, t in consts.items():
+            self.register_buffer(name, t, persistent=False)
+
+    def k1_inputs(self, x: torch.Tensor, first_f: int, hop_f: int, win_f: int,
+                  n_windows: int) -> tuple:
+        """The arguments :meth:`asp_head_grid_kernel` hands K1: per-window
+        stats bias ``bw`` [W, A'] float32 (global-context window mean/std
+        through the mean/std parts of the attention pre-projection), and the
+        constants of :meth:`fold_k1` (attention width A' padded to a
+        multiple of 64)."""
+        mu_g, sd_g, _ = self._window_context(x, first_f, hop_f, win_f, n_windows)
+        bw = mu_g @ self.k1_w1m.T + sd_g @ self.k1_w1s.T + self.k1_b1   # [W, A']
+        return (x, bw, self.k1_w1x, self.k1_s_bn, self.k1_t_bn, self.k1_w2,
+                self.att_b2, first_f, hop_f, win_f, n_windows)
 
     def asp_head_grid_kernel(self, x: torch.Tensor, first_f: int, hop_f: int,
                              win_f: int, n_windows: int) -> torch.Tensor:
@@ -253,9 +314,11 @@ def _asp_grid_stats_plain(x, bw, w1x, s_bn, t_bn, w2, b2, first_f: int,
     return torch.cat([mu, sd], dim=1)
 
 
-# K1's geometry (csrc/asp_grid.cu): channels in tiles of 64; a window of any
-# length is walked in chunks of 208 rows
+# K1's geometry (csrc/asp_grid.cu): channels in tiles of 64, the attention
+# width in one or two slices of 64; a window of any length is walked in
+# chunks of 208 rows
 _K1_CHANNEL_TILE = 64
+_K1_A_SLICE = 64
 
 
 def _k1_features(x: torch.Tensor, first_f: int, n_rows: int) -> torch.Tensor:
@@ -276,17 +339,19 @@ def asp_grid_stats(x: torch.Tensor, bw: torch.Tensor, w1x: torch.Tensor,
                    n_windows: int) -> torch.Tensor:
     """K1: x [CC, T_f] (any float dtype), bw [W, A] float32, w1x [A, CC],
     s_bn/t_bn [A], w2 [CC, A], b2 [CC] -> [W, 2*CC] float32.  CPU tensor:
-    the plain version.  CUDA tensor: ``csrc/asp_grid.cu`` (two launches of
-    one C entry, counted once), or an exception."""
+    the plain version (any A).  CUDA tensor: ``csrc/asp_grid.cu`` (two
+    launches of one C entry, counted once), built for A 64 and 128 (pad a
+    narrower A with zeros: :meth:`EcapaTdnn.fold_k1`), or an exception."""
     if x.device.type == "cpu":
         return _asp_grid_stats_plain(x, bw, w1x, s_bn, t_bn, w2, b2, first_f,
                                      hop_f, win_f, n_windows)
     cc = x.shape[0]
     a_dim = w1x.shape[0]
-    if a_dim != 64 or cc % _K1_CHANNEL_TILE:
-        raise NotImplementedError(
-            f"asp_grid_stats kernel: attention width {a_dim} (built for 64), "
-            f"{cc} channels (built for multiples of {_K1_CHANNEL_TILE})")
+    if a_dim not in (_K1_A_SLICE, 2 * _K1_A_SLICE) or cc % _K1_CHANNEL_TILE:
+        raise ValueError(
+            f"asp_grid_stats kernel: attention width {a_dim} (built for 64 and "
+            f"128: zero-pad a narrower one first, as EcapaTdnn.fold_k1 does) "
+            f"and {cc} channels (built for multiples of {_K1_CHANNEL_TILE})")
     if win_f < 1 or n_windows < 1:
         raise ValueError(f"asp_grid_stats kernel: win_f={win_f}, "
                          f"n_windows={n_windows}")
@@ -318,7 +383,8 @@ def asp_grid_stats(x: torch.Tensor, bw: torch.Tensor, w1x: torch.Tensor,
         bw.data_ptr(), w1x_b.data_ptr(), s_bn.data_ptr(), t_bn.data_ptr(),
         w2_b.data_ptr(), a_dim, hop_f, win_f, n_windows, n_rows,
         x_t.data_ptr(), hx.data_ptr(), out.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+        torch.cuda.current_stream(dev).cuda_stream,
+        shape=f"A {a_dim}, CC {cc}")
     return out
 
 
@@ -333,6 +399,17 @@ class EcapaModel(nn.Module):
         self.sample_rate = sample_rate
         self.streaming_trained = False
         self.refine_sub_cos: float | None = None
+
+    def encode_batch(self, wavs: torch.Tensor) -> torch.Tensor:
+        """Per-utterance embeddings of [B, T] waveforms (e.g. the windowed
+        grid's windows, a strided view): :func:`~..dsp.mel.fbank_batch`
+        (one K2 launch on the card), then :meth:`EcapaTdnn.embed_utterances` ->
+        [B, emb_dim] float32."""
+        from ..dsp.mel import fbank_batch
+
+        feats = fbank_batch(wavs, sample_rate=self.sample_rate,
+                            n_mels=self.net.n_mels)
+        return self.net.embed_utterances(feats)
 
     def encode_grid_feats(self, feats: torch.Tensor, n_windows: int, margin: int,
                           win: int, hop: int) -> torch.Tensor:

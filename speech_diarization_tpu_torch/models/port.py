@@ -20,7 +20,7 @@ from .demix import DialogDemixer
 from .ecapa import EcapaModel, EcapaTdnn
 from .gtcrn import GTCRN
 from .segmentation import SegmentationModel, SegNet
-from .vad import VadConvNet, VadModel
+from .vad import VadConvNet, VadModel, VadNet
 from .zipenhancer import ZipEnhancerModel
 
 _DTYPES = {None: torch.float32, "float32": torch.float32,
@@ -48,6 +48,12 @@ def load_params_meta(path: str | Path) -> dict:
         return json.loads(bytes(data["__meta__"]).decode())
 
 
+# the GRU VAD's JAX ``GRUParams`` -> torch ``nn.GRU`` names (same packing:
+# rows (r, z, n))
+_GRU_KEYS = {"gru.w_ih": "gru.weight_ih_l0", "gru.w_hh": "gru.weight_hh_l0",
+             "gru.b_ih": "gru.bias_ih_l0", "gru.b_hh": "gru.bias_hh_l0"}
+
+
 def _state_key(flat_key: str) -> str:
     # 'block0/conv1/w' -> 'block.0.conv1.w'; 'res2/1/b' -> 'res2.1.b'
     return re.sub(r"^block(\d+)/", r"block.\1/", flat_key).replace("/", ".")
@@ -57,7 +63,8 @@ def params_from_numpy(flat: dict[str, np.ndarray], arch_meta: dict,
                       kind: str | None = None, dtype=None) -> torch.nn.Module:
     """Rebuild a net from its architecture meta and load ``flat`` into it.
 
-    ``kind``: 'vad' (conv TCN, ``arch_meta['arch'] == 'conv'``), 'ecapa' or
+    ``kind``: 'vad' (the conv TCN when ``arch_meta['arch'] == 'conv'``,
+    else the GRU net at its default widths), 'ecapa' or
     'segmentation' (the overlap detector; its net meta names
     ``n_speakers``); inferred from the meta when None.  ``dtype`` is the ECAPA compute dtype
     (weights stay float32).  Every parameter of the net must be present and
@@ -70,10 +77,12 @@ def params_from_numpy(flat: dict[str, np.ndarray], arch_meta: dict,
     if "dilations" in net_cfg:
         net_cfg["dilations"] = tuple(net_cfg["dilations"])
     if kind == "vad":
-        if arch_meta.get("arch") not in (None, "conv"):
-            raise NotImplementedError(
-                f"VAD arch {arch_meta.get('arch')!r} is not ported (conv only)")
-        model = VadModel(VadConvNet(**net_cfg))
+        # the JAX loader's rule: 'conv' in the meta is the TCN at the meta's
+        # widths; anything else is the GRU net at its defaults
+        if arch_meta.get("arch") == "conv":
+            model = VadModel(VadConvNet(**net_cfg))
+        else:
+            model = VadModel(VadNet())
         net = model.net
     elif kind == "ecapa":
         net = EcapaTdnn(**net_cfg, dtype=_DTYPES[dtype])
@@ -90,18 +99,21 @@ def params_from_numpy(flat: dict[str, np.ndarray], arch_meta: dict,
         raise ValueError(f"unknown kind {kind!r}")
     state = {}
     for k, v in flat.items():
-        if k.startswith("classifier/"):
+        if k == "classifier" or k.startswith("classifier/"):
             continue
         a = np.asarray(v)
         if a.dtype == np.float16:
             a = a.astype(np.float32)
-        state[_state_key(k)] = torch.from_numpy(np.array(a))
+        state[_GRU_KEYS.get(_state_key(k), _state_key(k))] = torch.from_numpy(
+            np.array(a))
     net.load_state_dict(state, strict=True)
     return model
 
 
 def load_vad(path: str | Path) -> VadModel:
-    """Shipped VAD checkpoint -> :class:`VadModel` (conv TCN only)."""
+    """Shipped VAD checkpoint -> :class:`VadModel`: the conv TCN when the
+    ``__meta__`` says ``arch: conv``, else the GRU net (the shipped
+    ``vad_synthetic.npz`` has no meta)."""
     return params_from_numpy(load_params_npz(path), load_params_meta(path),
                              kind="vad")
 

@@ -16,7 +16,10 @@ the CPU tests import every module on a machine without ``nvcc``.
 kernel; a run resets it with :func:`reset_launches` and reads it afterwards
 to show that its main path went through the kernels.  ``LAUNCH_FORMS``
 counts the same launches by the form of the call where a wrapper names one
-(the log-mel's ``[T]`` and ``[B, T]`` entries).
+(the log-mel's ``[T]`` and ``[B, T]`` entries), and ``LAUNCH_SHAPES`` by
+the geometry the wrapper names at the point of launch (the log-mel's row
+length and mel count, K1's padded attention width and channels), which
+tells apart the callers that share one form.
 """
 from __future__ import annotations
 
@@ -51,6 +54,7 @@ KERNELS = {
 
 LAUNCHES: dict[str, int] = {name: 0 for name in KERNELS}
 LAUNCH_FORMS: dict[str, int] = {}
+LAUNCH_SHAPES: dict[str, int] = {}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -61,6 +65,7 @@ def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
     LAUNCH_FORMS.clear()
+    LAUNCH_SHAPES.clear()
 
 
 def _nvcc() -> str:
@@ -124,9 +129,10 @@ def library(name: str) -> ctypes.CDLL:
     return lib
 
 
-def launch(name: str, *args, form: str | None = None) -> None:
+def launch(name: str, *args, form: str | None = None,
+           shape: str | None = None) -> None:
     """Call a kernel's C entry point and count the launch (also under
-    ``form`` when given); raises if the launch was refused
+    ``form`` and ``shape`` when given); raises if the launch was refused
     (``cudaGetLastError()`` nonzero)."""
     fn = getattr(library(name), KERNELS[name][1])
     rc = fn(*args)
@@ -137,6 +143,9 @@ def launch(name: str, *args, form: str | None = None) -> None:
     if form is not None:
         key = f"{name}{form}"
         LAUNCH_FORMS[key] = LAUNCH_FORMS.get(key, 0) + 1
+    if shape is not None:
+        key = f"{name} {shape}"
+        LAUNCH_SHAPES[key] = LAUNCH_SHAPES.get(key, 0) + 1
 
 
 def check_cuda_tensor(t, name: str, dtype, shape=None) -> None:

@@ -46,7 +46,13 @@ def chunked_framewise(fn: Callable[[torch.Tensor], torch.Tensor],
                       y: torch.Tensor, sr: int, frame_hop: int) -> torch.Tensor:
     """``fn``: [G, chunk] -> [G, chunk // frame_hop + 1] (rows independent;
     the centred-frame count).  Returns the stitched [len(y) // frame_hop +
-    1] frames on ``y``'s device."""
+    1] frames on ``y``'s device.
+
+    A ``fn`` with a few frames fewer a row (the energy VAD's uncentred
+    frames) is taken as the JAX package takes it: a file of one chunk keeps
+    the frames there are, and past one chunk a row's last frame stands in
+    for the missing ones (the JAX stitch reads them only when the last chunk
+    is within those frames of full, and raises there)."""
     t = int(y.shape[-1])
     chunk = int(round(CHUNK_S * sr))
     hop_samples = chunk - int(round(OVERLAP_S * sr))
@@ -61,6 +67,8 @@ def chunked_framewise(fn: Callable[[torch.Tensor], torch.Tensor],
                  ).unfold(0, chunk, hop_samples)                 # a view
     group = next((b for b in GROUP_BUCKETS if b >= n_chunks), GROUP_BUCKETS[-1])
     outs = torch.cat([fn(rows[g:g + group]) for g in range(0, n_chunks, group)])
+    if outs.shape[1] < fpc:
+        outs = torch.cat([outs, outs[:, -1:].expand(-1, fpc - outs.shape[1])], 1)
     idx = stitch_index(n_chunks, fpc, hop_samples // frame_hop, n_total,
                        EDGE_MARGIN_FRAMES)
     return outs.reshape(-1)[torch.from_numpy(idx).to(y.device)]

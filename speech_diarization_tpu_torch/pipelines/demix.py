@@ -33,8 +33,8 @@ log = get_logger("demix")
 DEMIX_SR = 44100
 
 _HTDEMUCS_UNPORTED = ("demix: HTDemucs .th checkpoints are not ported yet "
-                      "(ROADMAP Queue 1: models/demucs_ref.py + "
-                      "models/port_demucs.py, the next slice)")
+                      "(ROADMAP Queue 1 item 5: models/demucs_ref.py + "
+                      "models/port_demucs.py)")
 
 
 def demucs_style_read(source, target_sr: int = DEMIX_SR) -> tuple[np.ndarray, int]:

@@ -11,8 +11,10 @@ conservative merge, frame reassignment when on, adjacent merge, overlap
 rescue).
 
 Whole-file ("legacy") path, taken when the enhancement front-end engages
-(scope ``auto`` and a probe SNR under ``auto_snr_db``, or a forced scope)
-or the chunk geometry cannot stream: quantize the whole file -> SNR and
+(scope ``auto`` and a probe SNR under ``auto_snr_db``, or a forced scope),
+the chunk geometry cannot stream, or the grid is the windowed one (an
+encoder that is not streaming-trained, ``grid_backend='windowed'``, or a
+grid off the 10 ms mel hop): quantize the whole file -> SNR and
 noise-floor probe -> the enhancer (GTCRN, ZipEnhancer or the demix-dialog
 separator) on the dequantized file (the VAD's input only under scopes
 ``auto`` and ``vad``, everything under ``full``; on the auto-route a
@@ -20,13 +22,17 @@ speech-shaped floor swaps the whole file for its dialog stem when a
 separation-grade demixer is present) -> whole-file loudness, DC,
 pre-emphasis -> VAD over 15 s chunks (one batched log-mel launch a group)
 and frame energy -> the streaming ECAPA grid in chunks of up to 600
-windows -> one device-to-host copy -> the same host tail.
+windows, or the windowed grid (every 2 s window through the per-utterance
+encoder, batches of ``embed.batch_size``: one batched log-mel launch each)
+-> one device-to-host copy -> the same host tail, which clusters by
+``cluster.method`` (spectral, AHC, HDBSCAN, two-stage HDBSCAN), whitening
+the segment embeddings first when ``embed.whiten``.
 
 The counterpart of the JAX package's ``pipelines/diarize.py`` (``__call__``
--> ``_streamed_start`` / ``_legacy_call`` -> ``_segments_from_grid``), at
-its defaults.  Not ported, and refused with ``NotImplementedError`` rather
-than dropped: the published ZipEnhancer graph and HTDemucs checkpoints, the
-windowed grid, and clustering methods other than spectral.
+-> ``_streamed_start`` / ``_legacy_call`` -> ``_segments_from_grid``).  Not
+ported, and refused with ``NotImplementedError`` rather than dropped: the
+published ZipEnhancer graph and HTDemucs checkpoints (ROADMAP Queue 1 item
+5) and the bucketed segment embeddings (``embed.mode='bucketed'``, item 2).
 """
 from __future__ import annotations
 
@@ -47,6 +53,7 @@ from ..segment import (
     add_overlap_segments,
     conservative_merge,
     detect_overlap_regions,
+    embed_windows,
     embed_windows_streaming,
     frame_energy_db_chunk,
     frame_reassign,
@@ -65,7 +72,7 @@ from .chunking import chunked_framewise
 
 log = get_logger("diarize")
 
-_UNPORTED = "is not ported yet (ROADMAP Queue 1)"
+_CLUSTER_METHODS = ("spectral", "ahc", "hdbscan", "hdbscan2")
 
 
 @dataclass
@@ -86,9 +93,13 @@ class DiarizationPipeline:
         cfg: unified config.  ``overlap.enabled`` (the default) runs the
             segmentation model inside the per-chunk program and the overlap
             rescue on the host; ``reseg.enabled`` runs frame reassignment.
-        encoder: a streaming-trained :class:`~..models.ecapa.EcapaModel`;
-            default: the first shipped encoder of ``ENCODER_PREFERENCE``.
-        vad: a :class:`~..models.vad.VadModel`; default: the shipped conv VAD.
+        encoder: an :class:`~..models.ecapa.EcapaModel`; default: the first
+            shipped encoder of ``ENCODER_PREFERENCE``.  A streaming-trained
+            one runs the streamed ingest; any other the windowed grid.
+        vad: a :class:`~..models.vad.VadModel` (conv TCN or GRU net) or
+            :class:`~..models.vad.EnergyVad`; default: the energy VAD at
+            ``cfg.vad``'s window and hop, as in the JAX package (the CLI and
+            the bench pass the shipped conv VAD).
         device: ``None`` (the card; raises without CUDA) or ``"cpu"``.
 
     ``enhance.enabled`` (the default) loads the enhancer of
@@ -102,15 +113,12 @@ class DiarizationPipeline:
     def __init__(self, cfg: DiarizationConfig | None = None, encoder=None,
                  vad=None, device: str | torch.device | None = None):
         self.cfg = cfg = cfg or DiarizationConfig()
-        if cfg.cluster.method != "spectral":
+        if cfg.embed.mode != "grid":
             raise NotImplementedError(
-                f"clustering method {cfg.cluster.method!r} is not ported "
-                "(spectral only)")
-        if cfg.embed.mode != "grid" or cfg.embed.whiten:
-            raise NotImplementedError("only the grid embedding mode without "
-                                      "whitening is ported")
-        if cfg.embed.grid_backend not in ("auto", "streaming"):
-            raise NotImplementedError("only the streaming grid is ported")
+                f"embed.mode {cfg.embed.mode!r}: the bucketed segment "
+                "embeddings are not ported yet (ROADMAP Queue 1 item 2)")
+        if cfg.cluster.method not in _CLUSTER_METHODS:
+            raise ValueError(f"unknown cluster method {cfg.cluster.method!r}")
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             disable_tf32()
@@ -143,17 +151,10 @@ class DiarizationPipeline:
                 raise FileNotFoundError("no shipped speaker encoder")
             encoder = load_speaker_encoder(path)
         if vad is None:
-            from ..models.port import load_vad
-            from ..utils.weights import VAD_PREFERENCE, prefer_weights
+            from ..models.vad import EnergyVad
 
-            path = prefer_weights(VAD_PREFERENCE)
-            if path is None:
-                raise FileNotFoundError("no shipped VAD")
-            vad = load_vad(path)
-        if not getattr(encoder, "streaming_trained", False):
-            raise NotImplementedError(
-                "the encoder is not streaming-trained: the windowed grid "
-                "(non-streamed path) is not ported")
+            vad = EnergyVad(cfg.audio.sample_rate, cfg.vad.win_ms,
+                            cfg.vad.hop_ms)
         self.encoder = encoder.to(self.device).eval()
         self.vad = vad.to(self.device).eval()
         self._programs: dict = {}
@@ -220,10 +221,13 @@ class DiarizationPipeline:
         f0, f1 = m_l // hop_v, m_l // hop_v + u // hop_v
         want_energy = cfg.vad.energy_floor_db is not None
         vad, enc = self.vad, self.encoder
-        # the VAD and the ECAPA read the same log-mel (40 mels, 25 ms / 10 ms
-        # on the same preprocessed chunk): computed once per chunk when so
-        shared = (vad.net.n_mels == enc.net.n_mels and vad.win_ms == 25.0
-                  and vad.hop_ms == 10.0 and vad.sample_rate == enc.sample_rate)
+        # a neural VAD reads a log-mel; the energy VAD the waveform.  The VAD
+        # and the ECAPA read the same log-mel when the mels, 25 ms / 10 ms
+        # and the rate agree: computed once per chunk then
+        neural = hasattr(vad, "probs_from_feats")
+        shared = neural and (vad.net.n_mels == enc.net.n_mels
+                             and vad.win_ms == 25.0 and vad.hop_ms == 10.0
+                             and vad.sample_rate == enc.sample_rate)
 
         def program(c_prev, c_cur, c_next, scale: float, n_valid: float):
             y3 = torch.cat([c_prev[-m_l:], c_cur, c_next[:m_r]])
@@ -250,11 +254,17 @@ class DiarizationPipeline:
             y3 = torch.clamp(y3, -0.99, 0.99)
             # u//hop + 1 frames per chunk: frame f1 (= frame 0 of the next
             # chunk's core) is dropped for interior chunks at pack time
-            feats_v = fused_log_mel(y3, sample_rate=sr, n_mels=vad.net.n_mels,
-                                    win_ms=vad.win_ms, hop_ms=vad.hop_ms)
-            feats_e = feats_v if shared else fused_log_mel(
-                y3, sample_rate=enc.sample_rate, n_mels=enc.net.n_mels)
-            probs = vad.probs_from_feats(feats_v)[f0:f1 + 1]
+            feats_e = fused_log_mel(y3, sample_rate=enc.sample_rate,
+                                    n_mels=enc.net.n_mels)
+            if shared:
+                probs = vad.probs_from_feats(feats_e)
+            elif neural:
+                probs = vad.probs_from_feats(fused_log_mel(
+                    y3, sample_rate=sr, n_mels=vad.net.n_mels,
+                    win_ms=vad.win_ms, hop_ms=vad.hop_ms))
+            else:
+                probs = vad.probs(y3)
+            probs = probs[f0:f1 + 1]
             energy = (frame_energy_db_chunk(y3, hop=hop_v, n_extra=1)[f0:f1 + 1]
                       if want_energy else None)
             grid = enc.encode_grid_feats(feats_e, wpc, m_l, grid_win, grid_hop)
@@ -262,6 +272,41 @@ class DiarizationPipeline:
 
         self._programs[key] = program
         return program
+
+    def streaming_capable(self) -> bool:
+        """True when the streamed ingest can run this config: the grid
+        embedding mode with a streaming-trained encoder and
+        ``grid_backend`` 'auto' or 'streaming' (the JAX package's rule;
+        the chunk geometry is checked per call)."""
+        return (self.cfg.embed.mode == "grid"
+                and getattr(self.encoder, "streaming_trained", False)
+                and self._streaming_grid_asked())
+
+    def _streaming_grid_asked(self) -> bool:
+        """``grid_backend='streaming'``, or 'auto' with a streaming-trained
+        encoder: the JAX package's choice of grid, before the geometry."""
+        backend = self.cfg.embed.grid_backend
+        return backend == "streaming" or (
+            backend == "auto" and getattr(self.encoder, "streaming_trained", False))
+
+    def _grid_is_streaming(self, sr: int) -> bool:
+        """The whole-file path's grid: the streaming trunk-shared grid when
+        :meth:`_streaming_grid_asked` and the grid aligns to the 10 ms mel
+        hop (else a warning and the windowed grid, as in the JAX package);
+        otherwise the windowed grid.  Unlike the streamed ingest, a forced
+        'streaming' backend takes it with any encoder, as in the JAX
+        package."""
+        cfg = self.cfg
+        streaming = self._streaming_grid_asked()
+        if streaming:
+            mel_hop = sr * 10 // 1000
+            if (int(round(cfg.reseg.win_s * sr)) % mel_hop
+                    or int(round(cfg.reseg.hop_s * sr)) % mel_hop):
+                log.warning("grid geometry win=%.3fs hop=%.3fs is not a multiple "
+                            "of the 10 ms mel hop; streaming grid disabled, using "
+                            "the windowed backend", cfg.reseg.win_s, cfg.reseg.hop_s)
+                streaming = False
+        return streaming
 
     def _geometry(self, sr: int) -> tuple[int, int, int, int, int] | None:
         """-> (u, m_l, m_r, grid_win, grid_hop), or None when the config's
@@ -291,6 +336,8 @@ class DiarizationPipeline:
         their upload, scale, probe SNR)."""
         cfg = self.cfg
         dev = self.device
+        if not self.streaming_capable():
+            return None
         geo = self._geometry(sr)
         if geo is None:
             return None
@@ -316,7 +363,7 @@ class DiarizationPipeline:
                 and self._last_snr_db < cfg.enhance.auto_snr_db):
             # enhancement engaged: the whole-file path goes on from the
             # quantized file, its uploads and the probe
-            return {"legacy_source": y, "quantized": (
+            return {"legacy_source": y, "t": t, "sr": sr, "quantized": (
                 q, torch.cat(chunks), scale, self._last_snr_db)}
 
         # overlap detector inside the chunk program: only when enabled, the
@@ -426,7 +473,8 @@ class DiarizationPipeline:
         y = np.asarray(self._host_array(source), np.float32)
         st = self._streamed_start(y, self.cfg.audio.sample_rate)
         if st is None:
-            return {"legacy_source": y}
+            return {"legacy_source": y, "t": int(y.shape[-1]),
+                    "sr": self.cfg.audio.sample_rate}
         if st["legacy_source"] is None:
             st["y_host"] = y    # for the standalone detect, when the fused
         return st               # detector could not arm
@@ -616,12 +664,7 @@ class DiarizationPipeline:
         the host tail.  ``quantized``: as :meth:`_load_waves` takes it."""
         cfg = self.cfg
         sr = cfg.audio.sample_rate
-        mel_hop = sr * 10 // 1000
-        if (int(round(cfg.reseg.win_s * sr)) % mel_hop
-                or int(round(cfg.reseg.hop_s * sr)) % mel_hop):
-            raise NotImplementedError(
-                "the grid is not a multiple of the 10 ms mel hop: the "
-                "windowed grid " + _UNPORTED)
+        streaming = self._grid_is_streaming(sr)
         want_energy = cfg.vad.energy_floor_db is not None
         with torch.inference_mode():
             with stage_timer(log, "load+preprocess"):
@@ -631,14 +674,20 @@ class DiarizationPipeline:
                 parts = [probs]
                 if want_energy:
                     parts.append(self.vad_frame_energy(y_vad, sr))
-                grid = embed_windows_streaming(self.encoder, y, sr,
-                                               cfg.reseg.win_s, cfg.reseg.hop_s)
+                if streaming:
+                    grid = embed_windows_streaming(self.encoder, y, sr,
+                                                   cfg.reseg.win_s, cfg.reseg.hop_s)
+                else:
+                    grid = embed_windows(self.encoder, y, sr, cfg.reseg.win_s,
+                                         cfg.reseg.hop_s, batch=cfg.embed.batch_size)
                 parts.append(grid.reshape(-1).float())
                 flat = torch.cat(parts).cpu().numpy()    # one copy to the host
-        n = probs.shape[0]
-        probs_h = flat[:n]
-        energy_h = flat[n:2 * n] if want_energy else None
-        grid_h = flat[(2 if want_energy else 1) * n:].reshape(-1, grid.shape[-1])
+        # the energy VAD has a few frames fewer than the frame energy
+        n_p = probs.shape[0]
+        n_e = parts[1].shape[0] if want_energy else 0
+        probs_h = flat[:n_p]
+        energy_h = flat[n_p:n_p + n_e] if want_energy else None
+        grid_h = flat[n_p + n_e:].reshape(-1, grid.shape[-1])
         t = y.shape[-1]
         with stage_timer(log, "vad-post"):
             speech = vad_segments_from_probs(probs_h, cfg.vad,
@@ -650,6 +699,7 @@ class DiarizationPipeline:
         res = self._segments_from_grid(speech, probs_h, grid_h, starts_s, t / sr,
                                        y=y, sr=sr)
         res.diagnostics.update(info)
+        res.diagnostics["grid"] = "streaming" if streaming else "windowed"
         return res
 
     def _segments_from_grid(self, speech, probs, win_embs, starts_s, total_s,
@@ -674,6 +724,8 @@ class DiarizationPipeline:
         with stage_timer(log, "segment-embeddings"):
             seg_embs = segment_embeddings_from_grid(win_embs, starts_s,
                                                     grid_win_s, speech2)
+            if cfg.embed.whiten and len(speech2) > 4:
+                seg_embs = cluster_mod.whiten(torch.from_numpy(seg_embs)).numpy()
         with stage_timer(log, "cluster"):
             labels = self._cluster(seg_embs)
             refine_thr = cfg.cluster.refine_sub_cos
@@ -686,8 +738,11 @@ class DiarizationPipeline:
             snr = self._last_snr_db
             snr_floor = cfg.cluster.refine_min_snr_db
             snr_ok = snr is None or snr_floor is None or snr >= snr_floor
+            # the bisection was calibrated on spectral clustering; the other
+            # methods keep their own labels
             if (cfg.cluster.refine_splits and refine_thr > 0
-                    and len(speech2) > 1 and snr_ok):
+                    and len(speech2) > 1 and snr_ok
+                    and cfg.cluster.method == "spectral"):
                 labels = cluster_mod.refine_labels_by_windows(
                     labels, speech2, win_embs, starts_s, grid_win_s,
                     cfg.cluster.max_speakers, sub_cos_thr=refine_thr,
@@ -776,9 +831,23 @@ class DiarizationPipeline:
         n = embs.shape[0]
         if n <= 1:
             return np.zeros((n,), dtype=np.int32)
-        labels = cluster_mod.spectral_cluster(
-            embs, min_speakers=c.min_speakers, max_speakers=c.max_speakers,
-            p_percentile=c.p_percentile)
+        if c.method == "spectral":
+            labels = cluster_mod.spectral_cluster(
+                embs, min_speakers=c.min_speakers, max_speakers=c.max_speakers,
+                p_percentile=c.p_percentile)
+        elif c.method == "ahc":
+            labels = cluster_mod.ahc_cluster(
+                embs, cos_threshold=c.cos_threshold,
+                min_speakers=c.min_speakers, max_speakers=c.max_speakers)
+        elif c.method == "hdbscan":
+            labels = cluster_mod.hdbscan_cleaned(
+                embs, min_cluster_size=c.min_cluster_size,
+                centroid_cos_threshold=c.cos_threshold)
+        else:
+            labels = cluster_mod.hdbscan_two_stage(
+                embs, min_cluster_size=c.min_cluster_size,
+                centroid_cos_threshold=c.cos_threshold)
         if (labels < 0).all():
+            # all noise: one speaker
             labels = np.zeros_like(labels)
         return labels.astype(np.int32)

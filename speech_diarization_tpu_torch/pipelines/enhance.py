@@ -32,8 +32,8 @@ from ..utils.logging import get_logger
 log = get_logger("enhance")
 
 _REF_UNPORTED = ("the published ZipEnhancer graph (zipenhancer-ref) is not "
-                 "ported yet (ROADMAP Queue 1: models/zipenhancer_ref.py + "
-                 "models/port_zipenhancer.py, the next slice)")
+                 "ported yet (ROADMAP Queue 1 item 5: "
+                 "models/zipenhancer_ref.py + models/port_zipenhancer.py)")
 
 
 class GtcrnEnhancer:

@@ -1,4 +1,5 @@
 from .embed import (
+    embed_windows,
     embed_windows_streaming,
     segment_embeddings_from_grid,
     window_starts,
@@ -23,6 +24,7 @@ __all__ = [
     "apply_energy_veto",
     "conservative_merge",
     "detect_overlap_regions",
+    "embed_windows",
     "embed_windows_streaming",
     "frame_energy_db_chunk",
     "frame_reassign",

@@ -4,8 +4,9 @@ it.
 Every downstream consumer (SCD distances, segment embeddings, the refine
 bisection) reads the same [W, D] window-embedding matrix, computed once per
 file: by the per-chunk device program on the streamed path, by
-:func:`embed_windows_streaming` on the whole-file path.  The rest of this
-module is host numpy.
+:func:`embed_windows_streaming` on the whole-file path, or, for an encoder
+that is not streaming-trained, by :func:`embed_windows` (one forward per
+window: the windowed grid).  The rest of this module is host numpy.
 """
 from __future__ import annotations
 
@@ -23,6 +24,28 @@ def window_starts(n_samples: int, sr: int, win_s: float, hop_s: float) -> np.nda
     hop = int(round(hop_s * sr))
     n = num_frames(n_samples, win, hop, pad_tail=True)
     return np.arange(n) * hop
+
+
+def embed_windows(model, y: torch.Tensor, sr: int, win_s: float, hop_s: float,
+                  batch: int = 512) -> torch.Tensor:
+    """The whole-file window grid of a per-utterance encoder: [T] -> [W, D]
+    on ``y``'s device, every window (the tail zero-padded) through
+    ``model.encode_batch`` in batches of ``batch`` windows.  The windows
+    are a view of the padded waveform (``Tensor.unfold``): the log-mel
+    kernel reads each batch's rows in place by their stride.  Each window
+    is encoded on its own (reflect pad, mean-norm and pooling per row), so
+    a window's embedding does not depend on ``batch`` (the JAX package's
+    auto-bucketing only bounds its compile shapes; the last batch here
+    holds the real windows only)."""
+    win = int(round(win_s * sr))
+    hop = int(round(hop_s * sr))
+    w = num_frames(y.shape[-1], win, hop, pad_tail=True)
+    if w == 0:
+        return y.new_zeros((0, 1))
+    frames = F.pad(y, (0, max(0, (w - 1) * hop + win - y.shape[-1]))
+                   ).unfold(0, win, hop)                       # [W, win], a view
+    return torch.cat([model.encode_batch(frames[i:i + batch])
+                      for i in range(0, w, batch)])
 
 
 GRID_MARGIN_S = 4.0   # real context each side of a grid chunk: > the trunk's reach

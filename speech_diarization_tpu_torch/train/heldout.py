@@ -316,3 +316,34 @@ def make_conversation_heldout(
         np.asarray(ends, np.float64),
         np.asarray(spks, np.int32),
     )
+
+
+# The domains of the JAX package's ``scripts/eval_heldout.py``, in its order:
+# the in-domain generator for contrast, then the held-out synthesis dry, in
+# two rooms, under babble at 15 and 5 dB and white noise at 10 dB, and with
+# 30 % of the turns overlapping the previous one.
+HELDOUT_DOMAINS = {
+    "indomain": None,
+    "heldout-dry": {},
+    "heldout-reverb3": {"rt60_s": 0.3},
+    "heldout-reverb6": {"rt60_s": 0.6},
+    "heldout-babble15": {"snr_db": 15.0, "noise_kind": "babble"},
+    "heldout-babble5": {"snr_db": 5.0, "noise_kind": "babble"},
+    "heldout-white10": {"snr_db": 10.0, "noise_kind": "white"},
+    "heldout-overlap": {"overlap_frac": 0.3},
+}
+
+
+def make_domain_file(domain: str, index: int, dur_s: float = 60.0,
+                     n_speakers: int = 3, sr: int = 16000):
+    """File ``index`` of a held-out table domain, drawn from
+    ``default_rng(1000 + index)`` as ``eval_heldout.py::make_file`` draws
+    it -> ``(wave, (starts, ends, spks))``."""
+    rng = np.random.default_rng(1000 + index)
+    kw = HELDOUT_DOMAINS[domain]
+    if kw is None:
+        from .synthetic import make_conversation
+
+        return make_conversation(rng, dur_s, n_speakers=n_speakers, sr=sr)
+    return make_conversation_heldout(rng, dur_s, n_speakers=n_speakers, sr=sr,
+                                     **kw)

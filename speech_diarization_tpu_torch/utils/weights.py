@@ -16,9 +16,10 @@ ENCODER_PREFERENCE = (
     "ecapa_synthetic.npz",
 )
 
-# Default VAD preference: the multi-condition conv TCN, then the in-domain
-# conv net (the recurrent VAD is not ported).
-VAD_PREFERENCE = ("vad_conv_mc.npz", "vad_conv_synthetic.npz")
+# Neural VAD preference of the CLI's --vad-backend auto|neural: the
+# multi-condition conv TCN, the in-domain conv net, then the GRU net.
+VAD_PREFERENCE = ("vad_conv_mc.npz", "vad_conv_synthetic.npz",
+                  "vad_synthetic.npz")
 
 # Overlap-detector preference (segmentation checkpoints).
 SEGMENTATION_PREFERENCE = (

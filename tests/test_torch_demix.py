@@ -167,7 +167,7 @@ def test_an_htdemucs_checkpoint_is_refused(tmp_path, monkeypatch):
     ckpt = tmp_path / "htdemucs.th"
     ckpt.write_bytes(b"")
     monkeypatch.setenv("SDTPU_DEMUCS_CKPTS", str(ckpt))
-    with pytest.raises(NotImplementedError, match="next slice"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 5"):
         EnsembleDemixer(device="cpu")
 
 

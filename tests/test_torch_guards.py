@@ -16,7 +16,8 @@ PORT = ROOT / "speech_diarization_tpu_torch"
 SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
                                         ROOT / "scripts" / "torch_profile_diarize.py",
                                         ROOT / "scripts" / "torch_kernel_check.py",
-                                        ROOT / "scripts" / "torch_bench.py"]
+                                        ROOT / "scripts" / "torch_bench.py",
+                                        ROOT / "scripts" / "torch_eval_heldout.py"]
 
 
 def _imports(path: Path) -> set[str]:
@@ -38,6 +39,12 @@ def test_no_jax_or_jax_package_import(path):
         assert top != "speech_diarization_tpu", (path, mod)
     text = path.read_text()
     assert "import jax" not in text and "from jax" not in text
+
+
+def test_the_port_needs_no_scikit_learn():
+    """The card's machine has no scikit-learn: HDBSCAN is the port's own."""
+    for path in SOURCES:
+        assert not any(m.split(".")[0] == "sklearn" for m in _imports(path)), path
 
 
 def test_port_imports_without_jax_in_a_fresh_process():
@@ -70,6 +77,34 @@ def test_launch_counters_do_not_move_on_the_cpu():
     fused_log_mel(torch.randn(3, 4000), n_mels=40)
     assert kernels.LAUNCHES == {"asp_grid_stats": 0, "fused_log_mel": 0}
     assert kernels.LAUNCH_FORMS == {}
+    assert kernels.LAUNCH_SHAPES == {}
+
+
+def test_launch_counts_by_name_form_and_shape(monkeypatch):
+    """A launch is counted under its kernel, its form and its shape, and a
+    refused one under none."""
+    from types import SimpleNamespace
+
+    from speech_diarization_tpu_torch.ops import kernels
+
+    rc = [0]
+    fake = SimpleNamespace(sdt_fused_log_mel=lambda *a: rc[0])
+    monkeypatch.setattr(kernels, "library", lambda name: fake)
+    kernels.reset_launches()
+    kernels.launch("fused_log_mel", form="[T]", shape="[T] 80 mels")
+    kernels.launch("fused_log_mel", form="[B, T]",
+                   shape="[B, T] rows of 32000, 40 mels")
+    kernels.launch("fused_log_mel", form="[T]", shape="[T] 40 mels")
+    rc[0] = 1
+    with pytest.raises(RuntimeError, match="failed to launch"):
+        kernels.launch("fused_log_mel", form="[T]", shape="[T] 40 mels")
+    assert kernels.LAUNCHES == {"asp_grid_stats": 0, "fused_log_mel": 3}
+    assert kernels.LAUNCH_FORMS == {"fused_log_mel[T]": 2,
+                                    "fused_log_mel[B, T]": 1}
+    assert kernels.LAUNCH_SHAPES == {
+        "fused_log_mel [T] 80 mels": 1, "fused_log_mel [T] 40 mels": 1,
+        "fused_log_mel [B, T] rows of 32000, 40 mels": 1}
+    kernels.reset_launches()
 
 
 def test_build_directory_is_ignored_by_git():

@@ -334,8 +334,10 @@ def test_a_forced_scope_leaves_the_streamed_start_before_any_work(pipes, runs,
     try:
         tpipe.cfg = dataclasses.replace(
             tcfg, enhance=dataclasses.replace(tcfg.enhance, scope=scope))
-        # no quantized file, no uploads, no probe
-        assert set(tpipe.stream_start(runs["white10"]["w"])) == {"legacy_source"}
+        # no quantized file, no uploads, no probe: the waveform and its
+        # length only
+        assert set(tpipe.stream_start(runs["white10"]["w"])) == {
+            "legacy_source", "t", "sr"}
         assert tpipe._last_snr_db is None
     finally:
         tpipe.cfg = tcfg
@@ -473,14 +475,6 @@ def test_a_geometry_that_cannot_stream_takes_the_whole_file_path(models, pipes):
     assert tres.diagnostics["route"] == "legacy"
     assert tres.diagnostics["enhancer"] is None
     _same_segments(tres.segments, jres.segments)
-
-
-def test_the_windowed_grid_still_raises(models, runs):
-    pipe = DiarizationPipeline(
-        port.DiarizationConfig(reseg=port.ResegConfig(win_s=1.005)),
-        encoder=models["enc"], vad=models["vad"], device="cpu")
-    with pytest.raises(NotImplementedError, match="windowed grid"):
-        pipe(runs["white10"]["w"][:12 * SR])
 
 
 def test_a_separation_grade_demixer_is_refused(models, runs, monkeypatch,

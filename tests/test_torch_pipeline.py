@@ -296,7 +296,7 @@ def test_noise_veto_disarms_the_detector_and_programs_are_keyed_by_it(
 
 
 @pytest.mark.parametrize("kw,what", [
-    (dict(cluster=port.ClusterConfig(method="ahc")), "ahc"),
+    (dict(embed=port.EmbedConfig(mode="bucketed")), "bucketed"),
 ])
 def test_unported_stages_raise(kw, what):
     with pytest.raises(NotImplementedError, match=what):

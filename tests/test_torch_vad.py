@@ -1,12 +1,15 @@
-"""The PyTorch port's VAD and VAD post-processing against the JAX package.
+"""The PyTorch port's VADs and VAD post-processing against the JAX package.
 
-Bars: probabilities within atol 1e-4 in float32 on ~5 s of generator speech
-(same weights, same log-mel, summation order differs); segments identical
+Bars: probabilities of the conv TCN and the GRU net (the shipped
+``vad_synthetic.npz``) within atol 1e-4 in float32 on ~5 s of generator
+speech (same weights, same log-mel, summation order differs); the energy
+VAD within atol 1e-5 (float32 means in another order); segments identical
 (host post-processing is exact); hysteresis, morphology and mask -> segment
 conversion identical on random inputs.
 """
 from __future__ import annotations
 
+from functools import partial
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -120,3 +123,114 @@ def test_vad_segments_identical_random_probs(seed):
     out = vad_segments_from_probs(p, VadConfig())
     np.testing.assert_array_equal(out.starts, ref.starts)
     np.testing.assert_array_equal(out.ends, ref.ends)
+
+
+GRU_WEIGHTS = WEIGHTS.with_name("vad_synthetic.npz")
+
+
+def test_the_gru_vad_loads_by_the_jax_rule():
+    """No ``__meta__`` (``vad_synthetic.npz``): the GRU net at its default
+    widths; ``arch: conv``: the TCN."""
+    from speech_diarization_tpu_torch.models.vad import VadConvNet, VadNet
+
+    gru = load_vad(GRU_WEIGHTS)
+    assert isinstance(gru.net, VadNet) and gru.net.stack == 8
+    assert gru.net.gru.weight_ih_l0.shape == (3 * 96, 96 * 8)
+    assert isinstance(load_vad(WEIGHTS).net, VadConvNet)
+
+
+@pytest.mark.parametrize("batched", [False, True], ids=["T", "B,T"])
+def test_gru_vad_probs_match_jax(audio, batched):
+    jm, jp = jload_vad(GRU_WEIGHTS)
+    tm = load_vad(GRU_WEIGHTS)
+    y = np.stack([audio, audio[::-1].copy()]) if batched else audio
+    ref = np.asarray(jm.probs(jp, jnp.asarray(y)))
+    with torch.inference_mode():
+        out = tm.probs(torch.from_numpy(y)).numpy()
+    assert out.shape == ref.shape
+    np.testing.assert_allclose(out, ref, atol=1e-4)
+
+
+@pytest.mark.parametrize("win_ms", [25.0, 30.0])
+@pytest.mark.parametrize("batched", [False, True], ids=["T", "B,T"])
+def test_energy_vad_probs_match_jax(audio, win_ms, batched):
+    from speech_diarization_tpu.models.vad import energy_vad_probs as jenergy_vad
+    from speech_diarization_tpu_torch.models.vad import energy_vad_probs
+
+    # a quiet second row: the noise floor is per row
+    y = np.stack([audio, 0.05 * audio[::-1]]) if batched else audio
+    ref = np.asarray(jenergy_vad(jnp.asarray(y), SR, win_ms, 10.0))
+    out = energy_vad_probs(torch.from_numpy(y), SR, win_ms, 10.0).numpy()
+    assert out.shape == ref.shape
+    np.testing.assert_allclose(out, ref, atol=1e-5)
+
+
+def test_energy_vad_in_chunks_keeps_the_jax_frame_counts(audio):
+    """The energy VAD has ``num_frames(T, win, hop)`` frames.  Stitched over
+    15 s chunks as the whole-file path runs it: a one-chunk file keeps that
+    count, as in the JAX package; a longer one has the centred count and
+    matches the JAX stitch."""
+    from speech_diarization_tpu.models.vad import energy_vad_probs as jenergy_vad
+    from speech_diarization_tpu.pipelines.chunking import chunked_framewise as jchunked
+    from speech_diarization_tpu_torch.models.vad import EnergyVad
+    from speech_diarization_tpu_torch.pipelines.chunking import chunked_framewise
+
+    vad = EnergyVad(SR, 30.0, 10.0)
+    jfn = partial(jenergy_vad, sample_rate=SR, win_ms=30.0, hop_ms=10.0)
+    for n in (15 * SR, 33 * SR + 777):
+        y = np.tile(audio, -(-n // len(audio)))[:n]
+        ref = jchunked(jfn, jnp.asarray(y), SR, frame_hop=160)
+        out = chunked_framewise(vad.probs, torch.from_numpy(y), SR, 160).numpy()
+        assert out.shape == ref.shape
+        np.testing.assert_allclose(out, ref, atol=1e-5)
+    assert out.shape == (n // 160 + 1,) and ref.shape[0] == n // 160 + 1
+
+
+def test_a_bare_pipeline_uses_the_energy_vad_in_both_packages(audio):
+    """With no VAD passed both pipelines score frames with the energy VAD
+    at ``cfg.vad``'s window and hop (ROADMAP F13)."""
+    from speech_diarization_tpu.config import DiarizationConfig as JCfg
+    from speech_diarization_tpu.config import EnhanceConfig as JEnh
+    from speech_diarization_tpu.models.vad import energy_vad_probs as jenergy_vad
+    from speech_diarization_tpu.pipelines.diarize import DiarizationPipeline as JPipe
+    from speech_diarization_tpu_torch.config import DiarizationConfig, EnhanceConfig
+    from speech_diarization_tpu_torch.models.vad import EnergyVad
+    from speech_diarization_tpu_torch.pipelines.diarize import DiarizationPipeline
+
+    jpipe = JPipe(JCfg(enhance=JEnh(enabled=False)))
+    tpipe = DiarizationPipeline(DiarizationConfig(enhance=EnhanceConfig(
+        enabled=False)), device="cpu")
+    assert isinstance(tpipe.vad, EnergyVad)
+    cfg = tpipe.cfg.vad
+    assert (tpipe.vad.win_ms, tpipe.vad.hop_ms) == (cfg.win_ms, cfg.hop_ms)
+    y = audio[None]
+    ref = np.asarray(jpipe.vad_probs_fn(jnp.asarray(y)))
+    np.testing.assert_allclose(
+        np.asarray(jenergy_vad(jnp.asarray(y), SR, cfg.win_ms, cfg.hop_ms)),
+        ref, atol=1e-6)
+    out = tpipe.vad.probs(torch.from_numpy(y)).numpy()
+    np.testing.assert_allclose(out[:, :ref.shape[1]], ref, atol=1e-5)
+
+
+@pytest.mark.parametrize("argv,kind", [
+    ([], "VadConvNet"), (["--vad-backend", "energy"], None),
+    (["--vad-backend", "neural", "--vad-weights", str(GRU_WEIGHTS)], "VadNet"),
+    (["--vad-backend", "auto", "--vad-weights", str(GRU_WEIGHTS)], "VadNet"),
+], ids=["auto", "energy", "neural-gru", "auto-gru"])
+def test_cli_vad_backends_resolve_as_the_jax_clis(argv, kind):
+    """``auto`` / ``neural``: ``--vad-weights`` or the first shipped neural
+    VAD (the conv TCN); ``energy``: the pipeline's energy VAD (no VAD
+    passed), as ``speech_diarization_tpu/cli.py`` resolves them."""
+    import argparse
+
+    from speech_diarization_tpu_torch.cli import (
+        _add_common_config_args, build_pipeline_kwargs,
+    )
+
+    p = argparse.ArgumentParser()
+    _add_common_config_args(p)
+    kwargs = build_pipeline_kwargs(p.parse_args(["--cpu", *argv]))
+    if kind is None:
+        assert "vad" not in kwargs
+    else:
+        assert type(kwargs["vad"].net).__name__ == kind
