@@ -84,6 +84,28 @@ Phases (any failure exits nonzero and prints no result line):
   4g. The corpus worker on three 60 s draws, the second in white noise at
      10 dB (the whole-file path): every file's segments equal its lone
      call's and the report has no errors.
+  4h. The segmentation engine (``segmentation_diarize``) at its defaults
+     (``segmentation_conv.npz``, the bf16 encoder, spectral clustering) on
+     the 60 s and 600 s bench draws and held-out overlap file 0, and with
+     ``segmentation_ow3.npz`` (cuDNN BiGRUs) on the 60 s draw: warm and
+     timed walls, peak device memory, K2 launches by shape (one ``[B, T]``
+     launch for all chunks of a file, 5 s every 0.625 s read in place; the
+     1 s / 0.1 s window grid in batches of 512), DER within one point of
+     the JAX CPU bar either way (``torch_port_der_bar.py --engine``); both
+     nets' hard decisions on the card against the CPU on the 60 s draw's 89
+     chunks.  Phase 3 holds K2 at the engine's chunks ([89, 80000] and
+     [953, 80000] at a row stride of 10,000), its grid ([512, 16000] at
+     1,600) and the bucketed snippets ([32, 8000 * 2^k], k = 0..5).
+  4i. ``EmbedConfig(mode='bucketed')`` on the 60 s bench draw (the
+     whole-file path): DER within one point of ``--bucketed``'s bar, K2
+     launches by bucket; and on the 600 s draw for its launches per 600 s.
+  4j. ``run_batch`` at ``Diarizer()``'s defaults with each engine on a
+     temporary directory of two 60 s WAVs: RTTMs and stem WAVs written,
+     RTTM lines equal to the JAX CPU bars' to the frame
+     (``scripts/torch_port_batch_bars.json``, from ``--batch``), DER within
+     one point, a second run and the CLI's ``batch`` skip both files; then
+     ``diagnose`` (``save_plots=False``: the card's machine has no
+     matplotlib) on one of them at the CLI's defaults.
   5. Reference agreement on small inputs: the same pipeline (float32
      encoder) on the card and on the CPU (plain versions) over a 25 s file
      cut into three 10 s chunks, with the rescue off; the windowed grid
@@ -93,7 +115,8 @@ Phases (any failure exits nonzero and prints no result line):
      decisions, the overlap regions and the final segments are compared;
      and over a 25 s file in white noise at 10 dB (the whole-file path
      through GTCRN).
-Then one JSON line listing the kernels, the card's nvidia-smi line, and the
+Then a line with the walls of this slice's routes and of the whole run,
+one JSON line listing the kernels, the card's nvidia-smi line, and the
 result line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -109,6 +132,7 @@ import numpy as np
 
 HERE = Path(__file__).resolve().parent
 SR = 16000
+T_START = time.perf_counter()
 
 # DER (%) of the JAX reference on the CPU on the bench draws, overlap rescue
 # off and on (scripts/torch_port_der_bar.py); the port must stay within one
@@ -142,6 +166,14 @@ JAX_CPU_DER_PCT_HELDOUT_CLI = {
     "heldout-reverb6": 2.307, "heldout-babble15": 4.9338,
     "heldout-babble5": 6.2586, "heldout-white10": 1.9187,
     "heldout-overlap": 6.9316}
+# the segmentation engine at its defaults (spectral on the JAX package's
+# numpy path, the bf16 encoder) on the bench draws and held-out overlap file
+# 0 with segmentation_conv.npz, and on the 60 s draw with
+# segmentation_ow3.npz (--engine of that script); the bench configuration
+# with bucketed segment embeddings on the 60 s draw (--bucketed)
+JAX_CPU_DER_PCT_ENGINE = {"conv_bench_60s": 32.2526, "conv_bench_600s": 33.509,
+                          "conv_heldout_overlap_0": 11.0409, "ow3_bench_60s": 32.5939}
+JAX_CPU_DER_PCT_BUCKETED = 1.3439
 ENCODERS = {"full_stream": "ecapa_synthetic_full_stream.npz",
             "proto_small": "ecapa_proto_small.npz",
             "windowed": "ecapa_synthetic.npz"}
@@ -253,7 +285,8 @@ def k2_measure(y, n_unique: int, n_mels: int = 40) -> dict:
     b_ms, b_by = bound(k2_bytes, {"tf32_tensor": 3 * dft_ops, "f32": f32_ops})
     win = torch.hann_window(n_fft, periodic=True, device=y.device)
     return {
-        "shape": list(y.shape), "n_mels": n_mels, "frames": n_frames,
+        "shape": list(y.shape), "row_stride": y.stride(0) if y.ndim == 2 else None,
+        "n_mels": n_mels, "frames": n_frames,
         "max_abs_err": err, "tol": tol, "ref_max": ref_max,
         "ms": cuda_time_ms(lambda: fused_log_mel(y, n_mels=n_mels)),
         "plain_ms": cuda_time_ms(lambda: log_mel_spectrogram(y, n_mels=n_mels)),
@@ -584,13 +617,30 @@ def main() -> int:
         for n_mels in (40, 80):
             rows[0][f"batch_windowed_{n_mels}"] = k2_measure(
                 yw, 511 * 1600 + 32000, n_mels=n_mels)
+        # K2 on the segmentation engine's and the bucketed mode's rows: (a)
+        # every 5 s chunk every 0.625 s of a file, read in place: [89,
+        # 80000] (60 s) and [953, 80000] (600 s) at a row stride of 10,000;
+        # (b) the engine's 1 s / 0.1 s window grid, [512, 16000] at a row
+        # stride of 1,600; (c) the bucketed snippets, [32, 8000 * 2^k]
+        # contiguous rows, k = 0..5
+        rows[0]["engine_chunks_60s"] = k2_measure(
+            y[:88 * 10000 + 80000].unfold(0, 80000, 10000), 88 * 10000 + 80000)
+        rows[0]["engine_chunks_600s"] = k2_measure(
+            y600[:952 * 10000 + 80000].unfold(0, 80000, 10000), 952 * 10000 + 80000)
+        rows[0]["engine_grid"] = k2_measure(
+            y[:511 * 1600 + 16000].unfold(0, 16000, 1600), 511 * 1600 + 16000)
+        rows[0]["bucketed"] = {8000 << k: k2_measure(
+            y600[:32 * (8000 << k)].reshape(32, 8000 << k), 32 * (8000 << k))
+            for k in range(6)}
     k1_rows = [{"name": "asp_grid_stats", "shape": f"A {rows[1][k]['a_dim']}",
                 **rows[1][k]} for k in ("a32", "a128")]
     k2_rows = [{"name": "fused_log_mel", **rows[0][k]}
-               for k in ("t_80", "batch_windowed_40", "batch_windowed_80")]
+               for k in ("t_80", "batch_windowed_40", "batch_windowed_80",
+                         "engine_chunks_60s", "engine_chunks_600s", "engine_grid")]
+    k2_rows += [{"name": "fused_log_mel", **m} for m in rows[0]["bucketed"].values()]
     for r in rows + [{"name": "fused_log_mel", **k2b},
                      {"name": "fused_log_mel", **k2v}] + k1_rows + k2_rows:
-        log(f"[3] {r['name']}{r.get('shape', '')}: max_abs_err "
+        log(f"[3] {r['name']} {r.get('shape', '')}: max_abs_err "
             f"{r['max_abs_err']:.3e} (tol "
             f"{r['tol']:.3e}), max_rel_err {r['max_abs_err'] / r['ref_max']:.3e} "
             f"(tol {TOL_REL[r['name']]:.0e}); kernel {r['ms']:.4f} ms, plain "
@@ -903,8 +953,8 @@ def main() -> int:
     gru = load_vad(wdir / "vad_synthetic.npz")
     k1_a128, k1_a64_384 = "asp_grid_stats A 128, CC 1536", "asp_grid_stats A 64, CC 384"
     k2_t80, k2_t40 = "fused_log_mel [T] 80 mels", "fused_log_mel [T] 40 mels"
-    k2_w40 = "fused_log_mel [B, T] rows of 32000, 40 mels"
-    k2_w80 = "fused_log_mel [B, T] rows of 32000, 80 mels"
+    k2_w40 = "fused_log_mel [B, T] rows of 32000 at a stride of 1600, 40 mels"
+    k2_w80 = "fused_log_mel [B, T] rows of 32000 at a stride of 1600, 80 mels"
     options = {
         # tag: (encoder, VAD, method, grid backend, route, grid, launches,
         #       launch forms, launches of the shapes read below)
@@ -1062,6 +1112,202 @@ def main() -> int:
     if [r.diagnostics.get("route") for r in lone] != ["streamed", "legacy", "streamed"]:
         raise AssertionError("the corpus draws did not take both routes")
 
+    # -------------------------------------------------------- phase 4h ----
+    # the segmentation engine at its defaults (segmentation_conv.npz, the
+    # bf16 encoder, spectral clustering) on the 60 s and 600 s bench draws
+    # and held-out overlap file 0, and segmentation_ow3.npz (cuDNN BiGRUs) on
+    # the 60 s draw: walls, peak memory, K2 launches by shape, DER within one
+    # point of the JAX CPU bar either way; then the engine's hard decisions
+    # on the card against the CPU on the 60 s draw's chunks
+    from speech_diarization_tpu_torch.pipelines.segmentation import (
+        make_seg_activities_fn, segmentation_diarize,
+    )
+
+    seg_fns = {n: make_seg_activities_fn(load_segmentation(
+        wdir / f"segmentation_{n}.npz").to(dev).eval()) for n in ("conv", "ow3")}
+    eng_draws = {f"bench_{d}s": make_conversation(np.random.default_rng(0), float(d),
+                                                  n_speakers=3, sr=SR)
+                 for d in (60, 600)}
+    eng_draws["heldout_overlap_0"] = make_domain_file("heldout-overlap", 0)
+    k2_chunks = "fused_log_mel [B, T] rows of 80000 at a stride of 10000, 40 mels"
+    k2_grid1 = "fused_log_mel [B, T] rows of 16000 at a stride of 1600, 40 mels"
+    engine = {}
+    for net, tag in [("conv", t) for t in eng_draws] + [("ow3", "bench_60s")]:
+        wave, truth = eng_draws[tag]
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        segs = segmentation_diarize(wave, SR, seg_fns[net], enc.encode_batch)
+        warm = time.perf_counter() - t0
+        n_launch, n_shapes = dict(kernels.LAUNCHES), dict(kernels.LAUNCH_SHAPES)
+        peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+        walls = []
+        for _ in range(2 if tag == "bench_600s" else 3):
+            t0 = time.perf_counter()
+            segmentation_diarize(wave, SR, seg_fns[net], enc.encode_batch)
+            walls.append(time.perf_counter() - t0)
+        der = der_pct(truth, segs)
+        jax_der = JAX_CPU_DER_PCT_ENGINE[f"{net}_{tag}"]
+        dur = len(wave) / SR
+        n_w = num_frames(len(wave), 16000, 1600, pad_tail=True)
+        want = {"asp_grid_stats": 0, "fused_log_mel": 1 + -(-n_w // 512)}
+        want_shapes = {k2_chunks: 1, k2_grid1: -(-n_w // 512)}
+        engine[net, tag] = {"wall": min(walls), "der": der, "peak_gb": peak_gb,
+                            "launches": n_launch, "shapes": n_shapes}
+        log(f"[4h] engine {net}, {tag}: warm {warm:.3f} s, timed {min(walls):.4f} s "
+            f"(walls {[round(w, 4) for w in walls]}) -> RTF {dur / min(walls):.1f}x; "
+            f"peak device memory {peak_gb:.3f} GB above the resident set; "
+            f"{len(segs)} segments, {len({int(k) for k in segs.spks})} speakers, "
+            f"DER {der:.4f} % (JAX CPU {jax_der:.4f} % +- {DER_SLACK_PCT}); "
+            f"launches {n_launch} {n_shapes}")
+        if not (len(segs) and np.isfinite(segs.starts).all()
+                and (segs.ends > segs.starts).all()):
+            raise AssertionError(f"engine {net} {tag}: bad segments")
+        if n_launch != want or {k: n_shapes.get(k, 0) for k in want_shapes} != want_shapes:
+            raise AssertionError(f"engine {net} {tag}: launch counts {n_launch} "
+                                 f"{n_shapes}, expected {want} {want_shapes}")
+        if not abs(der - jax_der) <= DER_SLACK_PCT:
+            raise AssertionError(f"engine {net} {tag}: DER {der:.4f} % more than "
+                                 f"{DER_SLACK_PCT} point from the JAX CPU {jax_der:.4f} %")
+    wave60 = eng_draws["bench_60s"][0]
+    chunks = torch.from_numpy(wave60).to(dev)[:88 * 10000 + 80000].unfold(0, 80000, 10000)
+    for net in ("conv", "ow3"):
+        cpu_fn = make_seg_activities_fn(load_segmentation(
+            wdir / f"segmentation_{net}.npz").eval())
+        agree_e = agreement(seg_fns[net](chunks)[..., 3:], cpu_fn(chunks.cpu())[..., 3:])
+        log(f"[4h] engine {net} on the 60 s draw's {chunks.shape[0]} chunks: equal "
+            f"hard decisions card vs CPU {100 * agree_e:.4f} % (bar "
+            f"{100 * HARD_AGREE:.1f} %)")
+        if agree_e < HARD_AGREE:
+            raise AssertionError(f"engine {net}: hard decisions card vs CPU disagree")
+
+    # -------------------------------------------------------- phase 4i ----
+    # bucketed segment embeddings (the whole-file path) on the 60 s bench
+    # draw: DER within one point of the JAX CPU bar, K2 launches by bucket
+    wave, truth = eng_draws["bench_60s"]
+    pipe = DiarizationPipeline(DiarizationConfig(
+        cluster=ClusterConfig(method="spectral", max_speakers=8),
+        embed=EmbedConfig(grid_backend="auto", mode="bucketed"),
+        overlap=OverlapConfig(enabled=True)), encoder=enc, vad=vad)
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = pipe((wave, SR))
+    warm = time.perf_counter() - t0
+    b_shapes = dict(kernels.LAUNCH_SHAPES)
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        pipe((wave, SR))
+        walls.append(time.perf_counter() - t0)
+    der = der_pct(truth, res.segments)
+    buckets = {int(k.split()[5]): v for k, v in b_shapes.items()
+               if k.startswith("fused_log_mel [B, T]")
+               and k.split()[5] == k.split()[10].rstrip(",")}
+    log(f"[4i] bucketed, 60 s: route {res.diagnostics.get('route')}; warm {warm:.3f} "
+        f"s, timed {min(walls):.4f} s (walls {[round(w, 4) for w in walls]}); "
+        f"{len(res.segments)} segments, {res.num_speakers} speakers, DER {der:.4f} % "
+        f"(JAX CPU {JAX_CPU_DER_PCT_BUCKETED:.4f} % +- {DER_SLACK_PCT}); K2 launches by "
+        f"bucket (samples: launches) {buckets}; all launches {b_shapes}")
+    if res.diagnostics.get("route") != "legacy" or not buckets or any(
+            b not in rows[0]["bucketed"] for b in buckets):
+        raise AssertionError(f"bucketed: route {res.diagnostics.get('route')}, "
+                             f"bucket launches {buckets}")
+    if not abs(der - JAX_CPU_DER_PCT_BUCKETED) <= DER_SLACK_PCT:
+        raise AssertionError(f"bucketed: DER {der:.4f} % more than {DER_SLACK_PCT} "
+                             f"point from the JAX CPU {JAX_CPU_DER_PCT_BUCKETED:.4f} %")
+    bucketed_wall = min(walls)
+    # the same on the 600 s bench draw: launches by bucket per 600 s (no
+    # JAX bar at 600 s)
+    wave600b, truth600b = eng_draws["bench_600s"]
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = pipe((wave600b, SR))
+    b600_wall = time.perf_counter() - t0
+    buckets600 = {int(k.split()[5]): v for k, v in kernels.LAUNCH_SHAPES.items()
+                  if k.startswith("fused_log_mel [B, T]")
+                  and k.split()[5] == k.split()[10].rstrip(",")}
+    log(f"[4i] bucketed, 600 s: warm {b600_wall:.3f} s; {len(res.segments)} "
+        f"segments, DER {der_pct(truth600b, res.segments):.4f} % (no JAX bar); K2 "
+        f"launches by bucket {buckets600}")
+    if not buckets600 or any(b not in rows[0]["bucketed"] for b in buckets600):
+        raise AssertionError(f"bucketed 600 s: bucket launches {buckets600}")
+
+    # -------------------------------------------------------- phase 4j ----
+    # batch (Diarizer()'s defaults, each engine) on a directory of two 60 s
+    # WAVs: RTTMs and stems written, RTTM lines equal the JAX CPU bars' to
+    # the frame (scripts/torch_port_batch_bars.json), DER within one point,
+    # a second run (and the CLI's batch) skips both files; then diag
+    # (save_plots=False) on one of them
+    import tempfile
+
+    from speech_diarization_tpu_torch.cli import main as cli_main
+    from speech_diarization_tpu_torch.io.audio import write_wav
+    from speech_diarization_tpu_torch.pipelines.baseline import run_batch
+    from speech_diarization_tpu_torch.pipelines.diagnostic import diagnose
+
+    batch_bars = json.loads((HERE / "scripts" / "torch_port_batch_bars.json").read_text())
+    b_draws = [make_conversation(np.random.default_rng(50 + i), 60.0, n_speakers=3,
+                                 sr=SR) for i in range(2)]
+    batch_walls = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for eng in ("flagship", "segmentation"):
+            root = Path(tmp) / eng
+            for i, (wv, _) in enumerate(b_draws):
+                write_wav(root / f"draw{i}.wav", wv, SR)
+            t0 = time.perf_counter()
+            done = run_batch(root, engine=eng)
+            batch_walls[eng] = time.perf_counter() - t0
+            stems = sorted(p.relative_to(root) for p in root.rglob("*-speakers/**/*.wav"))
+            worst, ders = 0.0, []
+            for i, (_, truth) in enumerate(b_draws):
+                rttm = (root / f"draw{i}.rttm").read_text()
+                got = [[float(f[3]), float(f[4]), f[7]]
+                       for f in (ln.split() for ln in rttm.splitlines())]
+                bar = batch_bars["engines"][eng]["files"][f"draw{i}"]
+                if len(got) != len(bar["rttm"]) or any(
+                        g[2] != b[2] for g, b in zip(got, bar["rttm"])):
+                    raise AssertionError(f"batch {eng} draw{i}: RTTM {got} differs "
+                                         f"from the bar {bar['rttm']}")
+                worst = max([worst] + [abs(g[k] - b[k]) for g, b in zip(got, bar["rttm"])
+                                       for k in (0, 1)])
+                names = sorted({g[2] for g in got})
+                ders.append(der_pct(truth, SegmentArray(
+                    np.array([g[0] for g in got]), np.array([g[0] + g[1] for g in got]),
+                    np.array([names.index(g[2]) for g in got]))))
+                if not abs(ders[-1] - bar["der_pct"]) <= DER_SLACK_PCT:
+                    raise AssertionError(f"batch {eng} draw{i}: DER {ders[-1]:.4f} %")
+            again = run_batch(root, engine=eng)
+            before = [(root / f"draw{i}.rttm").read_text() for i in range(2)]
+            cli_rc = cli_main(["batch", str(root), "--engine", eng])
+            after = [(root / f"draw{i}.rttm").read_text() for i in range(2)]
+            log(f"[4j] batch --engine {eng}: {len(done)} files in "
+                f"{batch_walls[eng]:.3f} s, {len(stems)} stem WAVs, RTTM edges within "
+                f"{worst:.3f} s of the JAX CPU bars, DER {[round(d, 4) for d in ders]} % "
+                f"(bars {[batch_bars['engines'][eng]['files'][f'draw{i}']['der_pct'] for i in range(2)]}); "
+                f"second run {again}, the CLI's batch rc {cli_rc}, RTTMs unchanged "
+                f"{before == after}")
+            if len(done) != 2 or not stems or worst > 0.0105 or again or cli_rc != 0 or (
+                    before != after):
+                raise AssertionError(f"batch {eng}: files {done}, stems {len(stems)}, "
+                                     f"edge difference {worst}, rerun {again}")
+        t0 = time.perf_counter()
+        report = diagnose(Path(tmp) / "flagship" / "draw0.wav", out_dir=Path(tmp) / "diag",
+                          save_plots=False, **build_pipeline_kwargs(cli_args))
+        diag_wall = time.perf_counter() - t0
+        stats = report.similarity_stats()
+        log(f"[4j] diag on draw0 (save_plots=False): {diag_wall:.3f} s, "
+            f"{len(report.segments)} segments, {len(report.speakers)} speakers, "
+            f"similarity {({k: round(v, 4) for k, v in stats.items()})}, "
+            f"{report.tuning_hint()}; files "
+            f"{sorted(p.name for p in (Path(tmp) / 'diag').iterdir())}")
+        if not (len(report.segments) and all(np.isfinite(v) for v in stats.values())
+                and (Path(tmp) / "diag" / "diarization.json").exists()):
+            raise AssertionError("diag: no segments, non-finite statistics or no output")
+
     # ---------------------------------------------------------- phase 5 ----
     enc32 = load_speaker_encoder(wdir / "ecapa_robust_stream.npz")
 
@@ -1194,12 +1440,31 @@ def main() -> int:
     rows[0]["batch_windowed_80"]["launches_60s"] = (
         opt_shapes["full_stream_windowed"][k2_w80])
     rows[0]["launches_options"] = {k: v["fused_log_mel"] for k, v in opt_launches.items()}
+    # this slice's routes, counted by shape where launched: the engine's
+    # chunks and grid at 60 s and 600 s (4h), the bucketed snippets (4i)
+    rows[0]["engine_chunks_60s"]["launches"] = engine["conv", "bench_60s"]["shapes"][k2_chunks]
+    rows[0]["engine_chunks_600s"]["launches"] = engine["conv", "bench_600s"]["shapes"][k2_chunks]
+    rows[0]["engine_grid"]["launches"] = {
+        tag: engine["conv", tag]["shapes"][k2_grid1] for tag in ("bench_60s", "bench_600s")}
+    for blen, m in rows[0]["bucketed"].items():
+        m["launches"] = buckets.get(blen, 0)
+        m["launches_600s"] = buckets600.get(blen, 0)
+    rows[0]["launches_engine"] = {f"{n} {t}": v["launches"]["fused_log_mel"]
+                                  for (n, t), v in engine.items()}
+    rows[1]["launches_engine"] = {f"{n} {t}": v["launches"]["asp_grid_stats"]
+                                  for (n, t), v in engine.items()}
     rows[1]["launches_options"] = {k: v["asp_grid_stats"] for k, v in opt_launches.items()}
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "launches_overlap_off", "launches_noisy", "launches_zipenhancer",
-            "launches_demix", "launches_options", "batch", "batch_vad", "t_80",
-            "batch_windowed_40", "batch_windowed_80", "a32", "a128")
+            "launches_demix", "launches_options", "launches_engine", "batch",
+            "batch_vad", "t_80", "batch_windowed_40", "batch_windowed_80", "a32",
+            "a128", "engine_chunks_60s", "engine_chunks_600s", "engine_grid",
+            "bucketed")
+    log(f"[end] engine 600 s {engine['conv', 'bench_600s']['wall']:.4f} s, bucketed "
+        f"60 s {bucketed_wall:.4f} s, batch {({k: round(v, 3) for k, v in batch_walls.items()})} "
+        f"s, diag {diag_wall:.3f} s; the whole run took "
+        f"{time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
                                   for r in rows]}))
     print(smi)

@@ -54,12 +54,33 @@ line each.
 + i)`` for i < 6, through the JAX ``corpus_diarize`` in the bench
 configuration: per-file and mean DER.  One JSON line.
 
+``--engine``: the segmentation engine (``segmentation_diarize``) at its
+defaults (``SegmentationConfig()``: 5 s chunks every 0.625 s, purity-masked
+embeddings, spectral clustering on the JAX package's numpy path, ROADMAP
+F2) with ``segmentation_conv.npz`` and ``ecapa_robust_stream.npz`` (bf16
+trunk) on the 60 s and 600 s bench draws and on held-out overlap file 0
+(seed 1000), and with ``segmentation_ow3.npz`` on the 60 s draw.  One JSON
+line.
+
+``--bucketed``: the bench configuration (overlap on) with
+``EmbedConfig(mode='bucketed')`` on the 60 s bench draw (the whole-file
+path: each segment's snippet through the per-utterance encoder).  One JSON
+line.
+
+``--batch``: ``run_batch`` at ``Diarizer()``'s defaults (AHC, 2-6 speakers
+at cos 0.70, the default encoder in float32, the energy VAD) with each
+engine on a directory of two 60 s draws (``make_conversation(
+default_rng(50 + i), 60, n_speakers=3)``, written as 16-bit WAV): the RTTM
+lines and DER per file.  One JSON line, also written to
+``scripts/torch_port_batch_bars.json``, which ``chip_smoke.py`` reads.
+
     JAX_PLATFORMS=cpu python scripts/torch_port_der_bar.py [--overlap off|on|both]
     JAX_PLATFORMS=cpu python scripts/torch_port_der_bar.py --noisy [--seconds 60]
     JAX_PLATFORMS=cpu python scripts/torch_port_der_bar.py --noisy --enhance zipenhancer
     JAX_PLATFORMS=cpu python scripts/torch_port_der_bar.py --encoders
     JAX_PLATFORMS=cpu python scripts/torch_port_der_bar.py --heldout [--cli]
     JAX_PLATFORMS=cpu python scripts/torch_port_der_bar.py --corpus
+    JAX_PLATFORMS=cpu python scripts/torch_port_der_bar.py --engine | --bucketed | --batch
 """
 from __future__ import annotations
 
@@ -94,6 +115,12 @@ def main() -> None:
                     help="with --heldout: file 0 per domain, CLI defaults")
     ap.add_argument("--corpus", action="store_true",
                     help="bench.py's corpus milestone files")
+    ap.add_argument("--engine", action="store_true",
+                    help="the segmentation engine at its defaults")
+    ap.add_argument("--bucketed", action="store_true",
+                    help="the bench configuration with bucketed embeddings")
+    ap.add_argument("--batch", action="store_true",
+                    help="run_batch at Diarizer()'s defaults, both engines")
     args = ap.parse_args()
 
     import jax
@@ -119,6 +146,12 @@ def main() -> None:
         return heldout_bar(w, args.cli)
     if args.corpus:
         return corpus_bar((enc, enc_p), jax.jit(partial(vad.probs, vad_p)))
+    if args.engine:
+        return engine_bar(w, jax.jit(partial(enc.encode_batch, enc_p)))
+    if args.bucketed:
+        return bucketed_bar((enc, enc_p), jax.jit(partial(vad.probs, vad_p)))
+    if args.batch:
+        return batch_bar()
     if args.noisy:
         from speech_diarization_tpu.config import EnhanceConfig
         from speech_diarization_tpu.pipelines.enhance import make_enhance_fn
@@ -330,6 +363,122 @@ def corpus_bar(encoder, vad_fn) -> None:
                       "der_pct_mean": round(float(np.mean(list(ders.values()))), 4),
                       "errors": report.errors,
                       "wall_s": round(time.perf_counter() - t0, 2)}), flush=True)
+
+
+def _numpy_spectral() -> None:
+    """Spectral clustering on the JAX package's numpy path (ROADMAP F2), the
+    path the port implements."""
+    import speech_diarization_tpu.cluster.spectral as jspectral
+
+    jspectral._device_capable = lambda: False
+
+
+def engine_bar(w, encode_fn) -> None:
+    """The segmentation engine at its defaults on the bench draws and the
+    held-out overlap file."""
+    import jax
+
+    from speech_diarization_tpu.pipelines.segmentation import (
+        make_seg_activities_fn, segmentation_diarize,
+    )
+    from speech_diarization_tpu.train.recipes import load_segmentation
+    from speech_diarization_tpu.train.synthetic import make_conversation
+
+    sys.path.insert(0, str(ROOT / "scripts"))
+    from eval_heldout import make_file
+
+    _numpy_spectral()
+    fns = {n: make_seg_activities_fn(*load_segmentation(w / f"segmentation_{n}.npz"))
+           for n in ("conv", "ow3")}
+    draws = {f"bench_{d}s": make_conversation(np.random.default_rng(0), float(d),
+                                              n_speakers=3, sr=16000)
+             for d in (60, 600)}
+    draws["heldout_overlap_0"] = make_file("heldout-overlap", 0, 60.0, 3, 16000)
+    cases = [("conv", tag) for tag in draws] + [("ow3", "bench_60s")]
+    out = {"device": jax.devices()[0].platform, "engine": "segmentation"}
+    for net, tag in cases:
+        wave, truth = draws[tag]
+        t0 = time.perf_counter()
+        segs = segmentation_diarize(wave, 16000, fns[net], encode_fn)
+        key = f"{net}_{tag}"
+        out[f"der_pct_{key}"] = round(100.0 * _der(truth, segs).der, 4)
+        out[f"segments_{key}"] = len(segs)
+        out[f"speakers_{key}"] = len({int(k) for k in segs.spks})
+        out[f"wall_s_{key}"] = round(time.perf_counter() - t0, 2)
+        print(json.dumps(out), flush=True)
+
+
+def bucketed_bar(encoder, vad_fn) -> None:
+    """The bench configuration with ``EmbedConfig(mode='bucketed')`` on the
+    60 s bench draw."""
+    import jax
+
+    from speech_diarization_tpu.config import (
+        ClusterConfig, DiarizationConfig, EmbedConfig,
+    )
+    from speech_diarization_tpu.pipelines.diarize import DiarizationPipeline
+    from speech_diarization_tpu.train.synthetic import make_conversation
+
+    cfg = DiarizationConfig(cluster=ClusterConfig(method="spectral", max_speakers=8),
+                            embed=EmbedConfig(grid_backend="auto", mode="bucketed"))
+    pipe = DiarizationPipeline(cfg, encoder=encoder, vad_probs_fn=vad_fn)
+    wave, truth = make_conversation(np.random.default_rng(0), 60.0, n_speakers=3,
+                                    sr=16000)
+    t0 = time.perf_counter()
+    res = pipe((wave, 16000))
+    print(json.dumps({"device": jax.devices()[0].platform, "embed": "bucketed",
+                      "der_pct_bench_60s": round(100.0 * _der(truth, res.segments).der, 4),
+                      "segments": len(res.segments), "speakers": res.num_speakers,
+                      "wall_s": round(time.perf_counter() - t0, 2)}), flush=True)
+
+
+def read_rttm(path) -> list[list]:
+    """[start, duration, speaker] of each SPEAKER line."""
+    rows = []
+    for line in Path(path).read_text().splitlines():
+        f = line.split()
+        rows.append([float(f[3]), float(f[4]), f[7]])
+    return rows
+
+
+def batch_bar() -> None:
+    """``run_batch`` at ``Diarizer()``'s defaults with each engine on two
+    60 s WAVs."""
+    import tempfile
+
+    import jax
+
+    from speech_diarization_tpu.io.audio import write_wav
+    from speech_diarization_tpu.pipelines.baseline import run_batch
+    from speech_diarization_tpu.train.synthetic import make_conversation
+    from speech_diarization_tpu.types import SegmentArray
+
+    _numpy_spectral()
+    draws = [make_conversation(np.random.default_rng(50 + i), 60.0, n_speakers=3,
+                               sr=16000) for i in range(2)]
+    out = {"device": jax.devices()[0].platform, "batch": "Diarizer() defaults",
+           "draws": "make_conversation(default_rng(50 + i), 60.0, n_speakers=3)",
+           "engines": {}}
+    for engine in ("flagship", "segmentation"):
+        with tempfile.TemporaryDirectory() as tmp:
+            for i, (wave, _) in enumerate(draws):
+                write_wav(Path(tmp) / f"draw{i}.wav", wave, 16000)
+            t0 = time.perf_counter()
+            done = run_batch(tmp, engine=engine)
+            files = {}
+            for i, (_, truth) in enumerate(draws):
+                rows = read_rttm(Path(tmp) / f"draw{i}.rttm")
+                names = sorted({r[2] for r in rows})
+                segs = SegmentArray(np.array([r[0] for r in rows]),
+                                    np.array([r[0] + r[1] for r in rows]),
+                                    np.array([names.index(r[2]) for r in rows]))
+                files[f"draw{i}"] = {"rttm": rows,
+                                     "der_pct": round(100.0 * _der(truth, segs).der, 4)}
+            out["engines"][engine] = {"files": files, "processed": len(done),
+                                      "wall_s": round(time.perf_counter() - t0, 2)}
+    (ROOT / "scripts" / "torch_port_batch_bars.json").write_text(
+        json.dumps(out, indent=1) + "\n")
+    print(json.dumps(out), flush=True)
 
 
 if __name__ == "__main__":

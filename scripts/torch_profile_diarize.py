@@ -27,7 +27,17 @@ around the net; ZipEnhancer split into its linears, the attention proper
 peak device memory, by batch of 64 windows; the demixer as host
 resampling each way and the separator's host wall and device time.
 
+``--engine`` profiles the segmentation engine instead, at its defaults
+(``segmentation_conv.npz``, the bf16 encoder, spectral clustering) on the
+bench draw: host wall by stage (``seg-score``: upload, one log-mel launch
+for every chunk, the net and the copy back; ``seg-local``: binarize,
+center-trim and purity rows; ``seg-embed-grid``: the 1 s window grid
+through the encoder; ``seg-embeddings``: the purity-masked pools;
+``seg-cluster``), the number of local segments, peak device memory, and
+device time by kernel with the busy share.
+
     python3 scripts/torch_profile_diarize.py [--seconds 600] [--overlap off|on|both]
+    python3 scripts/torch_profile_diarize.py --engine [--seconds 600]
     python3 scripts/torch_profile_diarize.py --noisy [--seconds 600] [--enhance gtcrn|zipenhancer|demix-dialog]
 
 Prints a table and one JSON line.  Needs a CUDA card.
@@ -61,6 +71,9 @@ class _StageLog(logging.Handler):
         m = re.match(r"stage=(\S+) wall_s=([0-9.]+)", record.getMessage())
         if m:
             self.walls[m.group(1)] = float(m.group(2))
+        m = re.match(r"segmentation: (\d+) local", record.getMessage())
+        if m:
+            self.walls["local_segments"] = int(m.group(1))
 
 
 def _timed(fn) -> float:
@@ -434,6 +447,80 @@ def profile_noisy(seconds: float, smi: str, backend: str = "gtcrn") -> dict:
     return out
 
 
+def profile_engine(seconds: float, smi: str) -> dict:
+    """The segmentation engine at its defaults: host stages (best of 3),
+    peak device memory, device time by kernel and busy share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from speech_diarization_tpu_torch.models.port import (
+        load_segmentation, load_speaker_encoder,
+    )
+    from speech_diarization_tpu_torch.pipelines.segmentation import (
+        make_seg_activities_fn, segmentation_diarize,
+    )
+    from speech_diarization_tpu_torch.train.synthetic import make_conversation
+    from speech_diarization_tpu_torch.utils.device import disable_tf32
+    from speech_diarization_tpu_torch.utils.logging import get_logger
+
+    disable_tf32()
+    w = ROOT / "weights"
+    enc = load_speaker_encoder(w / "ecapa_robust_stream.npz",
+                               dtype=torch.bfloat16).to("cuda").eval()
+    fn = make_seg_activities_fn(load_segmentation(
+        w / "segmentation_conv.npz").to("cuda").eval())
+    wave, _ = make_conversation(np.random.default_rng(0), seconds,
+                                n_speakers=3, sr=SR)
+
+    def run():
+        return segmentation_diarize(wave, SR, fn, enc.encode_batch)
+
+    run()                                        # warm-up (builds kernels)
+    logger = get_logger("segmentation")
+    handler = _StageLog()
+    logger.addHandler(handler)
+    root = logging.getLogger("sdtpu")
+    old_level = root.level
+    root.setLevel(logging.INFO)
+    runs = []
+    for _ in range(3):
+        handler.walls = {}
+        torch.cuda.synchronize()
+        wall = _timed(run)
+        runs.append({"wall_s": wall, **handler.walls})
+    root.setLevel(old_level)
+    logger.removeHandler(handler)
+    best = min(runs, key=lambda r: r["wall_s"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    run()
+    peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kern = _device_kernels(prof)
+    busy_us = sum(v for _, v, _ in kern)
+    print(f"card: {smi}; segmentation engine on a {seconds:.0f} s file")
+    print("best of 3 host stages: " + ", ".join(
+        f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
+        for k, v in best.items()))
+    print(f"peak device memory {peak_gb:.3f} GB above the resident set; "
+          f"profiled wall {wall:.4f} s; device busy {busy_us / 1e6:.4f} s "
+          f"({100 * busy_us / 1e6 / wall:.2f} % of the wall)")
+    print(f"{'device time (ms)':>17} {'calls':>6}  name")
+    for name, v, n in kern[:16]:
+        print(f"{v / 1e3:17.3f} {n:6d}  {name[:90]}")
+    out = {"card": smi, "seconds": seconds, "engine": "segmentation_conv",
+           "host_stages_best": best, "peak_gb": peak_gb, "profiled_wall_s": wall,
+           "device_busy_s": busy_us / 1e6, "device_busy_share": busy_us / 1e6 / wall,
+           "top_kernels_ms": {name[:80]: v / 1e3 for name, v, _ in kern[:12]}}
+    print(json.dumps(out))
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seconds", type=float, default=600.0)
@@ -443,6 +530,8 @@ def main() -> int:
     ap.add_argument("--enhance", default="gtcrn",
                     choices=["gtcrn", "zipenhancer", "demix-dialog"],
                     help="with --noisy: the enhancement backend")
+    ap.add_argument("--engine", action="store_true",
+                    help="profile the segmentation engine instead")
     args = ap.parse_args()
 
     import torch
@@ -455,6 +544,9 @@ def main() -> int:
         capture_output=True, text=True, check=True).stdout.strip()
     if args.noisy:
         profile_noisy(args.seconds, smi, args.enhance)
+        return 0
+    if args.engine:
+        profile_engine(args.seconds, smi)
         return 0
     runs = {ov: profile_config(args.seconds, ov, smi)
             for ov in ((False, True) if args.overlap == "both"

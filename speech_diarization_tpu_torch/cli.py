@@ -1,6 +1,8 @@
 """Command-line entry point of the PyTorch port: ``sdtpu-torch``.
 
     python -m speech_diarization_tpu_torch.cli diarize x.wav [--cpu]
+    python -m speech_diarization_tpu_torch.cli batch <root> [--engine flagship|segmentation]
+    python -m speech_diarization_tpu_torch.cli diag x.wav [--out-dir out]
     python -m speech_diarization_tpu_torch.cli enhance <root> [--backend gtcrn|zipenhancer]
     python -m speech_diarization_tpu_torch.cli demix <root> [--output out]
 
@@ -18,6 +20,12 @@ streaming-trained runs the windowed grid), ``--no-overlap``,
 or off), ``--enhance-scope`` and ``--enhance-weights`` are options;
 ``--encoder eres2netv2|campp`` is refused (not ported).  Writes RTTM, JSON,
 SRT and CSV.
+``batch`` diarizes every audio file under a directory (``--engine
+segmentation``: the chunk-local speaker-activity engine) and writes an RTTM
+beside each and per-speaker stems under ``<stem>-speakers/``; a file whose
+RTTM exists is skipped.  ``diag`` runs the diagnostic pipeline (whitening,
+HDBSCAN by default, AS-Norm, Viterbi) and writes JSON/SRT/CSV and the
+similarity plots (matplotlib).  Both take ``diarize``'s options.
 ``enhance`` writes a ``<root>-enhanced`` tree of denoised 16 kHz WAVs
 (files already there are skipped); ``demix`` writes
 ``<output>/{music,effect,dialog}/`` stereo 44.1 kHz stems.
@@ -209,6 +217,31 @@ def cmd_diarize(args) -> int:
     return 0
 
 
+def cmd_batch(args) -> int:
+    from .pipelines.baseline import run_batch
+
+    cfg = build_config(args)
+    done = run_batch(args.root, cfg, with_rttm=True, engine=args.engine,
+                     **build_pipeline_kwargs(args))
+    print(f"processed {len(done)} files")
+    return 0
+
+
+def cmd_diag(args) -> int:
+    from .pipelines.diagnostic import diagnose
+
+    cfg = build_config(args)
+    report = diagnose(args.audio, cfg, out_dir=args.out_dir,
+                      cluster_method=args.cluster_method,
+                      **build_pipeline_kwargs(args))
+    stats = report.similarity_stats()
+    print(f"segments: {len(report.segments)}")
+    print(f"adjacent cos   mu={stats['adjacent_mean']:.3f} sigma={stats['adjacent_std']:.3f}")
+    print(f"non-adj  cos   mu={stats['nonadjacent_mean']:.3f} sigma={stats['nonadjacent_std']:.3f}")
+    print(report.tuning_hint())
+    return 0
+
+
 def cmd_enhance(args) -> int:
     from .pipelines.enhance import enhance_batch
 
@@ -246,6 +279,21 @@ def main(argv: list[str] | None = None) -> int:
                    choices=["rttm", "json", "srt", "csv", "all"])
     _add_common_config_args(p)
     p.set_defaults(fn=cmd_diarize)
+
+    p = sub.add_parser("batch", help="batch-diarize a directory (with stems)")
+    p.add_argument("root")
+    p.add_argument("--engine", default="flagship",
+                   choices=["flagship", "segmentation"],
+                   help="segmentation = the chunk-local speaker-activity "
+                        "engine (overlap-aware)")
+    _add_common_config_args(p)
+    p.set_defaults(fn=cmd_batch)
+
+    p = sub.add_parser("diag", help="diagnostic run with plots")
+    p.add_argument("audio")
+    p.add_argument("--out-dir", default="out")
+    _add_common_config_args(p)
+    p.set_defaults(fn=cmd_diag)
 
     p = sub.add_parser("enhance", help="batch speech enhancement")
     p.add_argument("root")

@@ -1,3 +1,7 @@
+"""Clustering and score normalization, host numpy apart from whitening and
+AS-Norm (torch): spectral (the numpy path of the JAX package, ROADMAP F2),
+AHC, HDBSCAN and two-stage HDBSCAN, and :func:`cluster_embeddings`, the
+dispatcher over them (``diar_diag.py:213-229``)."""
 from .affinity import asnorm_scores, l2_normalize, whiten
 from .ahc import ahc_cluster
 from .density import hdbscan_cleaned, hdbscan_cluster, hdbscan_two_stage
@@ -8,6 +12,7 @@ __all__ = [
     "ahc_cluster",
     "asnorm_scores",
     "bisect_windows",
+    "cluster_embeddings",
     "farthest_point_init",
     "hdbscan_cleaned",
     "hdbscan_cluster",
@@ -18,3 +23,20 @@ __all__ = [
     "spectral_cluster",
     "whiten",
 ]
+
+
+def cluster_embeddings(embs, method: str = "spectral", **kwargs):
+    """Dispatcher mirroring ``diar_diag.cluster_embeddings`` (``diar_diag.py:213-229``)
+    plus the spectral default and two-stage HDBSCAN variants."""
+    import numpy as np
+
+    embs = np.asarray(embs)
+    if method == "spectral":
+        return np.asarray(spectral_cluster(embs, **kwargs))
+    if method == "ahc":
+        return ahc_cluster(embs, **kwargs)
+    if method == "hdbscan":
+        return hdbscan_cluster(embs, **kwargs)
+    if method == "hdbscan2":
+        return hdbscan_two_stage(embs, **kwargs)
+    raise ValueError(f"unknown clustering method: {method}")

@@ -63,8 +63,10 @@ class ScdConfig:
 
 @dataclass(frozen=True)
 class EmbedConfig:
-    """Speaker-embedding extraction.  The port runs ``mode='grid'`` with the
-    streaming grid (``grid_backend`` 'auto' or 'streaming')."""
+    """Speaker-embedding extraction: ``mode='grid'`` (segment embeddings as
+    masked means over the window grid) or ``'bucketed'`` (each segment's own
+    snippet through the per-utterance encoder, in power-of-two length
+    buckets of ``batch_size`` snippets at most 32)."""
 
     backend: str = "ecapa"
     dim: int = 192

@@ -327,7 +327,8 @@ def fused_log_mel(y: torch.Tensor, sample_rate: int = 16000, n_mels: int = 80,
         torch.cuda.current_stream(y.device).cuda_stream,
         form="[T]" if y.ndim == 1 else "[B, T]",
         shape=(f"[T] {n_mels} mels" if y.ndim == 1
-               else f"[B, T] rows of {t}, {n_mels} mels"))
+               else f"[B, T] rows of {t} at a stride of {row_stride}, "
+                    f"{n_mels} mels"))
     return out[0] if y.ndim == 1 else out
 
 

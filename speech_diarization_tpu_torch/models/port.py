@@ -54,8 +54,17 @@ _GRU_KEYS = {"gru.w_ih": "gru.weight_ih_l0", "gru.w_hh": "gru.weight_hh_l0",
              "gru.b_ih": "gru.bias_ih_l0", "gru.b_hh": "gru.bias_hh_l0"}
 
 
+# the segmentation net's BiGRU pairs: 'gru{i}_f/w_ih' -> 'gru{i}.weight_ih_l0',
+# 'gru{i}_b/b_hh' -> 'gru{i}.bias_hh_l0_reverse' (one bidirectional nn.GRU)
+_SEG_GRU = re.compile(r"^gru(\d+)_([fb])/([wb])_(ih|hh)$")
+
+
 def _state_key(flat_key: str) -> str:
     # 'block0/conv1/w' -> 'block.0.conv1.w'; 'res2/1/b' -> 'res2.1.b'
+    m = _SEG_GRU.match(flat_key)
+    if m:
+        return (f"gru{m[1]}.{'weight' if m[3] == 'w' else 'bias'}_{m[4]}_l0"
+                + ("_reverse" if m[2] == "b" else ""))
     return re.sub(r"^block(\d+)/", r"block.\1/", flat_key).replace("/", ".")
 
 
@@ -91,8 +100,8 @@ def params_from_numpy(flat: dict[str, np.ndarray], arch_meta: dict,
         rsc = arch_meta.get("refine_sub_cos")
         model.refine_sub_cos = float(rsc) if rsc is not None else None
     elif kind == "segmentation":
-        # a checkpoint without meta is the recurrent sigmoid-head net, which
-        # SegNet refuses
+        # a checkpoint without meta is the recurrent 96/96 sigmoid-head net
+        # (SegNet's defaults), as the JAX loader reads it
         net = SegNet(**net_cfg)
         model = SegmentationModel(net)
     else:
@@ -127,7 +136,8 @@ def load_speaker_encoder(path: str | Path, dtype=None) -> EcapaModel:
 
 def load_segmentation(path: str | Path) -> SegmentationModel:
     """Shipped segmentation checkpoint -> :class:`SegmentationModel`; the
-    head type and the widths travel in the ``__meta__`` sidecar."""
+    head type and the widths travel in the ``__meta__`` sidecar (none: the
+    96/96 sigmoid-head BiGRU net)."""
     return params_from_numpy(load_params_npz(path), load_params_meta(path),
                              kind="segmentation")
 

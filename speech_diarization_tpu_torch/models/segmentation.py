@@ -1,22 +1,31 @@
-"""Chunk-local speaker-activity segmentation: the overlap detector.
+"""Chunk-local speaker-activity segmentation: the overlap detector and the
+segmentation engine's net.
 
-``SegNet`` on its ``arch='xf'`` branch, the one every shipped checkpoint
-uses: log-mel [B, T, M] -> two SiLU convs at the 10 ms rate -> a strided conv
-down to ``T // ds + 1`` tokens -> learned positions -> ``n_xf`` pre-LN
-transformer blocks that each see the whole 5 s chunk -> final LayerNorm ->
-repeat-upsampled back to 10 ms and fused with the full-rate conv features ->
-linear head.  With ``powerset=True`` the head is one softmax over the
-``2^K`` subsets of the K speaker slots; the decision per frame is the argmax
-class, mapped to its K binary slots by :meth:`SegNet.membership`.
+``SegNet`` on its ``arch='xf'`` branch (``segmentation_conv.npz``,
+``segmentation_xf.npz``): log-mel [B, T, M] -> two SiLU convs at the 10 ms
+rate -> a strided conv down to ``T // ds + 1`` tokens -> learned positions ->
+``n_xf`` pre-LN transformer blocks that each see the whole 5 s chunk -> final
+LayerNorm -> repeat-upsampled back to 10 ms and fused with the full-rate conv
+features -> linear head.
+
+The recurrent branches (``arch='gru'``: ``segmentation_ow3.npz``,
+``segmentation_powerset.npz``, ``segmentation_synthetic.npz``) run ``n_gru``
+bidirectional GRUs, each one ``nn.GRU(bidirectional=True)`` in place of the
+JAX ``bigru_sequence`` (cuDNN on the card; torch's gate math is the JAX
+``gru_sequence``'s, forward features first): at the 10 ms rate when ``ds == 1``, else over the SiLU of a strided
+conv (``T // ds + 1`` steps), repeat-upsampled and fused with the full-rate
+features as above.  ``n_fc`` SiLU linears follow either branch.
+
+With ``powerset=True`` the head is one softmax over the ``2^K`` subsets of
+the K speaker slots; the decision per frame is the argmax class, mapped to
+its K binary slots by :meth:`SegNet.membership`.  With ``powerset=False``
+(``segmentation_synthetic.npz``) it is K sigmoids, decided at 0.5.
 
 The output is an argmax over near-tied logits on some frames, so the net
 runs in float32 with TF32 off on the card (``utils.device.disable_tf32``),
 and parity with another implementation is a share of equal decisions.  The
 attention is spelled out as two products and a softmax: at 168 tokens a
 head it is a few small float32 GEMMs, the same on the card and on the CPU.
-
-The recurrent branches (``arch='gru'``, with or without ``ds``) are not
-ported and raise.
 """
 from __future__ import annotations
 
@@ -41,16 +50,14 @@ class SegNet(nn.Module):
                  arch: str = "gru", n_xf: int = 4, n_heads: int = 4,
                  max_frames: int = 501):
         super().__init__()
-        if arch != "xf":
-            raise NotImplementedError(
-                f"SegNet arch {arch!r} (the recurrent stack) is not ported; "
-                "only the transformer branch 'xf' is")
+        if arch not in ("xf", "gru"):
+            raise ValueError(f"unknown SegNet arch {arch!r}")
         self.n_mels = n_mels
         self.channels = channels
         self.hidden = hidden
         self.n_speakers = n_speakers
         self.powerset = powerset
-        self.n_gru = n_gru          # kept for the checkpoint meta; unused
+        self.n_gru = n_gru
         self.n_fc = n_fc
         self.ds = ds
         self.arch = arch
@@ -61,18 +68,28 @@ class SegNet(nn.Module):
         dm = 2 * h
         self.conv1_w, self.conv1_b = _param(c, m, 5), _param(c)
         self.conv2_w, self.conv2_b = _param(c, c, 3), _param(c)
-        self.ds_w, self.ds_b = _param(dm, c, 2 * ds), _param(dm)
-        self.pos_emb = _param(max_frames // ds + 2, dm)
-        for i in range(1, n_xf + 1):
-            for name, shape in (("ln1_g", (dm,)), ("ln1_b", (dm,)),
-                                ("qkv_w", (dm, 3 * dm)), ("qkv_b", (3 * dm,)),
-                                ("proj_w", (dm, dm)), ("proj_b", (dm,)),
-                                ("ln2_g", (dm,)), ("ln2_b", (dm,)),
-                                ("ff1_w", (dm, 4 * dm)), ("ff1_b", (4 * dm,)),
-                                ("ff2_w", (4 * dm, dm)), ("ff2_b", (dm,))):
-                setattr(self, f"xf{i}_{name}", _param(*shape))
-        self.xf_lnf_g, self.xf_lnf_b = _param(dm), _param(dm)
-        self.fuse_w, self.fuse_b = _param(dm + c, 2 * h), _param(2 * h)
+        if arch == "xf":
+            self.ds_w, self.ds_b = _param(dm, c, 2 * ds), _param(dm)
+            self.pos_emb = _param(max_frames // ds + 2, dm)
+            for i in range(1, n_xf + 1):
+                for name, shape in (("ln1_g", (dm,)), ("ln1_b", (dm,)),
+                                    ("qkv_w", (dm, 3 * dm)), ("qkv_b", (3 * dm,)),
+                                    ("proj_w", (dm, dm)), ("proj_b", (dm,)),
+                                    ("ln2_g", (dm,)), ("ln2_b", (dm,)),
+                                    ("ff1_w", (dm, 4 * dm)), ("ff1_b", (4 * dm,)),
+                                    ("ff2_w", (4 * dm, dm)), ("ff2_b", (dm,))):
+                    setattr(self, f"xf{i}_{name}", _param(*shape))
+            self.xf_lnf_g, self.xf_lnf_b = _param(dm), _param(dm)
+            self.fuse_w, self.fuse_b = _param(dm + c, 2 * h), _param(2 * h)
+        else:
+            if ds > 1:
+                self.ds_w, self.ds_b = _param(c, c, 2 * ds), _param(c)
+                self.fuse_w, self.fuse_b = _param(2 * h + c, 2 * h), _param(2 * h)
+            # gru{i}: the checkpoint's gru{i}_f / gru{i}_b pair
+            for i in range(1, n_gru + 1):
+                gru = nn.GRU(c if i == 1 else 2 * h, h, batch_first=True,
+                             bidirectional=True)
+                setattr(self, f"gru{i}", gru.requires_grad_(False))
         for i in range(1, n_fc + 1):
             setattr(self, f"fc{i}_w", _param(2 * h, 2 * h))
             setattr(self, f"fc{i}_b", _param(2 * h))
@@ -123,20 +140,29 @@ class SegNet(nn.Module):
                                 dilation=2))
         xt = x.transpose(1, 2)               # [B, T, C] full-rate features
         d = self.ds
-        xd = conv1d_torch(x, self.ds_w, self.ds_b, stride=d, padding=d)
-        g = F.silu(xd.transpose(1, 2))                       # [B, T_ds, D]
-        if g.shape[1] > self.pos_emb.shape[0]:
-            raise ValueError(
-                f"{feats.shape[1]} frames give {g.shape[1]} tokens, more than "
-                f"the {self.pos_emb.shape[0]} learned positions")
-        g = g + self.pos_emb[:g.shape[1]]
-        for i in range(self.n_xf):
-            g = self._xf_block(i, g)
-        g = self._ln(g, self.xf_lnf_g, self.xf_lnf_b)
-        # repeat-upsample the ds-rate context back to the 10 ms grid and fuse
-        # it with the full-rate conv features: boundaries keep 10 ms
-        up = g.repeat_interleave(d, dim=1)[:, :xt.shape[1]]
-        x = F.silu(torch.cat([up, xt], dim=-1) @ self.fuse_w + self.fuse_b)
+        if self.arch == "gru" and d == 1:
+            x = xt
+            for i in range(1, self.n_gru + 1):
+                x = getattr(self, f"gru{i}")(x)[0]
+        else:
+            xd = conv1d_torch(x, self.ds_w, self.ds_b, stride=d, padding=d)
+            g = F.silu(xd.transpose(1, 2))                   # [B, T_ds, D]
+            if self.arch == "gru":
+                for i in range(1, self.n_gru + 1):
+                    g = getattr(self, f"gru{i}")(g)[0]
+            else:
+                if g.shape[1] > self.pos_emb.shape[0]:
+                    raise ValueError(
+                        f"{feats.shape[1]} frames give {g.shape[1]} tokens, more "
+                        f"than the {self.pos_emb.shape[0]} learned positions")
+                g = g + self.pos_emb[:g.shape[1]]
+                for i in range(self.n_xf):
+                    g = self._xf_block(i, g)
+                g = self._ln(g, self.xf_lnf_g, self.xf_lnf_b)
+            # repeat-upsample the ds-rate context back to the 10 ms grid and
+            # fuse it with the full-rate conv features: boundaries keep 10 ms
+            up = g.repeat_interleave(d, dim=1)[:, :xt.shape[1]]
+            x = F.silu(torch.cat([up, xt], dim=-1) @ self.fuse_w + self.fuse_b)
         for i in range(1, self.n_fc + 1):
             x = F.silu(x @ getattr(self, f"fc{i}_w") + getattr(self, f"fc{i}_b"))
         return x @ self.out_w + self.out_b
@@ -201,3 +227,26 @@ class SegmentationModel(nn.Module):
         if y.ndim == 1:
             return self.net.apply_hard(self._feats(y[None]))[0]
         return self.net.apply_hard(self._feats(y))
+
+
+def seeded_init(net: SegNet, seed: int = 0) -> SegNet:
+    """Random weights for a net whose checkpoint is missing, from a seeded
+    ``torch.Generator``: He-normal linears and convolutions, GRU weights
+    uniform in +-1/sqrt(hidden), layer-norm gains one, positions 0.02 N(0, 1),
+    biases zero.  The activities are meaningless; the run is reproducible."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in net.named_parameters():
+            if name.endswith("_g"):
+                p.fill_(1.0)
+            elif name == "pos_emb":
+                p.copy_(0.02 * torch.randn(p.shape, generator=g))
+            elif name.startswith("gru"):
+                bound = net.hidden ** -0.5
+                p.copy_((2.0 * torch.rand(p.shape, generator=g) - 1.0) * bound)
+            elif p.ndim >= 2:
+                fan_in = p.shape[1] * p.shape[2] if p.ndim == 3 else p.shape[0]
+                p.copy_(torch.randn(p.shape, generator=g) * (2.0 / fan_in) ** 0.5)
+            else:
+                p.zero_()
+    return net

@@ -18,7 +18,8 @@ to show that its main path went through the kernels.  ``LAUNCH_FORMS``
 counts the same launches by the form of the call where a wrapper names one
 (the log-mel's ``[T]`` and ``[B, T]`` entries), and ``LAUNCH_SHAPES`` by
 the geometry the wrapper names at the point of launch (the log-mel's row
-length and mel count, K1's padded attention width and channels), which
+length, row stride and mel count, K1's padded attention width and
+channels), which
 tells apart the callers that share one form.
 """
 from __future__ import annotations

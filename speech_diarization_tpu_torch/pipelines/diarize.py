@@ -26,13 +26,17 @@ windows, or the windowed grid (every 2 s window through the per-utterance
 encoder, batches of ``embed.batch_size``: one batched log-mel launch each)
 -> one device-to-host copy -> the same host tail, which clusters by
 ``cluster.method`` (spectral, AHC, HDBSCAN, two-stage HDBSCAN), whitening
-the segment embeddings first when ``embed.whiten``.
+the segment embeddings first when ``embed.whiten``.  The whole-file path is
+also taken with ``embed.mode='bucketed'`` (each segment's own snippet
+through the per-utterance encoder, :func:`~..segment.embed.
+embed_segments_bucketed`, instead of the grid's masked means), a prefetched
+source (:meth:`DiarizationPipeline.prefetch`) and ``collect_diagnostics``.
 
 The counterpart of the JAX package's ``pipelines/diarize.py`` (``__call__``
--> ``_streamed_start`` / ``_legacy_call`` -> ``_segments_from_grid``).  Not
-ported, and refused with ``NotImplementedError`` rather than dropped: the
-published ZipEnhancer graph and HTDemucs checkpoints (ROADMAP Queue 1 item
-5) and the bucketed segment embeddings (``embed.mode='bucketed'``, item 2).
+-> ``_streamed_start`` / ``_legacy_call`` -> ``_segments_from_grid``, and
+the functional :func:`diarize`).  Not ported, and refused with
+``NotImplementedError`` rather than dropped: the published ZipEnhancer graph
+and HTDemucs checkpoints (ROADMAP Queue 1 item 5).
 """
 from __future__ import annotations
 
@@ -53,6 +57,7 @@ from ..segment import (
     add_overlap_segments,
     conservative_merge,
     detect_overlap_regions,
+    embed_segments_bucketed,
     embed_windows,
     embed_windows_streaming,
     frame_energy_db_chunk,
@@ -105,6 +110,10 @@ class DiarizationPipeline:
     ``enhance.enabled`` (the default) loads the enhancer of
     ``enhance.backend`` (GTCRN by default) for the whole-file path, or
     drops the stage with a warning when no trained weights ship.
+
+    A call takes a path, a host array, an ``(array, sr)`` pair or what
+    :meth:`prefetch` returned; :meth:`encode_fn` is the per-utterance
+    encoder that the bucketed mode and the segmentation engine call.
     """
 
     _PAD_BUCKET_S = 60.0   # chunk length of the streamed ingest
@@ -113,10 +122,8 @@ class DiarizationPipeline:
     def __init__(self, cfg: DiarizationConfig | None = None, encoder=None,
                  vad=None, device: str | torch.device | None = None):
         self.cfg = cfg = cfg or DiarizationConfig()
-        if cfg.embed.mode != "grid":
-            raise NotImplementedError(
-                f"embed.mode {cfg.embed.mode!r}: the bucketed segment "
-                "embeddings are not ported yet (ROADMAP Queue 1 item 2)")
+        if cfg.embed.mode not in ("grid", "bucketed"):
+            raise ValueError(f"unknown embed mode {cfg.embed.mode!r}")
         if cfg.cluster.method not in _CLUSTER_METHODS:
             raise ValueError(f"unknown cluster method {cfg.cluster.method!r}")
         self.device = resolve_device(device)
@@ -162,6 +169,15 @@ class DiarizationPipeline:
         self._last_floor_hf_frac = 1.0
         self._demix_fe = None
         self._demix_checked = False
+
+    def encode_fn(self, wavs) -> torch.Tensor:
+        """The per-utterance encoder: [B, T] waveforms (array or tensor) ->
+        [B, D] float32 embeddings on this pipeline's device
+        (``EcapaModel.encode_batch``: one log-mel launch for the batch on
+        the card)."""
+        with torch.inference_mode():
+            return self.encoder.encode_batch(
+                torch.as_tensor(wavs, dtype=torch.float32).to(self.device))
 
     # ------------------------------------------------------------------ io --
     @staticmethod
@@ -464,12 +480,59 @@ class DiarizationPipeline:
         y, _ = read_audio(source, target_sr=sr, mono=True)
         return y
 
+    @staticmethod
+    def _prefetched(source) -> bool:
+        return (isinstance(source, tuple) and len(source) == 4
+                and isinstance(source[0], torch.Tensor))
+
+    def prefetch(self, source) -> tuple[torch.Tensor, int, int, float]:
+        """Host decode, quantize (padded to whole 60 s chunks) and an
+        asynchronous upload from pinned memory, so a caller can overlap the
+        next file's upload with this one's compute.  Returns (int16 device
+        wave, valid samples, sr, scale); a call or :meth:`load` takes the
+        tuple back (the whole-file path)."""
+        y = np.asarray(self._host_array(source), np.float32)
+        _, q_dev, scale = self._quantize_upload(y)
+        return q_dev, int(y.shape[-1]), self.cfg.audio.sample_rate, scale
+
+    def _quantize_upload(self, y: np.ndarray) -> tuple[np.ndarray, torch.Tensor, float]:
+        """-> (host int16 padded to whole 60 s chunks, its asynchronous
+        upload from pinned memory, scale)."""
+        bucket = int(self._PAD_BUCKET_S * self.cfg.audio.sample_rate)
+        t = y.shape[-1]
+        q, scale = self._quantize_host(y, max(bucket, -(-t // bucket) * bucket))
+        q_dev = torch.from_numpy(q)
+        if self.device.type == "cuda":
+            q_dev = q_dev.pin_memory()
+        return q, q_dev.to(self.device, non_blocking=True), scale
+
+    def load(self, source) -> tuple[torch.Tensor, int]:
+        """The whole-file path's preprocessed wave on the device (the
+        enhancer applied under scope ``full``) and its rate."""
+        with torch.inference_mode():
+            y, _, _ = self._load_waves(*self._whole_file_args(source))
+        return y, self.cfg.audio.sample_rate
+
+    def _whole_file_args(self, source):
+        """(host wave or None, quantized or None, valid samples) of a source
+        for :meth:`_load_waves`."""
+        if self._prefetched(source):
+            q_dev, t, _, scale = source
+            return None, (None, q_dev, scale, None), t
+        y = np.asarray(self._host_array(source), np.float32)
+        return y, None, int(y.shape[-1])
+
     def stream_start(self, source) -> dict:
         """Dispatch a file's streamed ingest without waiting for the device;
         finish it with :meth:`stream_finish`.  A file that takes the
-        whole-file path carries its waveform as ``legacy_source`` and runs
-        in :meth:`stream_finish`."""
+        whole-file path carries its waveform as ``legacy_source`` (or its
+        prefetched upload as ``quantized``) and runs in
+        :meth:`stream_finish`."""
         self._last_snr_db = None
+        if self._prefetched(source):
+            _, quantized, t = self._whole_file_args(source)
+            return {"legacy_source": None, "quantized": quantized, "t": t,
+                    "sr": self.cfg.audio.sample_rate}
         y = np.asarray(self._host_array(source), np.float32)
         st = self._streamed_start(y, self.cfg.audio.sample_rate)
         if st is None:
@@ -481,8 +544,9 @@ class DiarizationPipeline:
 
     def stream_finish(self, st: dict) -> DiarizationResult:
         """One packed pull + VAD post + clustering/segments."""
-        if st.get("legacy_source") is not None:
-            return self._legacy_call(st["legacy_source"], st.get("quantized"))
+        if st.get("legacy_source") is not None or "flat" not in st:
+            return self._legacy_call(st["legacy_source"], st.get("quantized"),
+                                     t=st["t"])
         cfg = self.cfg
         probs, energy_db, win_embs, starts_s, total_s = self._streamed_collect(st)
         with stage_timer(log, "vad-post"):
@@ -505,7 +569,16 @@ class DiarizationPipeline:
         res.diagnostics["route"] = "streamed"
         return res
 
-    def __call__(self, source) -> DiarizationResult:
+    def __call__(self, source, collect_diagnostics: bool = False) -> DiarizationResult:
+        """Diarize one file.  ``collect_diagnostics`` takes the whole-file
+        path, as in the JAX package, and adds the window start times, the
+        segment embeddings, the cluster labels and the segments after
+        clustering, the conservative merge and frame reassignment
+        (``stage_clustered`` / ``stage_merged`` / ``stage_reassigned``) to
+        the diagnostics."""
+        if collect_diagnostics:
+            y_host, quantized, t = self._whole_file_args(source)
+            return self._legacy_call(y_host, quantized, t=t, collect=True)
         with stage_timer(log, "streamed-ingest"):
             st = self.stream_start(source)
         return self.stream_finish(st)
@@ -581,24 +654,21 @@ class DiarizationPipeline:
             y = preemphasis(y, acfg.preemphasis)
         return torch.clamp(y, -0.99, 0.99)
 
-    def _load_waves(self, y_host: np.ndarray, quantized=None):
-        """-> (wave, vad_wave, info) on the device, both ``len(y_host)``
-        samples.  ``vad_wave`` is the denoised signal under scopes ``auto``
-        (when the probe engages) and ``vad``; under ``full`` both are.
-        ``quantized``: the streamed start's (host int16, its upload, scale,
-        probe SNR), padded to whole 60 s chunks; else the file is quantized
+    def _load_waves(self, y_host: np.ndarray | None, quantized=None,
+                    t: int | None = None):
+        """-> (wave, vad_wave, info) on the device, both ``t`` samples
+        (``len(y_host)`` when given).  ``vad_wave`` is the denoised signal
+        under scopes ``auto`` (when the probe engages) and ``vad``; under
+        ``full`` both are.  ``quantized``: the streamed start's or
+        :meth:`prefetch`'s (host int16 or None, its upload, scale, probe SNR
+        or None), padded to whole 60 s chunks; else the file is quantized
         (and probed) here."""
         cfg = self.cfg
         sr = cfg.audio.sample_rate
-        t = int(y_host.shape[-1])
+        if y_host is not None:
+            t = int(y_host.shape[-1])
         if quantized is None:
-            bucket = int(self._PAD_BUCKET_S * sr)
-            t_pad = max(bucket, -(-t // bucket) * bucket)
-            q, scale = self._quantize_host(y_host, t_pad)
-            q_dev = torch.from_numpy(q)
-            if self.device.type == "cuda":
-                q_dev = q_dev.pin_memory()
-            q_dev = q_dev.to(self.device, non_blocking=True)
+            q, q_dev, scale = self._quantize_upload(y_host)
             snr = None
         else:
             q, q_dev, scale, snr = quantized
@@ -611,6 +681,8 @@ class DiarizationPipeline:
         if self.enhance_fn is not None:
             engage = True
             if ecfg.scope == "auto":
+                if q is None:                   # a prefetched upload
+                    q = q_dev.cpu().numpy()
                 if snr is None:
                     snr = self._host_snr_db(
                         q[:t].astype(np.float32) * (scale / 32767.0))
@@ -658,17 +730,19 @@ class DiarizationPipeline:
             lambda rows: frame_energy_db_chunk(rows, hop=hop, n_extra=1),
             y, sr, frame_hop=hop)
 
-    def _legacy_call(self, y_host: np.ndarray, quantized=None) -> DiarizationResult:
+    def _legacy_call(self, y_host: np.ndarray | None, quantized=None,
+                     t: int | None = None, collect: bool = False) -> DiarizationResult:
         """The whole-file path: preprocess (and denoise), VAD and the
         streaming grid over the whole waveform, one copy to the host, then
-        the host tail.  ``quantized``: as :meth:`_load_waves` takes it."""
+        the host tail.  ``quantized`` and ``t``: as :meth:`_load_waves`
+        takes them; ``collect``: the diagnostics of ``collect_diagnostics``."""
         cfg = self.cfg
         sr = cfg.audio.sample_rate
         streaming = self._grid_is_streaming(sr)
         want_energy = cfg.vad.energy_floor_db is not None
         with torch.inference_mode():
             with stage_timer(log, "load+preprocess"):
-                y, y_vad, info = self._load_waves(y_host, quantized)
+                y, y_vad, info = self._load_waves(y_host, quantized, t)
             with stage_timer(log, "dispatch"):
                 probs = self.vad_probs(y_vad, sr)
                 parts = [probs]
@@ -678,8 +752,9 @@ class DiarizationPipeline:
                     grid = embed_windows_streaming(self.encoder, y, sr,
                                                    cfg.reseg.win_s, cfg.reseg.hop_s)
                 else:
-                    grid = embed_windows(self.encoder, y, sr, cfg.reseg.win_s,
-                                         cfg.reseg.hop_s, batch=cfg.embed.batch_size)
+                    grid = embed_windows(self.encoder.encode_batch, y, sr,
+                                         cfg.reseg.win_s, cfg.reseg.hop_s,
+                                         batch=cfg.embed.batch_size)
                 parts.append(grid.reshape(-1).float())
                 flat = torch.cat(parts).cpu().numpy()    # one copy to the host
         # the energy VAD has a few frames fewer than the frame energy
@@ -697,17 +772,20 @@ class DiarizationPipeline:
             return DiarizationResult(empty, empty, 0, {**info, "vad_probs": probs_h})
         starts_s = window_starts(t, sr, cfg.reseg.win_s, cfg.reseg.hop_s) / sr
         res = self._segments_from_grid(speech, probs_h, grid_h, starts_s, t / sr,
-                                       y=y, sr=sr)
+                                       y=y, sr=sr, collect=collect)
         res.diagnostics.update(info)
         res.diagnostics["grid"] = "streaming" if streaming else "windowed"
         return res
 
     def _segments_from_grid(self, speech, probs, win_embs, starts_s, total_s,
-                            y=None, sr=None,
-                            overlap_regions=None) -> DiarizationResult:
+                            y=None, sr=None, overlap_regions=None,
+                            collect: bool = False) -> DiarizationResult:
         """SCD -> segment embeddings -> cluster -> refine -> conservative
         merge -> (frame reassignment) -> adjacent merge -> (overlap
-        rescue), on the host."""
+        rescue), on the host.  ``y`` is what the bucketed embeddings cut
+        their snippets from: as in the JAX package, the streamed path hands
+        over the host array as read, the whole-file path the preprocessed
+        device wave."""
         cfg = self.cfg
         grid_win_s = cfg.reseg.win_s
         grid_hop_s = cfg.reseg.hop_s
@@ -722,8 +800,15 @@ class DiarizationPipeline:
         log.info("segments: vad=%d scd=%d", len(speech), len(speech2))
 
         with stage_timer(log, "segment-embeddings"):
-            seg_embs = segment_embeddings_from_grid(win_embs, starts_s,
-                                                    grid_win_s, speech2)
+            if cfg.embed.mode == "bucketed":
+                seg_embs = embed_segments_bucketed(
+                    self.encode_fn, y, sr, speech2,
+                    min_duration_ms=cfg.embed.min_duration_ms,
+                    pad_duration_ms=cfg.embed.pad_duration_ms,
+                    batch=min(cfg.embed.batch_size, 32))
+            else:
+                seg_embs = segment_embeddings_from_grid(win_embs, starts_s,
+                                                        grid_win_s, speech2)
             if cfg.embed.whiten and len(speech2) > 4:
                 seg_embs = cluster_mod.whiten(torch.from_numpy(seg_embs)).numpy()
         with stage_timer(log, "cluster"):
@@ -781,8 +866,13 @@ class DiarizationPipeline:
                         y, sr or cfg.audio.sample_rate, final, win_embs,
                         starts_s, grid_win_s)
         num_speakers = len({int(k) for k in final.spks if k >= 0})
-        return DiarizationResult(final, speech, num_speakers,
-                                 {"vad_probs": probs, "window_embeddings": win_embs})
+        diagnostics = {"vad_probs": probs, "window_embeddings": win_embs}
+        if collect:
+            diagnostics.update(
+                window_starts_s=starts_s, segment_embeddings=seg_embs,
+                labels=labels, stage_clustered=speech2, stage_merged=speech3,
+                stage_reassigned=speech4)
+        return DiarizationResult(final, speech, num_speakers, diagnostics)
 
     # ------------------------------------------------------------ overlap --
     def _overlap_seg(self):
@@ -851,3 +941,10 @@ class DiarizationPipeline:
             # all noise: one speaker
             labels = np.zeros_like(labels)
         return labels.astype(np.int32)
+
+
+def diarize(source, cfg: DiarizationConfig | None = None, **kwargs) -> list[Segment]:
+    """One-call functional API mirroring ``anti_stick_diarize.diarize``:
+    labeled segments of a path or an (array, sr) input; ``kwargs`` go to
+    :class:`DiarizationPipeline` (``encoder``, ``vad``, ``device``)."""
+    return DiarizationPipeline(cfg, **kwargs)(source).to_segments()

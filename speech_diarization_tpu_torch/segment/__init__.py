@@ -1,10 +1,17 @@
 from .embed import (
+    embed_segments_bucketed,
     embed_windows,
     embed_windows_streaming,
     segment_embeddings_from_grid,
     window_starts,
 )
-from .merge import conservative_merge, merge_adjacent
+from .merge import (
+    adjust_segment_boundaries,
+    conservative_merge,
+    filter_short_segments,
+    merge_adjacent,
+    merge_same_speaker,
+)
 from .overlap import (
     add_overlap_segments,
     detect_overlap_regions,
@@ -21,15 +28,19 @@ from .vad_post import (
 
 __all__ = [
     "add_overlap_segments",
+    "adjust_segment_boundaries",
     "apply_energy_veto",
     "conservative_merge",
     "detect_overlap_regions",
+    "embed_segments_bucketed",
     "embed_windows",
     "embed_windows_streaming",
     "frame_energy_db_chunk",
+    "filter_short_segments",
     "frame_reassign",
     "make_seg_hard_fn",
     "merge_adjacent",
+    "merge_same_speaker",
     "regions_from_hard_acts",
     "scd_split",
     "segment_embeddings_from_grid",

@@ -1,12 +1,14 @@
-"""Grid geometry, the whole-file window grid, and segment embeddings over
-it.
+"""Grid geometry, the whole-file window grid, segment embeddings over it,
+and the bucketed per-segment embeddings.
 
 Every downstream consumer (SCD distances, segment embeddings, the refine
 bisection) reads the same [W, D] window-embedding matrix, computed once per
 file: by the per-chunk device program on the streamed path, by
 :func:`embed_windows_streaming` on the whole-file path, or, for an encoder
 that is not streaming-trained, by :func:`embed_windows` (one forward per
-window: the windowed grid).  The rest of this module is host numpy.
+window: the windowed grid).  :func:`embed_segments_bucketed` instead embeds
+each segment's own snippet (``EmbedConfig.mode='bucketed'``).  The rest of
+this module is host numpy.
 """
 from __future__ import annotations
 
@@ -26,11 +28,12 @@ def window_starts(n_samples: int, sr: int, win_s: float, hop_s: float) -> np.nda
     return np.arange(n) * hop
 
 
-def embed_windows(model, y: torch.Tensor, sr: int, win_s: float, hop_s: float,
-                  batch: int = 512) -> torch.Tensor:
+def embed_windows(encode_fn, y: torch.Tensor, sr: int, win_s: float,
+                  hop_s: float, batch: int = 512) -> torch.Tensor:
     """The whole-file window grid of a per-utterance encoder: [T] -> [W, D]
     on ``y``'s device, every window (the tail zero-padded) through
-    ``model.encode_batch`` in batches of ``batch`` windows.  The windows
+    ``encode_fn`` ([B, T] -> [B, D], e.g. ``EcapaModel.encode_batch``) in
+    batches of ``batch`` windows.  The windows
     are a view of the padded waveform (``Tensor.unfold``): the log-mel
     kernel reads each batch's rows in place by their stride.  Each window
     is encoded on its own (reflect pad, mean-norm and pooling per row), so
@@ -44,8 +47,7 @@ def embed_windows(model, y: torch.Tensor, sr: int, win_s: float, hop_s: float,
         return y.new_zeros((0, 1))
     frames = F.pad(y, (0, max(0, (w - 1) * hop + win - y.shape[-1]))
                    ).unfold(0, win, hop)                       # [W, win], a view
-    return torch.cat([model.encode_batch(frames[i:i + batch])
-                      for i in range(0, w, batch)])
+    return torch.cat([encode_fn(frames[i:i + batch]) for i in range(0, w, batch)])
 
 
 GRID_MARGIN_S = 4.0   # real context each side of a grid chunk: > the trunk's reach
@@ -118,3 +120,72 @@ def segment_embeddings_from_grid(
             continue
         out[i] = (w / tot) @ win_embs[a:b]
     return out
+
+
+def _bucket_len(n: int, min_len: int) -> int:
+    b = min_len
+    while b < n:
+        b *= 2
+    return b
+
+
+def embed_segments_bucketed(
+    encode_fn,
+    y,
+    sr: int,
+    segs: SegmentArray,
+    min_duration_ms: float = 500.0,
+    pad_duration_ms: float = 150.0,
+    batch: int = 32,
+    min_bucket_s: float = 0.5,
+    max_bucket_s: float = 16.0,
+) -> np.ndarray:
+    """Reference-style per-segment embeddings (``anti_stick_diarize.py:130-172``)
+    in power-of-two length buckets, as the JAX package computes them.
+
+    Each snippet (context-padded by ``pad_duration_ms`` each side when
+    shorter than ``min_duration_ms``, cut at ``max_bucket_s``) is zero-padded
+    to its bucket, the next power of two times ``min_bucket_s`` at or above
+    its length (at most ``max_bucket_s``): the zero tail enters the log-mel,
+    the per-row mean-norm and the pooling, so the bucket is part of the
+    embedding.  Groups of up to ``batch`` snippets of one bucket go through
+    ``encode_fn`` ([B, T] -> [B, D]) together.  The JAX package pads a
+    partial group with zero rows; the rows are encoded independently, so
+    only the real rows go here (a contiguous [B, T] batch, one log-mel
+    launch on the card).  ``y``: host array or tensor (copied to the host
+    once)."""
+    n = len(segs)
+    if n == 0:
+        return np.zeros((0, 1), dtype=np.float32)
+    if isinstance(y, torch.Tensor):
+        y = y.detach().cpu().numpy()
+    y = np.asarray(y)
+    min_dur = int(min_duration_ms / 1000.0 * sr)
+    pad = int(pad_duration_ms / 1000.0 * sr)
+    min_bucket = int(min_bucket_s * sr)
+    max_bucket = int(max_bucket_s * sr)
+
+    snippets: list[np.ndarray] = []
+    for s, e in zip(segs.starts, segs.ends):
+        i0, i1 = int(s * sr), int(e * sr)
+        if i1 - i0 < min_dur:
+            i0, i1 = max(0, i0 - pad), min(len(y), i1 + pad)
+        snippets.append(y[i0:i1][:max_bucket])
+
+    buckets: dict[int, list[int]] = {}
+    for i, snip in enumerate(snippets):
+        b = min(_bucket_len(max(len(snip), 1), min_bucket), max_bucket)
+        buckets.setdefault(b, []).append(i)
+
+    embs: np.ndarray | None = None
+    for blen, idxs in sorted(buckets.items()):
+        for j in range(0, len(idxs), batch):
+            group = idxs[j:j + batch]
+            mat = np.zeros((len(group), blen), dtype=np.float32)
+            for row, i in enumerate(group):
+                mat[row, :len(snippets[i])] = snippets[i]
+            out = encode_fn(torch.from_numpy(mat)).float().cpu().numpy()
+            if embs is None:
+                embs = np.zeros((n, out.shape[1]), dtype=np.float32)
+            embs[group] = out
+    return embs

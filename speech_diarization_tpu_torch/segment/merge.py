@@ -6,6 +6,8 @@ Mirrors (and fixes) the reference's merge family:
     reference call site passes the *label array* where embeddings are expected
     (``anti_stick_diarize.py:540-546``, SURVEY.md §2.5 item 1) — we implement
     the intended embedding-gated merge.
+  * the batch diarizer's ``merge_same_speaker``, ``adjust_segment_boundaries``
+    and ``filter_short_segments`` (``diarization_baseline.py:188-233``).
 """
 from __future__ import annotations
 
@@ -75,3 +77,47 @@ def conservative_merge(
         SegmentArray(np.array(m_start), np.array(m_end), np.array(m_spk)),
         np.stack(m_emb),
     )
+
+
+def merge_same_speaker(
+    segs: SegmentArray, max_gap_s: float, max_segment_s: float
+) -> SegmentArray:
+    """Baseline-flavor merge: same speaker, gap <= max_gap_s, and the current
+    run not already >= max_segment_s (``diarization_baseline.py:188-213``)."""
+    n = len(segs)
+    if n == 0:
+        return segs
+    starts, ends, spks = [segs.starts[0]], [segs.ends[0]], [segs.spks[0]]
+    for s, e, k in zip(segs.starts[1:], segs.ends[1:], segs.spks[1:]):
+        cur_len = ends[-1] - starts[-1]
+        gap = s - ends[-1]
+        if cur_len >= max_segment_s or k != spks[-1] or gap > max_gap_s:
+            starts.append(s)
+            ends.append(e)
+            spks.append(k)
+        else:
+            ends[-1] = max(ends[-1], e)
+    return SegmentArray(np.array(starts), np.array(ends), np.array(spks))
+
+
+def adjust_segment_boundaries(segs: SegmentArray, padding_s: float) -> SegmentArray:
+    """Extend boundaries into silence gaps that are at least ``padding_s``
+    wide (``diarization_baseline.py:216-233``): the earlier segment gains
+    ``padding_s`` at its end, the later one starts ``padding_s`` earlier."""
+    n = len(segs)
+    if n < 2:
+        return segs
+    starts = segs.starts.copy()
+    ends = segs.ends.copy()
+    gaps = starts[1:] - ends[:-1]
+    wide = gaps >= padding_s
+    ends[:-1] = np.where(wide, ends[:-1] + padding_s, ends[:-1])
+    starts[1:] = np.where(wide, np.maximum(starts[1:] - padding_s, 0.0), starts[1:])
+    return SegmentArray(starts, ends, segs.spks.copy())
+
+
+def filter_short_segments(segs: SegmentArray, min_duration_s: float) -> SegmentArray:
+    """Drop segments shorter than ``min_duration_s``
+    (``diarization_baseline.py:299-300``)."""
+    keep = segs.durations >= min_duration_s
+    return SegmentArray(segs.starts[keep], segs.ends[keep], segs.spks[keep])

@@ -21,6 +21,15 @@ ENCODER_PREFERENCE = (
 VAD_PREFERENCE = ("vad_conv_mc.npz", "vad_conv_synthetic.npz",
                   "vad_synthetic.npz")
 
+# The segmentation engine's own preference (``Diarizer(engine=
+# 'segmentation')``): not the overlap detector's, which takes the xf net
+# second.
+ENGINE_SEGMENTATION_PREFERENCE = (
+    "segmentation_conv.npz", "segmentation_ow3.npz",
+    "segmentation_powerset.npz", "segmentation_mc.npz",
+    "segmentation_synthetic.npz",
+)
+
 # Overlap-detector preference (segmentation checkpoints).
 SEGMENTATION_PREFERENCE = (
     "segmentation_conv.npz", "segmentation_xf.npz", "segmentation_ow3.npz",

@@ -47,6 +47,17 @@ def test_the_port_needs_no_scikit_learn():
         assert not any(m.split(".")[0] == "sklearn" for m in _imports(path)), path
 
 
+def test_the_port_imports_matplotlib_only_inside_functions():
+    """The card's machine has no matplotlib: ``plot_diagnostics`` imports it
+    when it is called, and no module of the port at import."""
+    for path in SOURCES:
+        tree = ast.parse(path.read_text())
+        top = [a.name for n in tree.body if isinstance(n, ast.Import) for a in n.names]
+        top += [n.module for n in tree.body
+                if isinstance(n, ast.ImportFrom) and n.module]
+        assert not any(m.split(".")[0] == "matplotlib" for m in top), path
+
+
 def test_port_imports_without_jax_in_a_fresh_process():
     code = ("import sys, importlib, pkgutil\n"
             "import speech_diarization_tpu_torch as p\n"

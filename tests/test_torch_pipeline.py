@@ -299,9 +299,16 @@ def test_noise_veto_disarms_the_detector_and_programs_are_keyed_by_it(
     (dict(embed=port.EmbedConfig(mode="bucketed")), "bucketed"),
 ])
 def test_unported_stages_raise(kw, what):
-    with pytest.raises(NotImplementedError, match=what):
-        DiarizationPipeline(_port_cfg(**kw), encoder=object(), vad=object(),
-                            device="cpu")
+    """The bucketed embeddings, once refused here, build and take the
+    whole-file path (their runs: ``test_torch_pipeline_api.py``); an unknown
+    embedding mode is refused."""
+    pipe = DiarizationPipeline(_port_cfg(**kw), encoder=load_speaker_encoder(
+        WEIGHTS / "ecapa_robust_stream.npz"), vad=load_vad(WEIGHTS / "vad_conv_mc.npz"),
+        device="cpu")
+    assert pipe.cfg.embed.mode == what and not pipe.streaming_capable()
+    with pytest.raises(ValueError, match="unknown embed mode"):
+        DiarizationPipeline(_port_cfg(embed=port.EmbedConfig(mode="segments")),
+                            encoder=object(), vad=object(), device="cpu")
 
 
 @pytest.mark.parametrize("backend,weights", [

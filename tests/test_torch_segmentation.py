@@ -130,8 +130,17 @@ def test_more_frames_than_learned_positions_raise():
 
 @pytest.mark.parametrize("arch,ds", [("gru", 1), ("gru", 3)])
 def test_recurrent_branches_are_refused(arch, ds):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        SegNet(arch=arch, ds=ds)
+    """The recurrent branches, once refused here, build with the
+    checkpoint's BiGRU layout (one bidirectional ``nn.GRU`` per
+    ``gru{i}_f`` / ``gru{i}_b`` pair; their parity with the JAX package is
+    in ``test_torch_segengine.py``); an unknown arch is refused."""
+    net = SegNet(arch=arch, ds=ds, channels=16, hidden=12)
+    assert net.gru2.bidirectional and net.gru2.input_size == 24
+    assert ("ds_w" in dict(net.named_parameters())) == (ds > 1)
+    with torch.inference_mode():
+        assert net.logits(torch.zeros(2, 50, 40)).shape == (2, 50, 3)
+    with pytest.raises(ValueError, match="unknown SegNet arch"):
+        SegNet(arch="lstm")
 
 
 def test_small_model_waveform_wrapper_matches_jax():

@@ -184,5 +184,18 @@ def test_segmentation_loader_is_strict_and_upcasts():
 
 @pytest.mark.parametrize("meta", [{}, {"net": {**SEG_CFG, "arch": "gru"}}])
 def test_recurrent_segnet_is_refused(meta):
-    with pytest.raises(NotImplementedError, match="not ported"):
+    """The recurrent nets, once refused here, load: no meta is the 96/96
+    sigmoid-head net (as the JAX loader reads it), a ``gru`` meta its own
+    widths, each from the JAX init's flat keys (``gru{i}_f`` / ``gru{i}_b``
+    onto one bidirectional ``nn.GRU``).  A dict without those weights is
+    refused by the strict load."""
+    cfg = meta.get("net", {})
+    flat = {k: np.asarray(v) for k, v in _flatten(
+        JSegNet(**cfg).init(jax.random.PRNGKey(2))).items()}
+    model = params_from_numpy(flat, meta, kind="segmentation")
+    net = model.net
+    assert net.arch == "gru" and net.powerset == cfg.get("powerset", False)
+    np.testing.assert_array_equal(net.gru2.weight_hh_l0_reverse.numpy(),
+                                  flat["gru2_b/w_hh"])
+    with pytest.raises(RuntimeError, match="gru1.weight_ih_l0"):
         params_from_numpy({}, meta, kind="segmentation")

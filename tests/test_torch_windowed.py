@@ -146,8 +146,8 @@ def test_embed_windows_matches_jax(speech):
     ref = jembed_windows(jax.jit(partial(jm.encode_batch, params)),
                          jnp.asarray(speech[:5 * SR]), SR, 1.0, 0.25, batch=8)
     with torch.inference_mode():
-        out = embed_windows(port, torch.from_numpy(speech[:5 * SR]), SR, 1.0,
-                            0.25, batch=8).numpy()
+        out = embed_windows(port.encode_batch, torch.from_numpy(speech[:5 * SR]),
+                            SR, 1.0, 0.25, batch=8).numpy()
     assert out.shape == ref.shape == (17, 16)
     assert _cos_min(ref, out) > 0.99999 and _rel(ref, out) < 1e-5
 
@@ -156,8 +156,8 @@ def test_embed_windows_does_not_depend_on_the_batch_size(speech):
     _, _, port = _small_net(8)
     y = torch.from_numpy(speech[:6 * SR + 123])
     with torch.inference_mode():
-        a = embed_windows(port, y, SR, 1.0, 0.25, batch=3)
-        b = embed_windows(port, y, SR, 1.0, 0.25, batch=64)
+        a = embed_windows(port.encode_batch, y, SR, 1.0, 0.25, batch=3)
+        b = embed_windows(port.encode_batch, y, SR, 1.0, 0.25, batch=64)
     assert a.shape == b.shape == (22, 16)
     np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-6)
 
