@@ -106,6 +106,23 @@ Phases (any failure exits nonzero and prints no result line):
      one point, a second run and the CLI's ``batch`` skip both files; then
      ``diagnose`` (``save_plots=False``: the card's machine has no
      matplotlib) on one of them at the CLI's defaults.
+  4k. The encoders that ship no checkpoint, at their published widths on
+     the seed-0 draw of ``models.registry.seeded_state_dict``: ERes2NetV2
+     written as ``.onnx`` (the port's own writer), CAM++ as ``.pt`` under
+     ``state_dict`` and a SpeechBrain-format ECAPA as
+     ``embedding_model.ckpt``, each loaded through ``make_encoder_model``
+     and passed to the CLI's ``diarize`` on the card (with the trainer's
+     ``ecapa_synthetic.npz`` too: each writes its RTTM).
+     Card against CPU on 8 windows of 2 s (TF32 flags printed); the bench
+     configuration (overlap on) on the 60 s bench draw with each, on the
+     windowed grid: min-of-3 wall after a warm call, the encoder's span on
+     the card's clock, peak device memory above the resident set, K2
+     launches by shape (the grid's 512 + 69 windows at 80 mels: 2), DER
+     within one point of the JAX CPU bar either way
+     (``torch_port_der_bar.py --encoders``); then ERes2NetV2 once on the
+     600 s draw: wall, device busy share and time by kernel
+     (``torch.profiler``), the encoder's span beside the float32 bound of
+     its convolutions and linears, peak memory, stage walls.
   5. Reference agreement on small inputs: the same pipeline (float32
      encoder) on the card and on the CPU (plain versions) over a 25 s file
      cut into three 10 s chunks, with the rescue off; the windowed grid
@@ -206,6 +223,23 @@ DEMIX_TOL_REL = 1e-3
 # least share of equal hard decisions of the overlap detector between two
 # ways of computing them (an argmax over 8 logits flips on near-ties)
 HARD_AGREE = 0.999
+# the speaker encoders on the card against the CPU (max abs error over the
+# embeddings, relative to their largest magnitude; least cosine), TF32 off,
+# for the net alone on the same features and for all of encode_batch (K2's
+# log-mel on the card).  cuDNN's float32 convolutions sum in another order
+# than the CPU's.  ERes2NetV2 on the seed-0 draw amplifies that: on the
+# CPU a perturbation of its features by one part in 1e7 moves its
+# embeddings by 2.4e-4 of their peak (the AFF gates; 2.1e-3 at 1e-6), and
+# the card's net differs by 2.0e-3 (cos 0.9999989)
+ENC_TOL_REL = {"eres2netv2": 5e-3, "campp": 1e-4, "ecapa_speechbrain": 1e-4}
+ENC_COS = 0.99999
+# DER (%) of the JAX reference on the CPU on the 60 s bench draw (overlap
+# on) with the encoders that ship no checkpoint, at their published widths
+# on the seed-0 draw of models.registry.seeded_state_dict, float32, the
+# windowed grid (--encoders of scripts/torch_port_der_bar.py).  Random
+# weights: each finds one speaker
+JAX_CPU_DER_PCT_SEEDED = {"eres2netv2": 59.215, "campp": 59.215,
+                          "ecapa_speechbrain": 59.215}
 
 
 def log(msg: str) -> None:
@@ -334,6 +368,50 @@ def k1_measure(net, x, n_w: int, first_f: int, hop_f: int = 10,
     }
 
 
+def conv_flops(net, n_frames: int, n_mels: int) -> int:
+    """Operations of ``net``'s convolutions and linears on one window of
+    ``n_frames`` x ``n_mels`` features (two per multiply-add), counted from
+    the output shapes of one forward."""
+    import torch
+
+    total = [0]
+
+    def hook(mod, _inp, out):
+        if isinstance(mod, torch.nn.Linear):
+            total[0] += 2 * out.numel() * mod.in_features
+        else:
+            total[0] += (2 * out.numel() * (mod.in_channels // mod.groups)
+                         * int(np.prod(mod.kernel_size)))
+
+    kinds = (torch.nn.Conv1d, torch.nn.Conv2d, torch.nn.Linear)
+    handles = [m.register_forward_hook(hook) for m in net.modules()
+               if isinstance(m, kinds)]
+    try:
+        with torch.inference_mode():
+            net(torch.zeros(1, n_frames, n_mels, device=next(net.parameters()).device))
+    finally:
+        for h in handles:
+            h.remove()
+    return total[0]
+
+
+def kernel_times_us(prof) -> dict[str, float]:
+    """Device time (us) by kernel of a ``torch.profiler`` run (the device
+    entries only: a CPU op also carries its kernels' time)."""
+    from torch.autograd import DeviceType
+
+    out = {}
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) != DeviceType.CUDA:
+            continue
+        v = getattr(e, "self_device_time_total", None)
+        if v is None:
+            v = getattr(e, "self_cuda_time_total", 0.0)
+        if v and v > 0:
+            out[e.key] = float(v)
+    return out
+
+
 def zipenhancer_flops(n_windows: int, samples: int = 32000, n_fft: int = 400,
                       hop: int = 100, c: int = 64, blocks: int = 4) -> dict:
     """Multiply-adds (x2) of ZipEnhancer's products on ``n_windows``
@@ -457,6 +535,253 @@ def ragged_sweep(enc, dev) -> None:
         f"fused_log_mel, {n_grids} grids of "
         f"asp_grid_stats within tolerance (worst share of it: "
         f"{worst['fused_log_mel']:.3f}, {worst['asp_grid_stats']:.3f})")
+
+
+def seeded_encoders_phase(dev, vad, bench_cfg, der_pct, wave600, truth600,
+                          k2_w80: str) -> dict:
+    """Phase 4k: the encoders that ship no checkpoint, at their published
+    widths on the seed-0 draw, written in a format each and loaded through
+    the registry (every loader runs on the card's machine): ERes2NetV2 as
+    .onnx (the port's own writer), CAM++ as .pt under ``state_dict``, a
+    SpeechBrain-format ECAPA as embedding_model.ckpt; the CLI's ``diarize``
+    on the card with each (and the trainer's .npz).  Card against CPU on
+    8 windows of 2 s of the 60 s bench draw; the bench configuration
+    (overlap on) on that draw with each: walls, the encoder's span on the
+    card's clock, peak memory, launches by shape, DER within one point of
+    the JAX CPU bar either way; ERes2NetV2 once on the 600 s draw with its
+    busy share and bound.  Returns what the kernels line reads."""
+    import copy
+    import logging
+    import re
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from speech_diarization_tpu_torch.dsp.framing import num_frames
+    from speech_diarization_tpu_torch.dsp.mel import fbank_batch
+    from speech_diarization_tpu_torch.cli import main as cli_main
+    from speech_diarization_tpu_torch.io.audio import write_wav
+    from speech_diarization_tpu_torch.io.onnx_lite import write_initializers
+    from speech_diarization_tpu_torch.models.campp import CamPlusPlus
+    from speech_diarization_tpu_torch.models.ecapa import EcapaTdnn
+    from speech_diarization_tpu_torch.models.eres2netv2 import ERes2NetV2
+    from speech_diarization_tpu_torch.models.port_ecapa import ecapa_torch_manifest
+    from speech_diarization_tpu_torch.models.registry import (
+        make_encoder_model, seeded_state_dict,
+    )
+    from speech_diarization_tpu_torch.ops import kernels
+    from speech_diarization_tpu_torch.pipelines.diarize import DiarizationPipeline
+    from speech_diarization_tpu_torch.train.synthetic import make_conversation
+
+    def tensors(manifest):
+        return {k: torch.from_numpy(v) for k, v in seeded_state_dict(manifest, 0).items()}
+
+    seeded = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpts = {"eres2netv2": ("eres2netv2", Path(tmp) / "eres2netv2.onnx"),
+                 "campp": ("campp", Path(tmp) / "campp.pt"),
+                 "ecapa_speechbrain": ("ecapa", Path(tmp) / "embedding_model.ckpt")}
+        write_initializers(ckpts["eres2netv2"][1],
+                           seeded_state_dict(ERes2NetV2().manifest(), 0))
+        torch.save({"state_dict": tensors(CamPlusPlus().manifest())}, ckpts["campp"][1])
+        torch.save(tensors(ecapa_torch_manifest(EcapaTdnn())), ckpts["ecapa_speechbrain"][1])
+        for tag, (backend, path) in ckpts.items():
+            t0 = time.perf_counter()
+            seeded[tag] = make_encoder_model(backend, path)
+            log(f"[4k] {tag}: {path.name} ({path.stat().st_size / 1e6:.1f} MB) "
+                f"through make_encoder_model in {time.perf_counter() - t0:.2f} s "
+                f"({type(seeded[tag]).__name__}, "
+                f"{sum(v.numel() for v in seeded[tag].state_dict().values()):,} values)")
+        # the CLI on the card (no --cpu) with each format, and the trainer's
+        # .npz, on the 60 s bench draw written as a WAV
+        wave, truth = make_conversation(np.random.default_rng(0), 60.0,
+                                        n_speakers=3, sr=SR)
+        wav = Path(tmp) / "bench60.wav"
+        write_wav(wav, wave, SR)
+        for backend, path in [*ckpts.values(),
+                              ("ecapa", HERE / "weights" / "ecapa_synthetic.npz")]:
+            out = Path(tmp) / f"out_{path.name}"
+            t0 = time.perf_counter()
+            rc = cli_main(["diarize", str(wav), "--encoder", backend,
+                           "--encoder-weights", str(path), "--out-dir", str(out),
+                           "--format", "rttm"])
+            rttm = out / "bench60.rttm"
+            n = len(rttm.read_text().splitlines()) if rttm.exists() else 0
+            log(f"[4k] CLI diarize --encoder {backend} --encoder-weights "
+                f"{path.name} on the card: rc {rc}, {n} RTTM lines, "
+                f"{time.perf_counter() - t0:.2f} s with the models' loading")
+            if rc != 0 or n == 0:
+                raise AssertionError(f"the CLI with {path.name} wrote no RTTM")
+    wins = torch.from_numpy(np.stack([wave[i * 7 * SR:i * 7 * SR + 2 * SR]
+                                      for i in range(8)]).astype(np.float32))
+    def agree(out, ref) -> tuple[float, float]:
+        """max abs error over the largest magnitude; least cosine"""
+        return (((out - ref).abs().max() / ref.abs().max()).item(),
+                torch.nn.functional.cosine_similarity(out, ref, dim=1).min().item())
+
+    bad = []
+    for tag, model in seeded.items():
+        card = copy.deepcopy(model).to(dev)
+        with torch.inference_mode():
+            # the net alone on the CPU's features, then all of encode_batch
+            # (K2's log-mel on the card); and how far the CPU's own
+            # embeddings move when the features move by one part in 1e7
+            feats = fbank_batch(wins, sample_rate=SR, n_mels=model.net.n_mels)
+            nets = [getattr(m.net, "embed_utterances", m.net) for m in (model, card)]
+            ref_net = nets[0](feats)
+            net_rel, net_cos = agree(nets[1](feats.to(dev)).cpu(), ref_net)
+            g = torch.Generator().manual_seed(1)
+            sens, _ = agree(nets[0](feats * (1 + 1e-7 * torch.randn(
+                feats.shape, generator=g))), ref_net)
+            ref = model.encode_batch(wins)
+            out = card.encode_batch(wins.to(dev)).cpu()
+        rel, cos = agree(out, ref)
+        tol = ENC_TOL_REL[tag]
+        log(f"[4k] {tag} card vs CPU, 8 windows of 2 s: the net on the same "
+            f"features max abs error {net_rel:.2e} of the peak, least cos "
+            f"{net_cos:.8f}; encode_batch {rel:.2e} of the peak "
+            f"{ref.abs().max().item():.3f}, least cos {cos:.8f} (bars {tol:g} and "
+            f"{ENC_COS}); the CPU's embeddings under a 1e-7 relative "
+            f"perturbation of the features move {sens:.2e} of the peak; "
+            f"allow_tf32 matmul={torch.backends.cuda.matmul.allow_tf32} "
+            f"cudnn={torch.backends.cudnn.allow_tf32}")
+        if not (max(net_rel, rel) < tol and min(net_cos, cos) >= ENC_COS
+                and torch.isfinite(out).all()):
+            bad.append(tag)
+    if bad:
+        raise AssertionError(f"{bad}: the card disagrees with the CPU")
+
+    def span_encoder(pipe):
+        """The pipeline's encoder wrapped in CUDA events, one span a batch."""
+        inner, spans = pipe.encoder.encode_batch, []
+
+        def encode_batch(wavs):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = inner(wavs)
+            e1.record()
+            spans.append((e0, e1))
+            return out
+
+        pipe.encoder.encode_batch = encode_batch
+        return spans
+
+    seeded_runs = {}
+    for tag, model in seeded.items():
+        pipe = DiarizationPipeline(bench_cfg(True), encoder=model, vad=vad)
+        spans = span_encoder(pipe)
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        res = pipe((wave, SR))
+        warm = time.perf_counter() - t0
+        peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+        n_launch, n_forms = dict(kernels.LAUNCHES), dict(kernels.LAUNCH_FORMS)
+        n_shapes = dict(kernels.LAUNCH_SHAPES)
+        walls, enc_ms = [], []
+        for _ in range(3):
+            spans.clear()
+            t0 = time.perf_counter()
+            pipe((wave, SR))
+            walls.append(time.perf_counter() - t0)
+            torch.cuda.synchronize()
+            enc_ms.append(sum(a.elapsed_time(b) for a, b in spans))
+        d = res.diagnostics
+        der = der_pct(truth, res.segments)
+        jax_der = JAX_CPU_DER_PCT_SEEDED[tag]
+        # the float32 bound of the 581 windows' convolutions and linears
+        # (ECAPA's are functional convolutions, not counted here)
+        net = pipe.encoder.net
+        b60 = (f"{bound(0.0, {'f32': conv_flops(net, 201, 80) * 581})[0]:.1f} ms"
+               if isinstance(net, (ERes2NetV2, CamPlusPlus)) else "not computed")
+        log(f"[4k] {tag}, 60 s: route {d.get('route')}, grid {d.get('grid')}; warm "
+            f"{warm:.3f} s, timed {min(walls):.4f} s (walls "
+            f"{[round(w, 4) for w in walls]}); encoder {min(enc_ms):.2f} ms on the "
+            f"card's clock ({[round(m, 2) for m in enc_ms]}; float32 bound "
+            f"{b60}); peak device memory "
+            f"{peak_gb:.2f} GB above the resident set; {len(res.segments)} segments, "
+            f"{res.num_speakers} speakers, DER {der:.4f} % (JAX CPU {jax_der:.4f} % "
+            f"+- {DER_SLACK_PCT}); launches {n_launch} {n_forms} {n_shapes}")
+        grid = d["window_embeddings"]
+        if d.get("route") != "legacy" or d.get("grid") != "windowed" or not (
+                np.isfinite(grid).all() and grid.shape == (581, 192)):
+            raise AssertionError(f"{tag}: route {d.get('route')}, grid "
+                                 f"{d.get('grid')} {grid.shape}")
+        # the VAD's and the detector's batches, and the grid's 512 + 69 windows
+        want = {"asp_grid_stats": 0, "fused_log_mel": 4}
+        if n_launch != want or n_forms != {"fused_log_mel[B, T]": 4} or (
+                n_shapes.get(k2_w80) != 2):
+            raise AssertionError(f"{tag}: launch counts {n_launch} {n_forms} {n_shapes}")
+        if not abs(der - jax_der) <= DER_SLACK_PCT:
+            raise AssertionError(f"{tag}: DER {der:.4f} % more than {DER_SLACK_PCT} "
+                                 f"point from the JAX CPU {jax_der:.4f} %")
+        seeded_runs[tag] = {"shapes": n_shapes, "wall": min(walls),
+                            "enc_ms": min(enc_ms)}
+        if tag == "eres2netv2":
+            pipe_600, spans_600 = pipe, spans
+
+    # ERes2NetV2 on the 600 s draw: one call for the wall, the encoder's span,
+    # peak memory, stage walls and launches, one under the profiler for the
+    # busy share and the device time by kernel
+    class StageLog(logging.Handler):
+        def __init__(self):
+            super().__init__(logging.INFO)
+            self.walls = {}
+
+        def emit(self, record):
+            m = re.match(r"stage=(\S+) wall_s=([0-9.]+)", record.getMessage())
+            if m:
+                self.walls[m.group(1)] = float(m.group(2))
+
+    pipe, spans = pipe_600, spans_600
+    stages = StageLog()
+    diar_log = logging.getLogger("sdtpu.diarize")
+    diar_log.addHandler(stages)
+    level = diar_log.level
+    diar_log.setLevel(logging.INFO)
+    spans.clear()
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    res = pipe((wave600, SR))
+    wall600 = time.perf_counter() - t0
+    diar_log.setLevel(level)
+    diar_log.removeHandler(stages)
+    peak600 = (torch.cuda.max_memory_allocated() - base) / 1e9
+    enc600 = sum(a.elapsed_time(b) for a, b in spans)
+    shapes600 = dict(kernels.LAUNCH_SHAPES)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        pipe((wave600, SR))
+        torch.cuda.synchronize()
+        wall_prof = time.perf_counter() - t0
+    kern = kernel_times_us(prof)
+    busy = sum(kern.values()) / 1e6
+    # the least time for the convolutions and linears of 5,981 windows
+    # (2 multiply-adds' operations each) at the float32 rate, TF32 off
+    flops = conv_flops(pipe.encoder.net, 201, 80) * num_frames(600 * SR, 32000, 1600)
+    b_ms, _ = bound(0.0, {"f32": flops})
+    der600 = der_pct(truth600, res.segments)
+    top = sorted(kern.items(), key=lambda kv: -kv[1])[:10]
+    log(f"[4k] eres2netv2, 600 s: wall {wall600:.4f} s (RTF {600 / wall600:.1f}x; "
+        f"under the profiler {wall_prof:.4f} s), device busy {busy:.4f} s = "
+        f"{100 * busy / wall_prof:.1f} % of the profiled wall; encoder "
+        f"{enc600:.1f} ms on the card's clock against a float32 bound of "
+        f"{b_ms:.1f} ms ({flops / 1e12:.2f} TFLOP of convolutions and linears "
+        f"at 67 TFLOP/s: {100 * b_ms / enc600:.1f} % of it); peak device memory "
+        f"{peak600:.2f} GB above the resident set; DER {der600:.4f} % (no JAX "
+        f"bar at 600 s); stages {stages.walls}; K2 launches {shapes600}; top "
+        f"device kernels (ms) {[(k[:140], round(v / 1e3, 1)) for k, v in top]}")
+    if shapes600.get(k2_w80) != 12 or not np.isfinite(
+            res.diagnostics["window_embeddings"]).all():
+        raise AssertionError(f"eres2netv2 600 s: launches {shapes600}")
+    return {"runs": seeded_runs, "shapes600": shapes600, "wall600": wall600}
 
 
 def main() -> int:
@@ -1308,6 +1633,10 @@ def main() -> int:
                 and (Path(tmp) / "diag" / "diarization.json").exists()):
             raise AssertionError("diag: no segments, non-finite statistics or no output")
 
+    # -------------------------------------------------------- phase 4k ----
+    seeded = seeded_encoders_phase(dev, vad, bench_cfg, der_pct, wave600,
+                                   truth600, k2_w80)
+
     # ---------------------------------------------------------- phase 5 ----
     enc32 = load_speaker_encoder(wdir / "ecapa_robust_stream.npz")
 
@@ -1440,6 +1769,12 @@ def main() -> int:
     rows[0]["batch_windowed_80"]["launches_60s"] = (
         opt_shapes["full_stream_windowed"][k2_w80])
     rows[0]["launches_options"] = {k: v["fused_log_mel"] for k, v in opt_launches.items()}
+    # phase 4k: the windowed grid at 80 mels with each seeded encoder on
+    # the 60 s draw, and with ERes2NetV2 on the 600 s draw
+    rows[0]["batch_windowed_80"]["launches_encoders_60s"] = {
+        tag: r["shapes"].get(k2_w80, 0) for tag, r in seeded["runs"].items()}
+    rows[0]["batch_windowed_80"]["launches_eres2netv2_600s"] = (
+        seeded["shapes600"].get(k2_w80, 0))
     # this slice's routes, counted by shape where launched: the engine's
     # chunks and grid at 60 s and 600 s (4h), the bucketed snippets (4i)
     rows[0]["engine_chunks_60s"]["launches"] = engine["conv", "bench_60s"]["shapes"][k2_chunks]
@@ -1463,7 +1798,9 @@ def main() -> int:
             "bucketed")
     log(f"[end] engine 600 s {engine['conv', 'bench_600s']['wall']:.4f} s, bucketed "
         f"60 s {bucketed_wall:.4f} s, batch {({k: round(v, 3) for k, v in batch_walls.items()})} "
-        f"s, diag {diag_wall:.3f} s; the whole run took "
+        f"s, diag {diag_wall:.3f} s, encoders 60 s "
+        f"{({k: round(v['wall'], 4) for k, v in seeded['runs'].items()})} s, "
+        f"eres2netv2 600 s {seeded['wall600']:.4f} s; the whole run took "
         f"{time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
                                   for r in rows]}))

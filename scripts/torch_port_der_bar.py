@@ -37,8 +37,14 @@ windowed grid) with the GRU VAD (``vad_synthetic.npz``) and with the energy
 VAD, and the default encoder with ``ClusterConfig(method='ahc')`` and
 ``'hdbscan'``, and the full-width streaming encoder on the windowed grid
 (``EmbedConfig(grid_backend='windowed')``: the grid's log-mel at 80 mels).
-DER at the metric's default collar of 0.25 s, as every bar here.  One JSON
-line.
+Then the encoders that ship no checkpoint, at their published widths on
+the seed-0 draw of ``speech_diarization_tpu_torch.models.registry.
+seeded_state_dict`` (the weights ``chip_smoke.py`` phase 4k writes and
+the port loads), each through the JAX package's own loader: ERes2NetV2,
+CAM++ and the SpeechBrain-format ECAPA (the default ``EcapaTdnn``), all on
+the windowed grid, float32; their grid runs 16 windows a batch (the
+windows are independent) to keep the CPU's memory small.  DER at the
+metric's default collar of 0.25 s, as every bar here.  One JSON line.
 
 ``--heldout``: the port of ``scripts/eval_heldout.py``'s table: 8 domains x
 3 files of 60 s (seeds 1000 + i), collar 0.25 s, DER / JER / speaker-count
@@ -244,8 +250,10 @@ def encoders_bar(w, default_enc, conv_vad) -> None:
 
     gru, gru_p = load_vad(w / "vad_synthetic.npz")
     full = enc("ecapa_synthetic_full_stream.npz")
+    seeded = seeded_encoders()
     cases = {
         # tag: (encoder, VAD, clustering method, grid backend)
+        **{tag: (pair, conv_vad, "spectral", "auto") for tag, pair in seeded.items()},
         "full_stream": (full, conv_vad, "spectral", "auto"),
         "full_stream_windowed": (full, conv_vad, "spectral", "windowed"),
         "proto_small": (enc("ecapa_proto_small.npz"), conv_vad, "spectral", "auto"),
@@ -259,9 +267,10 @@ def encoders_bar(w, default_enc, conv_vad) -> None:
                                     n_speakers=3, sr=16000)
     out = {"device": jax.devices()[0].platform, "draw": "bench 60 s"}
     for tag, (encoder, vad_fn, method, grid) in cases.items():
+        small = {"batch_size": 16, "max_batch_size": 16} if tag in seeded else {}
         cfg = DiarizationConfig(
             cluster=ClusterConfig(method=method, max_speakers=8),
-            embed=EmbedConfig(grid_backend=grid))
+            embed=EmbedConfig(grid_backend=grid, **small))
         pipe = DiarizationPipeline(cfg, encoder=encoder, vad_probs_fn=vad_fn)
         t0 = time.perf_counter()
         res = pipe((wave, 16000))
@@ -270,6 +279,30 @@ def encoders_bar(w, default_enc, conv_vad) -> None:
         out[f"segments_{tag}"] = len(res.segments)
         out[f"wall_s_{tag}"] = round(time.perf_counter() - t0, 2)
         print(json.dumps(out), flush=True)
+
+
+def seeded_encoders() -> dict:
+    """The JAX ``(model, params)`` of each encoder that ships no checkpoint,
+    on the seed-0 numpy draw, loaded by the JAX loaders."""
+    from speech_diarization_tpu.models.campp import CamPlusPlusModel, load_campp
+    from speech_diarization_tpu.models.ecapa import EcapaModel
+    from speech_diarization_tpu.models.eres2netv2 import (
+        ERes2NetV2Model, load_eres2netv2,
+    )
+    from speech_diarization_tpu.models.port_ecapa import (
+        ecapa_torch_manifest, load_ecapa_speechbrain,
+    )
+    from speech_diarization_tpu_torch.models.registry import seeded_state_dict
+
+    eres, campp, ecapa = ERes2NetV2Model(), CamPlusPlusModel(), EcapaModel()
+    return {
+        "eres2netv2": (eres, load_eres2netv2(
+            seeded_state_dict(eres.net.manifest(), 0), eres.net)),
+        "campp": (campp, load_campp(
+            seeded_state_dict(campp.net.manifest(), 0), campp.net)),
+        "ecapa_speechbrain": (ecapa, load_ecapa_speechbrain(
+            seeded_state_dict(ecapa_torch_manifest(ecapa.net), 0), ecapa.net)),
+    }
 
 
 def heldout_bar(w, cli: bool) -> None:

@@ -14,12 +14,13 @@ on files whose estimated SNR is under 25 dB (they take the whole-file
 path).  ``--cluster-method`` (spectral, ahc, hdbscan, hdbscan2) with
 ``--cos-threshold``, ``--vad-backend`` (auto: the first shipped neural VAD
 of the conv TCNs and the GRU net, else the energy VAD; energy; neural) with
-``--vad-weights``, ``--encoder-weights`` (a checkpoint that is not
-streaming-trained runs the windowed grid), ``--no-overlap``,
-``--no-reseg``, ``--hmm``, ``--enhance`` (gtcrn, zipenhancer, demix-dialog
-or off), ``--enhance-scope`` and ``--enhance-weights`` are options;
-``--encoder eres2netv2|campp`` is refused (not ported).  Writes RTTM, JSON,
-SRT and CSV.
+``--vad-weights``, ``--encoder`` (ecapa, eres2netv2, campp) with
+``--encoder-weights`` (an ECAPA ``.npz`` or SpeechBrain
+``embedding_model.ckpt``, a 3D-Speaker ``.pt`` / ``.ckpt`` or ``.onnx``;
+every encoder but a streaming-trained ECAPA runs the windowed grid),
+``--no-overlap``, ``--no-reseg``, ``--hmm``, ``--enhance`` (gtcrn,
+zipenhancer, demix-dialog or off), ``--enhance-scope`` and
+``--enhance-weights`` are options.  Writes RTTM, JSON, SRT and CSV.
 ``batch`` diarizes every audio file under a directory (``--engine
 segmentation``: the chunk-local speaker-activity engine) and writes an RTTM
 beside each and per-speaker stems under ``<stem>-speakers/``; a file whose
@@ -88,10 +89,13 @@ def _add_common_config_args(p: argparse.ArgumentParser) -> None:
                    help="segmentation checkpoint for the overlap detector")
     p.add_argument("--encoder", default="ecapa",
                    choices=["ecapa", "eres2netv2", "campp"],
-                   help="eres2netv2 and campp are not ported and raise")
+                   help="speaker encoder; eres2netv2 and campp run the "
+                        "windowed grid")
     p.add_argument("--encoder-weights", type=str, default=None,
-                   help="ECAPA npz checkpoint (one that is not "
-                        "streaming-trained runs the windowed grid)")
+                   help="ecapa: npz checkpoint (one that is not "
+                        "streaming-trained runs the windowed grid) or a "
+                        "SpeechBrain embedding_model.ckpt; eres2netv2 / "
+                        "campp: 3D-Speaker .pt / .ckpt or .onnx")
     p.add_argument("--vad-backend", default="auto",
                    choices=["auto", "energy", "neural"],
                    help="'auto' uses a trained neural VAD when weights are "
@@ -100,7 +104,8 @@ def _add_common_config_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--vad-weights", type=str, default=None,
                    help="neural VAD npz checkpoint (conv TCN or GRU net)")
     p.add_argument("--bf16", action="store_true",
-                   help="run the encoder trunk in bfloat16")
+                   help="run the ECAPA trunk in bfloat16 (refused with the "
+                        "other encoders, which run float32)")
     p.add_argument("--cpu", action="store_true",
                    help="run on the CPU instead of the card")
     p.add_argument("--verbose", "-v", action="store_true")
@@ -148,25 +153,26 @@ def build_config(args: argparse.Namespace):
 
 def build_pipeline_kwargs(args: argparse.Namespace) -> dict:
     """The encoder and the VAD, resolved as the JAX CLI resolves them.
-    ``--vad-backend auto`` / ``neural``: ``--vad-weights`` or the first
+    The encoder comes from the registry (``models.registry.
+    make_encoder_model``): ``--encoder-weights`` in any format it reads, or
+    the shipped ECAPA, or random weights with a warning.  ``--vad-backend
+    auto`` / ``neural``: ``--vad-weights`` or the first
     shipped of ``VAD_PREFERENCE``; with none, ``auto`` leaves the pipeline's
     energy VAD and ``neural`` runs the GRU net on random weights (with a
     warning).  ``energy``: the pipeline's energy VAD."""
     import torch
 
-    from .models.port import load_speaker_encoder, load_vad
-    from .utils.weights import ENCODER_PREFERENCE, VAD_PREFERENCE, prefer_weights
+    from .models.port import load_vad
+    from .models.registry import make_encoder_model
+    from .utils.weights import VAD_PREFERENCE, prefer_weights
 
-    if args.encoder != "ecapa":
-        raise NotImplementedError(
-            f"--encoder {args.encoder} is not ported yet (ROADMAP Queue 1 "
-            "item 4: models/eres2netv2.py, models/campp.py)")
-    enc_w = args.encoder_weights or prefer_weights(ENCODER_PREFERENCE)
-    if enc_w is None:
-        raise SystemExit("no encoder weights: pass --encoder-weights")
-    encoder = load_speaker_encoder(enc_w,
-                                   dtype=torch.bfloat16 if args.bf16 else None)
-    encoder.sample_rate = args.sample_rate
+    if args.bf16 and args.encoder != "ecapa":
+        raise SystemExit(f"--bf16 runs the ECAPA trunk in bfloat16; --encoder "
+                         f"{args.encoder} runs float32 only, as in the JAX "
+                         "package: drop --bf16")
+    encoder = make_encoder_model(args.encoder, weights=args.encoder_weights,
+                                 sample_rate=args.sample_rate,
+                                 dtype=torch.bfloat16 if args.bf16 else None)
     kwargs = {"encoder": encoder, "device": "cpu" if args.cpu else None}
     if args.vad_backend in ("neural", "auto"):
         vad_w = args.vad_weights or prefer_weights(VAD_PREFERENCE)

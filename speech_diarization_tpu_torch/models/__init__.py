@@ -1,0 +1,29 @@
+"""The port's model zoo: the JAX package's nets as ``nn.Module`` s whose
+``state_dict`` keys are the checkpoints' names, and the speaker-encoder
+registry."""
+from .vad import VadNet, VadModel, energy_vad_probs
+from .ecapa import EcapaTdnn, EcapaModel
+from .eres2netv2 import ERes2NetV2, ERes2NetV2Model
+from .campp import CamPlusPlus, CamPlusPlusModel
+from .gtcrn import GTCRN
+from .zipenhancer import ZipEnhancerModel
+from .demix import DialogDemixer
+from .registry import make_encoder, make_encoder_model, BACKENDS
+
+__all__ = [
+    "VadNet",
+    "VadModel",
+    "energy_vad_probs",
+    "EcapaTdnn",
+    "EcapaModel",
+    "ERes2NetV2",
+    "ERes2NetV2Model",
+    "CamPlusPlus",
+    "CamPlusPlusModel",
+    "GTCRN",
+    "ZipEnhancerModel",
+    "DialogDemixer",
+    "make_encoder",
+    "make_encoder_model",
+    "BACKENDS",
+]

@@ -21,28 +21,10 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .layers import batch_norm_apply, layer_norm_apply
+from .layers import BatchNorm, layer_norm_apply
 
 _ENC_GT_DILATIONS = (1, 2, 5)
 _DEC_GT_DILATIONS = (5, 2, 1)
-
-
-class BatchNorm(nn.Module):
-    """Inference BatchNorm with the checkpoint's four keys (no
-    ``num_batches_tracked``) and the JAX package's scale/shift form."""
-
-    def __init__(self, c: int):
-        super().__init__()
-        self.weight = nn.Parameter(torch.ones(c), requires_grad=False)
-        self.bias = nn.Parameter(torch.zeros(c), requires_grad=False)
-        self.register_buffer("running_mean", torch.zeros(c))
-        self.register_buffer("running_var", torch.ones(c))
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return batch_norm_apply(x, self.running_mean, self.running_var,
-                                self.weight, self.bias)
-
-
 _LOW_BINS = 65    # bins below the ERB bands, passed through
 
 

@@ -3,6 +3,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn as nn
 import torch.nn.functional as F
 
 
@@ -35,6 +36,33 @@ def batch_norm_apply(x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor,
     scale = (gamma / sd).reshape(shape)
     shift = (beta - mean * gamma / sd).reshape(shape)
     return x * scale.to(x.dtype) + shift.to(x.dtype)
+
+
+class BatchNorm(nn.Module):
+    """Inference BatchNorm over axis 1 (:func:`batch_norm_apply`) whose
+    ``state_dict`` keys are those of torch's ``nn.BatchNorm1d/2d`` less
+    ``num_batches_tracked``: ``weight`` and ``bias`` when ``affine``,
+    ``running_mean`` and ``running_var``.  Non-affine: gamma one, beta zero,
+    as the JAX package applies it."""
+
+    def __init__(self, c: int, affine: bool = True):
+        super().__init__()
+        if affine:
+            self.weight = nn.Parameter(torch.ones(c), requires_grad=False)
+            self.bias = nn.Parameter(torch.zeros(c), requires_grad=False)
+        else:
+            self.register_parameter("weight", None)
+            self.register_parameter("bias", None)
+        self.register_buffer("running_mean", torch.zeros(c))
+        self.register_buffer("running_var", torch.ones(c))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        gamma = self.weight if self.weight is not None else torch.ones_like(
+            self.running_var)
+        beta = self.bias if self.bias is not None else torch.zeros_like(
+            self.running_var)
+        return batch_norm_apply(x, self.running_mean, self.running_var, gamma,
+                                beta)
 
 
 # Per-shape constants live on the device once: a host-to-device copy from

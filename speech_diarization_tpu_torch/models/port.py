@@ -169,3 +169,64 @@ def load_demixer(path: str | Path) -> DialogDemixer:
     in the ``__meta__`` sidecar's ``net`` entry (the constructor's defaults
     when absent)."""
     return _load_flat(DialogDemixer(**load_params_meta(path).get("net", {})), path)
+
+
+def torch_checkpoint(path: str | Path) -> dict:
+    """A torch checkpoint file's state_dict: a bare one, or the one under
+    ``state_dict``.  Read with ``weights_only=True``: tensors, containers
+    and plain values only, never arbitrary pickled objects."""
+    ckpt = torch.load(str(path), map_location="cpu", weights_only=True)
+    if isinstance(ckpt, dict) and "state_dict" in ckpt:
+        return ckpt["state_dict"]
+    return ckpt
+
+
+def float32_arrays(src) -> dict[str, np.ndarray]:
+    """A mapping of tensors or arrays as float32 numpy arrays, without the
+    BatchNorm ``num_batches_tracked`` counters."""
+    out = {}
+    for k, v in src.items():
+        if k.endswith("num_batches_tracked"):
+            continue
+        if hasattr(v, "detach"):
+            v = v.detach().cpu().numpy()
+        out[k] = np.array(v, dtype=np.float32)
+    return out
+
+
+def check_schema(sd: dict, manifest: dict[str, tuple[int, ...]]) -> None:
+    """Raise ``ValueError`` unless ``sd`` has exactly the manifest's keys,
+    each at its shape (the JAX loaders' messages)."""
+    missing = sorted(set(manifest) - set(sd))
+    extra = sorted(set(sd) - set(manifest))
+    if missing or extra:
+        raise ValueError(
+            f"state_dict schema mismatch: missing={missing[:5]} "
+            f"({len(missing)} total), unexpected={extra[:5]} ({len(extra)} total)")
+    for k, shape in manifest.items():
+        if tuple(sd[k].shape) != tuple(shape):
+            raise ValueError(f"{k}: expected {tuple(shape)}, got "
+                             f"{tuple(sd[k].shape)}")
+
+
+def load_torch_layout(net: torch.nn.Module, src,
+                      strict: bool = True) -> torch.nn.Module:
+    """Load a checkpoint whose keys are ``net``'s ``state_dict`` keys (a
+    3D-Speaker export): ``src`` is a mapping of arrays or tensors, a
+    ``.onnx`` path (its initializers) or a torch checkpoint path.
+    ``strict``: the keys and shapes must equal ``net.manifest()``
+    (:func:`check_schema`)."""
+    if isinstance(src, (str, Path)):
+        path = Path(src)
+        if path.suffix == ".onnx":
+            from .eres2netv2 import onnx_initializers
+
+            src = onnx_initializers(path)
+        else:
+            src = torch_checkpoint(path)
+    sd = float32_arrays(src)
+    if strict:
+        check_schema(sd, net.manifest())
+    net.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()},
+                        strict=strict)
+    return net.eval()

@@ -98,9 +98,12 @@ class DiarizationPipeline:
         cfg: unified config.  ``overlap.enabled`` (the default) runs the
             segmentation model inside the per-chunk program and the overlap
             rescue on the host; ``reseg.enabled`` runs frame reassignment.
-        encoder: an :class:`~..models.ecapa.EcapaModel`; default: the first
-            shipped encoder of ``ENCODER_PREFERENCE``.  A streaming-trained
-            one runs the streamed ingest; any other the windowed grid.
+        encoder: a module with ``encode_batch`` ([B, T] waveforms -> [B, D]):
+            an :class:`~..models.ecapa.EcapaModel`, ``ERes2NetV2Model`` or
+            ``CamPlusPlusModel`` (``models.registry.make_encoder_model``);
+            default: the first shipped encoder of ``ENCODER_PREFERENCE``.  A
+            streaming-trained ECAPA runs the streamed ingest; any other
+            encoder the windowed grid.
         vad: a :class:`~..models.vad.VadModel` (conv TCN or GRU net) or
             :class:`~..models.vad.EnergyVad`; default: the energy VAD at
             ``cfg.vad``'s window and hop, as in the JAX package (the CLI and
@@ -172,9 +175,9 @@ class DiarizationPipeline:
 
     def encode_fn(self, wavs) -> torch.Tensor:
         """The per-utterance encoder: [B, T] waveforms (array or tensor) ->
-        [B, D] float32 embeddings on this pipeline's device
-        (``EcapaModel.encode_batch``: one log-mel launch for the batch on
-        the card)."""
+        [B, D] float32 embeddings on this pipeline's device (the
+        encoder's ``encode_batch``: one log-mel launch for the batch on the
+        card)."""
         with torch.inference_mode():
             return self.encoder.encode_batch(
                 torch.as_tensor(wavs, dtype=torch.float32).to(self.device))
@@ -307,13 +310,18 @@ class DiarizationPipeline:
 
     def _grid_is_streaming(self, sr: int) -> bool:
         """The whole-file path's grid: the streaming trunk-shared grid when
-        :meth:`_streaming_grid_asked` and the grid aligns to the 10 ms mel
-        hop (else a warning and the windowed grid, as in the JAX package);
+        :meth:`_streaming_grid_asked`, the encoder has a trunk
+        (``encode_grid_chunk``) and the grid aligns to the 10 ms mel hop
+        (else a warning and the windowed grid, as in the JAX package);
         otherwise the windowed grid.  Unlike the streamed ingest, a forced
-        'streaming' backend takes it with any encoder, as in the JAX
-        package."""
+        'streaming' backend takes it with an ECAPA that is not
+        streaming-trained, as in the JAX package."""
         cfg = self.cfg
         streaming = self._streaming_grid_asked()
+        if streaming and not hasattr(self.encoder, "encode_grid_chunk"):
+            log.warning("grid_backend=streaming needs an encoder with "
+                        "encode_grid_chunk; falling back to windowed")
+            streaming = False
         if streaming:
             mel_hop = sr * 10 // 1000
             if (int(round(cfg.reseg.win_s * sr)) % mel_hop

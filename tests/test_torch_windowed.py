@@ -316,9 +316,26 @@ def test_cli_ahc_with_the_windowed_encoder_matches_the_jax_cli(tmp_path,
     _same_segments(tres.segments, jres.segments)
 
 
-def test_cli_refuses_the_unported_encoders():
+def test_cli_refuses_the_unported_encoders(tmp_path, conversation):
+    """The encoders this test once saw refused now run: ``diarize --encoder
+    eres2netv2|campp --encoder-weights`` with seeded 3D-Speaker checkpoints
+    at the published widths (an ``.onnx`` and a ``.pt``) writes its RTTM
+    on the windowed grid."""
+    from speech_diarization_tpu.models.campp import CamPlusPlus as JCamPP
+    from speech_diarization_tpu.models.eres2netv2 import ERes2NetV2 as JERes
     from speech_diarization_tpu_torch.cli import main
+    from speech_diarization_tpu_torch.io.onnx_lite import write_initializers
+    from speech_diarization_tpu_torch.models.registry import seeded_state_dict
 
-    for enc in ("eres2netv2", "campp"):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 4"):
-            main(["diarize", "x.wav", "--cpu", "--encoder", enc])
+    wav = tmp_path / "conv.wav"
+    write_wav(wav, conversation[:3 * SR], SR)
+    onnx = tmp_path / "eres2netv2.onnx"
+    write_initializers(onnx, seeded_state_dict(JERes().manifest(), 0))
+    pt = tmp_path / "campp.pt"
+    torch.save({k: torch.from_numpy(v) for k, v in
+                seeded_state_dict(JCamPP().manifest(), 0).items()}, pt)
+    for enc, ckpt in (("eres2netv2", onnx), ("campp", pt)):
+        out = tmp_path / enc
+        assert main(["diarize", str(wav), "--cpu", "--encoder", enc,
+                     "--encoder-weights", str(ckpt), "--out-dir", str(out)]) == 0
+        assert (out / "conv.rttm").read_text().startswith("SPEAKER conv")
