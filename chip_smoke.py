@@ -123,6 +123,26 @@ Phases (any failure exits nonzero and prints no result line):
      600 s draw: wall, device busy share and time by kernel
      (``torch.profiler``), the encoder's span beside the float32 bound of
      its convolutions and linears, peak memory, stage walls.
+  4l. The published enhancer graphs and their importers on seeded weights:
+     three full-width HTDemucs packages (``{kwargs, state}`` .th, seeds 0,
+     1, 2), a ModelScope-style ZipEnhancerRef ``pytorch_model.bin`` and
+     ``gtcrn_mc.npz`` as a DNS3-style tar, written to a temporary directory.
+     HTDemucs on one 10 s stereo chunk and ZipEnhancerRef on four 2 s
+     windows, card against CPU (bars ``HTDEMUCS_TOL_REL`` /
+     ``ZIPREF_TOL_REL``, TF32 flags printed); GTCRN from the tar equal to
+     the npz's output; the HTDemucs ensemble on the 600 s file's 80 chunks
+     and ZipEnhancerRef on one 64-window batch and on the 400 windows of
+     600 s, each on the card's clock beside its float32 bound (operations
+     counted from the shapes, ``graph_flops``) and peak memory; the routes
+     with their walls, launches by shape and DER within one point of the
+     JAX CPU bars either way (``torch_port_der_bar.py --published``):
+     ``EnhanceConfig(backend='zipenhancer-ref')`` on white10 60 s,
+     ``backend='demix-dialog'`` and the default config's auto-route (which
+     must take the demixer) with ``SDTPU_DEMUCS_CKPTS`` naming the .th files
+     on babble15 60 s; both graphs once on white10 600 s (wall, busy share
+     and top kernels from ``torch.profiler``); the CLI's ``enhance
+     --backend zipenhancer-ref --weights pytorch_model.bin``, ``enhance
+     --backend gtcrn --weights model.tar`` and ``demix`` on a 10 s WAV.
   5. Reference agreement on small inputs: the same pipeline (float32
      encoder) on the card and on the CPU (plain versions) over a 25 s file
      cut into three 10 s chunks, with the rescue off; the windowed grid
@@ -240,6 +260,19 @@ ENC_COS = 0.99999
 # weights: each finds one speaker
 JAX_CPU_DER_PCT_SEEDED = {"eres2netv2": 59.215, "campp": 59.215,
                           "ecapa_speechbrain": 59.215}
+# the published enhancer graphs on the card against the CPU (max abs error
+# over the output, relative to its peak), TF32 off: HTDemucs on one 10 s
+# stereo chunk, ZipEnhancerRef on four 2 s windows, both on seeded weights
+HTDEMUCS_TOL_REL = 1e-3
+ZIPREF_TOL_REL = 1e-3
+# DER (%) of the JAX reference on the CPU with the published graphs on the
+# seeded draws phase 4l writes (--published of torch_port_der_bar.py): the
+# ZipEnhancerRef route (the JAX graph given the port's exact zeros in its
+# input spectrum, ROADMAP F18) on white10 60 s, EnhanceConfig(backend=
+# 'demix-dialog') and the default config's auto-route with the HTDemucs
+# ensemble (seeds 0, 1, 2) on babble15 60 s
+JAX_CPU_DER_PCT_PUBLISHED = {"zipenhancer-ref": 0.5717, "demix-dialog": 8.3333,
+                             "auto": 8.8171}
 
 
 def log(msg: str) -> None:
@@ -784,6 +817,304 @@ def seeded_encoders_phase(dev, vad, bench_cfg, der_pct, wave600, truth600,
     return {"runs": seeded_runs, "shapes600": shapes600, "wall600": wall600}
 
 
+def graph_flops(net, *inputs) -> float:
+    """Operations (two per multiply-add) of one forward of ``net``, counted
+    from the shapes it meets: its convolutions, transposed convolutions and
+    linears, and the products inside its attention modules (HTDemucs'
+    projections, scores and weighted sums; ZipEnhancerRef's scores,
+    relative position scores and the three products with its attention
+    weights).  The STFT / iSTFT products of ZipEnhancerRef are counted from
+    its frames; HTDemucs' FFTs, norms and pointwise work are not counted."""
+    import torch
+
+    from speech_diarization_tpu_torch.models import demucs_ref, zipenhancer_ref
+
+    total = [0.0]
+
+    def hook(mod, inp, out):
+        x = inp[0]
+        if isinstance(mod, torch.nn.Linear):
+            total[0] += 2.0 * out.numel() * mod.in_features
+        elif isinstance(mod, (torch.nn.ConvTranspose1d, torch.nn.ConvTranspose2d)):
+            total[0] += (2.0 * x.numel() * mod.out_channels // mod.groups
+                         * float(np.prod(mod.kernel_size)))
+        elif isinstance(mod, (torch.nn.Conv1d, torch.nn.Conv2d)):
+            total[0] += (2.0 * out.numel() * (mod.in_channels // mod.groups)
+                         * float(np.prod(mod.kernel_size)))
+        elif isinstance(mod, demucs_ref.MultiheadAttention):
+            b, lq, d = x.shape
+            lk = inp[1].shape[1]
+            total[0] += 2.0 * b * (lq + 2 * lk) * d * d + 4.0 * b * lq * lk * d
+        elif isinstance(mod, zipenhancer_ref.RelPositionAttentionWeights):
+            n, s, _ = x.shape
+            total[0] += 2.0 * n * mod.heads * s * s * (mod.qhd + mod.phd)
+        elif isinstance(mod, zipenhancer_ref.SelfAttention):
+            n, s, _ = x.shape
+            total[0] += 2.0 * n * mod.heads * s * s * mod.vhd
+        elif isinstance(mod, zipenhancer_ref.NonlinAttention):
+            n, s, _ = x.shape
+            total[0] += 2.0 * n * s * s * (mod.in_proj.out_features // 3)
+
+    kinds = (torch.nn.Conv1d, torch.nn.Conv2d, torch.nn.ConvTranspose1d,
+             torch.nn.ConvTranspose2d, torch.nn.Linear, demucs_ref.MultiheadAttention,
+             zipenhancer_ref.RelPositionAttentionWeights, zipenhancer_ref.SelfAttention,
+             zipenhancer_ref.NonlinAttention)
+    handles = [m.register_forward_hook(hook) for m in net.modules() if isinstance(m, kinds)]
+    try:
+        with torch.inference_mode():
+            net(*inputs)
+    finally:
+        for h in handles:
+            h.remove()
+    if isinstance(net, zipenhancer_ref.ZipEnhancerRef):
+        b, t = inputs[0].shape
+        frames = 1 + t // net.hop
+        total[0] += 2 * (2.0 * b * frames * net.n_fft * 2 * net.n_bins)
+    return total[0]
+
+
+def published_graphs_phase(dev, enc, vad, bench_cfg, noisy_route, noisy600, y10) -> dict:
+    """Phase 4l: the published enhancer graphs and their checkpoint
+    importers on seeded weights.  Writes three full-width HTDemucs packages
+    (``{kwargs, state}`` .th, seeds 0, 1, 2), a ModelScope-style
+    ZipEnhancerRef ``pytorch_model.bin`` (``generator.``-prefixed, with a
+    balancer and a ``num_batches_tracked`` entry that the importer drops;
+    seed 0, also as an .npz) and ``gtcrn_mc.npz`` as a DNS3-style tar; holds
+    each graph on the card against the CPU, the tar against the npz, times
+    the HTDemucs ensemble on the 600 s file's 80 chunks and ZipEnhancerRef
+    on a 64-window batch and on the 400 windows of 600 s beside their
+    float32 bounds, runs the routes (zipenhancer-ref on white10 60 s,
+    demix-dialog and the default config's auto-route with the .th files on
+    babble15 60 s, DER within one point of the JAX CPU bars either way;
+    both graphs once on white10 600 s for the wall and the busy share), and
+    the CLI's ``enhance`` / ``demix`` with these files.  Restores
+    ``SDTPU_DEMUCS_CKPTS``.  Returns what the kernels line reads."""
+    import copy
+    import os
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from speech_diarization_tpu_torch.cli import main as cli_main
+    from speech_diarization_tpu_torch.config import EnhanceConfig
+    from speech_diarization_tpu_torch.dsp.framing import frame_signal, num_frames
+    from speech_diarization_tpu_torch.dsp.resample import resample_host
+    from speech_diarization_tpu_torch.io.audio import write_wav
+    from speech_diarization_tpu_torch.models.demucs_ref import HTDemucsRef
+    from speech_diarization_tpu_torch.models.port import (
+        load_gtcrn_checkpoint, load_params_npz,
+    )
+    from speech_diarization_tpu_torch.models.port_demucs import load_htdemucs
+    from speech_diarization_tpu_torch.models.port_zipenhancer import (
+        load_zipenhancer_modelscope,
+    )
+    from speech_diarization_tpu_torch.models.registry import seeded_state_dict
+    from speech_diarization_tpu_torch.models.zipenhancer_ref import ZipEnhancerRef
+    from speech_diarization_tpu_torch.ops import kernels
+    from speech_diarization_tpu_torch.pipelines.demix import EnsembleDemixer
+    from speech_diarization_tpu_torch.pipelines.diarize import DiarizationPipeline
+    from speech_diarization_tpu_torch.pipelines.enhance import (
+        make_enhance_fn, windowed_enhance,
+    )
+
+    env_before = os.environ.get("SDTPU_DEMUCS_CKPTS")
+    tmp_dir = tempfile.TemporaryDirectory()
+    tmp = Path(tmp_dir.name)
+    try:
+        # ----------------------------------------------- the checkpoints ---
+        t0 = time.perf_counter()
+        ths = []
+        man = HTDemucsRef().manifest()
+        for seed in range(3):
+            ths.append(tmp / f"htdemucs_seed{seed}.th")
+            torch.save({"kwargs": {"sources": ["music", "effect", "dialog"]},
+                        "state": {k: torch.from_numpy(v) for k, v in
+                                  seeded_state_dict(man, seed).items()}}, ths[-1])
+        zip_sd = seeded_state_dict(ZipEnhancerRef().manifest(), 0)
+        zip_npz = tmp / "zipenhancer_ref_seed0.npz"
+        np.savez(zip_npz, **zip_sd)
+        bundle = {f"generator.{k}": torch.from_numpy(v) for k, v in zip_sd.items()}
+        bundle["generator.ts_blocks.0.time.encoder.layers.0.balancer1.prob"] = torch.zeros(1)
+        bundle["generator.dense_encoder.dense_conv_1.1.num_batches_tracked"] = (
+            torch.zeros((), dtype=torch.long))
+        zip_bin = tmp / "pytorch_model.bin"
+        torch.save(bundle, zip_bin)
+        gtcrn_sd = load_params_npz(HERE / "weights" / "gtcrn_mc.npz")
+        tar = tmp / "model_trained_on_dns3.tar"
+        torch.save({"model": {k: torch.from_numpy(v) for k, v in gtcrn_sd.items()}}, tar)
+        os.environ["SDTPU_DEMUCS_CKPTS"] = ":".join(map(str, ths))
+        log(f"[4l] wrote 3 HTDemucs .th ({ths[0].stat().st_size / 1e6:.1f} MB each), "
+            f"{zip_bin.name} ({zip_bin.stat().st_size / 1e6:.1f} MB), {tar.name} in "
+            f"{time.perf_counter() - t0:.2f} s")
+
+        # -------------------------------------------- card against CPU ---
+        htd_cpu = load_htdemucs(ths[0])
+        zip_cpu = load_zipenhancer_modelscope(zip_bin)
+        up10 = resample_host(noisy600[:10 * SR].astype(np.float32), SR, 44100)
+        chunk = torch.from_numpy(np.stack([up10, up10])[None])          # [1, 2, 441000]
+        x4 = y10[:4 * 32000].reshape(4, 32000)
+        errs = {}
+        with torch.inference_mode():
+            for tag, net, x, tol in (("HTDemucs", htd_cpu, chunk, HTDEMUCS_TOL_REL),
+                                     ("ZipEnhancerRef", zip_cpu, x4, ZIPREF_TOL_REL)):
+                ref = net(x)
+                out = copy.deepcopy(net).to(dev)(x.to(dev)).cpu()
+                errs[tag] = float((out - ref).abs().max() / ref.abs().max())
+                log(f"[4l] {tag} card vs CPU on {tuple(x.shape)}: max abs error "
+                    f"{errs[tag]:.3e} of the peak {ref.abs().max().item():.4f} (bar "
+                    f"{tol:.0e}); allow_tf32 matmul={torch.backends.cuda.matmul.allow_tf32} "
+                    f"cudnn={torch.backends.cudnn.allow_tf32}")
+                if not (errs[tag] <= tol and torch.isfinite(out).all()):
+                    raise AssertionError(f"{tag} on the card disagrees with the CPU")
+        del htd_cpu
+
+        # ---------------------------------------------- the GTCRN tar ---
+        tar_fn = make_enhance_fn("gtcrn", weights=load_gtcrn_checkpoint(tar).state_dict(),
+                                 device=dev)
+        same = torch.equal(tar_fn(y10.to(dev)), make_enhance_fn("gtcrn", device=dev)(
+            y10.to(dev)))
+        log(f"[4l] GTCRN from the DNS3 tar on 10 s equals gtcrn_mc.npz's output: {same}")
+        if not same:
+            raise AssertionError("the GTCRN tar's output differs from the npz's")
+
+        # ------------------------------------------ spans and bounds ---
+        spans = {}
+        dmx = EnsembleDemixer(device=dev)
+        up600 = resample_host(noisy600.astype(np.float32), SR, 44100)
+        x80 = frame_signal(torch.from_numpy(np.stack([up600, up600])).to(dev),
+                           441000, 330750).transpose(0, 1)
+        del up600
+        with torch.inference_mode():
+            htd_flops = graph_flops(dmx.nets[0], x80[:1])
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            spans["htdemucs_80"] = cuda_time_ms(lambda: dmx._forward(x80), 1)
+            peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+        n_fwd = x80.shape[0] * len(dmx.nets)
+        b_ms, _ = bound(0.0, {"f32": htd_flops * n_fwd})
+        log(f"[4l] HTDemucs ensemble of {len(dmx.nets)} on the 600 s file's "
+            f"{x80.shape[0]} chunks of [2, 441000] (batches of {dmx.CHUNK_BATCH}): "
+            f"{spans['htdemucs_80']:.1f} ms on the card's clock, {peak:.2f} GB above "
+            f"the resident set; {htd_flops / 1e9:.1f} GFLOP a chunk (XLA's count "
+            f"464.5) x {n_fwd} = {htd_flops * n_fwd / 1e12:.2f} TFLOP, float32 bound "
+            f"{b_ms:.1f} ms ({100 * b_ms / spans['htdemucs_80']:.1f} % of it)")
+        del x80, dmx
+        zip_card = load_zipenhancer_modelscope(zip_bin).to(dev)
+        y600 = torch.from_numpy(noisy600.astype(np.float32)).to(dev)
+        n_win = num_frames(600 * SR, 32000, 24000, pad_tail=True)
+        with torch.inference_mode():
+            x64 = y600[:63 * 24000 + 32000].unfold(0, 32000, 24000)
+            zip_flops = graph_flops(zip_card, x64[:1])
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            spans["zipref_64"] = cuda_time_ms(lambda: zip_card(x64), 3)
+            peak64 = (torch.cuda.max_memory_allocated() - base) / 1e9
+            spans["zipref_600s"] = cuda_time_ms(lambda: windowed_enhance(zip_card, y600), 1)
+        for key, n in (("zipref_64", 64), ("zipref_600s", n_win)):
+            b_ms, _ = bound(0.0, {"f32": zip_flops * n})
+            log(f"[4l] ZipEnhancerRef on {n} windows of 2 s"
+                f"{' (the 600 s file through windowed_enhance)' if n == n_win else ''}: "
+                f"{spans[key]:.1f} ms on the card's clock; {zip_flops / 1e9:.1f} GFLOP a "
+                f"window (XLA's count 195.1) x {n} = {zip_flops * n / 1e12:.2f} TFLOP, "
+                f"float32 bound {b_ms:.1f} ms ({100 * b_ms / spans[key]:.1f} % of it)"
+                + (f"; {peak64:.2f} GB above the resident set" if n == 64 else ""))
+        del zip_card, y600, x64
+
+        # ------------------------------------------------------ routes ---
+        def timed(pipe, attr):
+            inner, spans_ = getattr(pipe, attr), []
+
+            def fn(y):
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                out = inner(y)
+                e1.record()
+                spans_.append((e0, e1))
+                return out
+
+            setattr(pipe, attr, fn)
+            return spans_
+
+        def route_pipe(tag):
+            cfg = {"zipenhancer-ref": EnhanceConfig(backend="zipenhancer-ref",
+                                                    weights=str(zip_npz)),
+                   "demix-dialog": EnhanceConfig(backend="demix-dialog"),
+                   "auto": EnhanceConfig()}[tag]
+            pipe = DiarizationPipeline(bench_cfg(True, enhance=cfg), encoder=enc, vad=vad)
+            if tag == "auto":
+                pipe._demix_frontend()          # built once, then timed
+                return pipe, timed(pipe, "_demix_fe")
+            return pipe, timed(pipe, "enhance_fn")
+
+        runs, ders = {}, {}
+        for tag, noise, snr in (("zipenhancer-ref", "white", 10.0),
+                                ("demix-dialog", "babble", 15.0),
+                                ("auto", "babble", 15.0)):
+            pipe, sp = route_pipe(tag)
+            backend = "demix-dialog" if tag == "auto" else tag
+            r = noisy_route("4l", pipe, sp, backend, noise, snr, 60, None)
+            jax_der = JAX_CPU_DER_PCT_PUBLISHED[tag]
+            ders[tag] = (r["der"], jax_der)
+            log(f"[4l] {tag} ({'auto-route, ' if tag == 'auto' else ''}{noise}{snr:g} "
+                f"60 s): DER {r['der']:.4f} % against the JAX CPU bar "
+                f"{jax_der} % +- {DER_SLACK_PCT}; K1 / K2 launches by shape {r['shapes']}")
+            if jax_der is not None and not abs(r["der"] - jax_der) <= DER_SLACK_PCT:
+                raise AssertionError(f"{tag}: DER {r['der']:.4f} % more than "
+                                     f"{DER_SLACK_PCT} point from {jax_der} %")
+        for tag, run_tag in (("zipenhancer-ref", "zipenhancer-ref_white10_600s"),
+                             ("demix-dialog", "htdemucs_white10_600s")):
+            pipe, sp = route_pipe(tag)
+            r = noisy_route("4l", pipe, sp, tag, "white", 10.0, 600, None, n_timed=1)
+            # noisy600 is the same draw (seed 0, white noise at 10 dB)
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                pipe((noisy600, SR))
+                torch.cuda.synchronize()
+                wall_prof = time.perf_counter() - t0
+            kern = kernel_times_us(prof)
+            busy = sum(kern.values()) / 1e6
+            top = sorted(kern.items(), key=lambda kv: -kv[1])[:8]
+            r.update(busy=busy, wall_prof=wall_prof)
+            runs[run_tag] = r
+            log(f"[4l] {tag} on white10 600 s: wall {r['wall']:.4f} s (RTF "
+                f"{600 / r['wall']:.1f}x; under the profiler {wall_prof:.4f} s), device "
+                f"busy {busy:.4f} s = {100 * busy / wall_prof:.1f} % of the profiled "
+                f"wall; enhancer {r['ms']:.1f} ms; peak {r['peak_gb']:.2f} GB; DER "
+                f"{r['der']:.4f} % (no JAX bar at 600 s); top device kernels (ms) "
+                f"{[(k[:120], round(v / 1e3, 1)) for k, v in top]}")
+
+        # --------------------------------------------------------- CLI ---
+        wav_dir = tmp / "cli" / "in"
+        write_wav(wav_dir / "noisy10.wav", y10.numpy(), SR)
+        for argv, out in (
+                (["enhance", str(wav_dir), "--backend", "zipenhancer-ref", "--weights",
+                  str(zip_bin)], wav_dir.with_name("in-enhanced") / "noisy10.wav"),
+                (["enhance", str(wav_dir), "--backend", "gtcrn", "--weights", str(tar)],
+                 wav_dir.with_name("in-enhanced") / "noisy10.wav"),
+                (["demix", str(wav_dir), "--output", str(tmp / "cli" / "stems")],
+                 tmp / "cli" / "stems" / "dialog" / "noisy10.wav")):
+            t0 = time.perf_counter()
+            rc = cli_main(argv)
+            log(f"[4l] CLI {' '.join(a if '/' not in a else Path(a).name for a in argv)} "
+                f"on the card: rc {rc}, wrote {out.relative_to(tmp)}: {out.exists()}, "
+                f"{time.perf_counter() - t0:.2f} s with the models' loading")
+            if rc != 0 or not out.exists():
+                raise AssertionError(f"the CLI's {argv[0]} wrote nothing")
+            if argv[0] == "enhance":
+                out.unlink()
+    finally:
+        if env_before is None:
+            os.environ.pop("SDTPU_DEMUCS_CKPTS", None)
+        else:
+            os.environ["SDTPU_DEMUCS_CKPTS"] = env_before
+        tmp_dir.cleanup()
+    return {"runs": runs, "ders": ders, "errs": errs, "spans": spans}
+
+
 def main() -> int:
     import torch
 
@@ -1198,6 +1529,7 @@ def main() -> int:
         res = pipe((wave, SR))
         warm = time.perf_counter() - t0
         n_launch, n_forms = dict(kernels.LAUNCHES), dict(kernels.LAUNCH_FORMS)
+        n_shapes = dict(kernels.LAUNCH_SHAPES)
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         walls, e_ms = [], []
         for _ in range(n_timed):
@@ -1241,8 +1573,8 @@ def main() -> int:
                                  f"{want} {want_forms}")
         if bar is not None and not der <= bar:
             raise AssertionError(f"DER {der:.4f} % above the bar {bar:.4f} %")
-        return {"launches": n_launch, "forms": n_forms, "ms": min(e_ms),
-                "peak_gb": peak_gb, "der": der, "wall": min(walls)}
+        return {"launches": n_launch, "forms": n_forms, "shapes": n_shapes,
+                "ms": min(e_ms), "peak_gb": peak_gb, "der": der, "wall": min(walls)}
 
     pipe, spans = timed_pipe("gtcrn")
     noisy = {key: noisy_route("4c", pipe, spans, "gtcrn", *key,
@@ -1637,6 +1969,10 @@ def main() -> int:
     seeded = seeded_encoders_phase(dev, vad, bench_cfg, der_pct, wave600,
                                    truth600, k2_w80)
 
+    # -------------------------------------------------------- phase 4l ----
+    published = published_graphs_phase(dev, enc, vad, bench_cfg, noisy_route,
+                                       noisy600, y10)
+
     # ---------------------------------------------------------- phase 5 ----
     enc32 = load_speaker_encoder(wdir / "ecapa_robust_stream.npz")
 
@@ -1755,6 +2091,12 @@ def main() -> int:
         for backend in ("zipenhancer", "demix-dialog"):
             r[f"launches_{backend.split('-')[0]}"] = (
                 enhanced[backend, "white", 10.0, 600]["launches"][r["name"]])
+        # phase 4l: the published graphs on the same file, and their 60 s
+        # routes counted by shape
+        for tag, run in published["runs"].items():
+            r[f"launches_{tag}"] = run["launches"][r["name"]]
+            r.setdefault("launch_shapes_published", {})[tag] = {
+                k: v for k, v in run["shapes"].items() if k.startswith(r["name"])}
     rows[0]["batch"]["launches"] = forms[True, 600]["fused_log_mel[B, T]"]
     rows[0]["batch_vad"]["launches"] = (
         noisy["white", 10.0, 600]["forms"]["fused_log_mel[B, T]"])
@@ -1792,7 +2134,9 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "launches_overlap_off", "launches_noisy", "launches_zipenhancer",
-            "launches_demix", "launches_options", "launches_engine", "batch",
+            "launches_demix", "launches_zipenhancer-ref_white10_600s",
+            "launches_htdemucs_white10_600s", "launch_shapes_published",
+            "launches_options", "launches_engine", "batch",
             "batch_vad", "t_80", "batch_windowed_40", "batch_windowed_80", "a32",
             "a128", "engine_chunks_60s", "engine_chunks_600s", "engine_grid",
             "bucketed")
@@ -1800,7 +2144,9 @@ def main() -> int:
         f"60 s {bucketed_wall:.4f} s, batch {({k: round(v, 3) for k, v in batch_walls.items()})} "
         f"s, diag {diag_wall:.3f} s, encoders 60 s "
         f"{({k: round(v['wall'], 4) for k, v in seeded['runs'].items()})} s, "
-        f"eres2netv2 600 s {seeded['wall600']:.4f} s; the whole run took "
+        f"eres2netv2 600 s {seeded['wall600']:.4f} s, published graphs "
+        f"{({k: round(v['wall'], 4) for k, v in published['runs'].items()})} s; "
+        f"the whole run took "
         f"{time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
                                   for r in rows]}))

@@ -73,6 +73,21 @@ line.
 path: each segment's snippet through the per-utterance encoder).  One JSON
 line.
 
+``--published``: the published enhancer graphs on seeded weights (the
+draws ``chip_smoke.py`` phase 4l writes), at the ``--noisy``
+configuration: ``EnhanceConfig(backend='zipenhancer-ref', weights=<npz of
+the seed-0 draw of seeded_state_dict>)`` on (white, 10, 60 s), and with
+``SDTPU_DEMUCS_CKPTS`` naming three full-width HTDemucs packages
+(``{kwargs, state}`` ``.th`` files of seeds 0, 1, 2) ``EnhanceConfig(
+backend='demix-dialog')`` and the default configuration (GTCRN, whose
+auto-route takes the HTDemucs demixer on a speech-shaped floor) on
+(babble, 15, 60 s).  The JAX ZipEnhancerRef gets the port's exact zeros
+in its input spectrum (ROADMAP F18: without them its first frame's phase
+is the sign of rounding noise); its DER on the spectrum as computed is
+printed beside the bar.  It runs 4 windows a batch, and the JAX demixer
+one chunk a forward (the rows are independent), to keep the CPU's memory
+small.  One JSON line.
+
 ``--batch``: ``run_batch`` at ``Diarizer()``'s defaults (AHC, 2-6 speakers
 at cos 0.70, the default encoder in float32, the energy VAD) with each
 engine on a directory of two 60 s draws (``make_conversation(
@@ -83,6 +98,7 @@ lines and DER per file.  One JSON line, also written to
     JAX_PLATFORMS=cpu python scripts/torch_port_der_bar.py [--overlap off|on|both]
     JAX_PLATFORMS=cpu python scripts/torch_port_der_bar.py --noisy [--seconds 60]
     JAX_PLATFORMS=cpu python scripts/torch_port_der_bar.py --noisy --enhance zipenhancer
+    JAX_PLATFORMS=cpu python scripts/torch_port_der_bar.py --published
     JAX_PLATFORMS=cpu python scripts/torch_port_der_bar.py --encoders
     JAX_PLATFORMS=cpu python scripts/torch_port_der_bar.py --heldout [--cli]
     JAX_PLATFORMS=cpu python scripts/torch_port_der_bar.py --corpus
@@ -127,6 +143,8 @@ def main() -> None:
                     help="the bench configuration with bucketed embeddings")
     ap.add_argument("--batch", action="store_true",
                     help="run_batch at Diarizer()'s defaults, both engines")
+    ap.add_argument("--published", action="store_true",
+                    help="the published enhancer graphs on seeded weights")
     args = ap.parse_args()
 
     import jax
@@ -158,6 +176,8 @@ def main() -> None:
         return bucketed_bar((enc, enc_p), jax.jit(partial(vad.probs, vad_p)))
     if args.batch:
         return batch_bar()
+    if args.published:
+        return published_bar((enc, enc_p), jax.jit(partial(vad.probs, vad_p)))
     if args.noisy:
         from speech_diarization_tpu.config import EnhanceConfig
         from speech_diarization_tpu.pipelines.enhance import make_enhance_fn
@@ -303,6 +323,109 @@ def seeded_encoders() -> dict:
         "ecapa_speechbrain": (ecapa, load_ecapa_speechbrain(
             seeded_state_dict(ecapa_torch_manifest(ecapa.net), 0), ecapa.net)),
     }
+
+
+def exact_spectrum(y, n_fft, hop, window=None):
+    """The JAX STFT with the port's exact zeros (``models/zipenhancer_ref.
+    exact_zero_imag``): +0 imaginary parts on the DC and Nyquist bins and
+    on the first frame."""
+    import jax.numpy as jnp
+
+    from speech_diarization_tpu.dsp.stft import stft_ri
+
+    spec = stft_ri(y, n_fft, hop, window=window)
+    keep = np.ones(spec.shape[-3:-1], bool)
+    keep[0] = keep[-1] = False
+    keep[:, 0] = False
+    return spec.at[..., 1].set(jnp.where(jnp.asarray(keep), spec[..., 1], 0.0))
+
+
+def write_seeded_published(tmp: Path) -> tuple[Path, list[Path]]:
+    """The seeded draws of the published graphs: ZipEnhancerRef's (seed 0)
+    as an ``.npz`` and three HTDemucs packages (seeds 0, 1, 2) as ``.th``."""
+    import torch
+
+    from speech_diarization_tpu_torch.models.demucs_ref import HTDemucsRef
+    from speech_diarization_tpu_torch.models.registry import seeded_state_dict
+    from speech_diarization_tpu_torch.models.zipenhancer_ref import ZipEnhancerRef
+
+    zip_npz = tmp / "zipenhancer_ref_seed0.npz"
+    np.savez(zip_npz, **seeded_state_dict(ZipEnhancerRef().manifest(), 0))
+    ths = []
+    man = HTDemucsRef().manifest()
+    for seed in range(3):
+        ths.append(tmp / f"htdemucs_seed{seed}.th")
+        torch.save({"kwargs": {"sources": ["music", "effect", "dialog"]},
+                    "state": {k: torch.from_numpy(v) for k, v in
+                              seeded_state_dict(man, seed).items()}}, ths[-1])
+    return zip_npz, ths
+
+
+def published_bar(encoder, vad_fn) -> None:
+    import os
+    import tempfile
+
+    import jax
+    import jax.numpy as jnp
+
+    import speech_diarization_tpu.models.zipenhancer_ref as jzr
+    import speech_diarization_tpu.pipelines.demix as jdemix
+    from speech_diarization_tpu.config import (
+        ClusterConfig, DiarizationConfig, EmbedConfig, EnhanceConfig,
+    )
+    from speech_diarization_tpu.pipelines.diarize import DiarizationPipeline
+    from speech_diarization_tpu.pipelines.enhance import make_enhance_fn
+    from speech_diarization_tpu.train.heldout import make_conversation_heldout
+
+    init = jdemix.EnsembleDemixer.__init__
+
+    def one_chunk_a_forward(self, *a, **kw):
+        init(self, *a, **kw)
+        fwd = self._fwd
+        self._fwd = lambda p, x: jnp.concatenate(
+            [fwd(p, x[i:i + 1]) for i in range(x.shape[0])])
+
+    jdemix.EnsembleDemixer.__init__ = one_chunk_a_forward
+    computed = jzr.stft_ri
+    out = {"device": jax.devices()[0].platform, "published": True}
+    with tempfile.TemporaryDirectory() as tmp:
+        zip_npz, ths = write_seeded_published(Path(tmp))
+        runs = [("zipenhancer-ref", "white", 10.0, True),
+                ("zipenhancer-ref_computed_spectrum", "white", 10.0, False),
+                ("demix-dialog", "babble", 15.0, True),
+                ("auto", "babble", 15.0, True)]
+        for tag, kind, snr, exact in runs:
+            backend = tag.split("_")[0]
+            jzr.stft_ri = exact_spectrum if exact else computed
+            cfg = DiarizationConfig(
+                cluster=ClusterConfig(method="spectral", max_speakers=8),
+                embed=EmbedConfig(grid_backend="auto"),
+                enhance=EnhanceConfig(
+                    backend="gtcrn" if backend == "auto" else backend, batch_size=4,
+                    weights=str(zip_npz) if backend == "zipenhancer-ref" else None))
+            enhance_fn = None
+            if backend == "auto":
+                enhance_fn = make_enhance_fn("gtcrn", chunk_s=cfg.enhance.chunk_s,
+                                             overlap_s=cfg.enhance.overlap_s,
+                                             batch_chunks=1)
+            if backend != "zipenhancer-ref":
+                os.environ["SDTPU_DEMUCS_CKPTS"] = ":".join(map(str, ths))
+            try:
+                pipe = DiarizationPipeline(cfg, encoder=encoder, vad_probs_fn=vad_fn,
+                                           enhance_fn=enhance_fn)
+                wave, truth = make_conversation_heldout(
+                    np.random.default_rng(0), 60.0, n_speakers=3, sr=16000,
+                    snr_db=snr, noise_kind=kind)
+                t0 = time.perf_counter()
+                res = pipe((wave, 16000))
+            finally:
+                os.environ.pop("SDTPU_DEMUCS_CKPTS", None)
+            key = f"{tag}_{kind}{int(snr)}_60s"
+            out[f"der_pct_{key}"] = round(100.0 * _der(truth, res.segments).der, 4)
+            out[f"speakers_{key}"] = res.num_speakers
+            out[f"segments_{key}"] = len(res.segments)
+            out[f"wall_s_{key}"] = round(time.perf_counter() - t0, 2)
+            print(json.dumps(out), flush=True)
 
 
 def heldout_bar(w, cli: bool) -> None:

@@ -3,7 +3,7 @@
     python -m speech_diarization_tpu_torch.cli diarize x.wav [--cpu]
     python -m speech_diarization_tpu_torch.cli batch <root> [--engine flagship|segmentation]
     python -m speech_diarization_tpu_torch.cli diag x.wav [--out-dir out]
-    python -m speech_diarization_tpu_torch.cli enhance <root> [--backend gtcrn|zipenhancer]
+    python -m speech_diarization_tpu_torch.cli enhance <root> [--backend gtcrn|zipenhancer|zipenhancer-ref]
     python -m speech_diarization_tpu_torch.cli demix <root> [--output out]
 
 Runs on the card unless ``--cpu`` is given.  ``diarize`` runs at the
@@ -249,17 +249,28 @@ def cmd_diag(args) -> int:
 
 
 def cmd_enhance(args) -> int:
+    """``--weights``: an ``.npz`` for every backend; the GTCRN DNS3 ``.tar``
+    with ``--backend gtcrn``; a ModelScope state_dict with ``--backend
+    zipenhancer-ref``.  Torch checkpoints are ported to a flat mapping of
+    arrays, which the enhancer loads as it loads an ``.npz``'s."""
     from .pipelines.enhance import enhance_batch
 
-    if args.backend == "zipenhancer-ref" or (
-            args.weights and not str(args.weights).endswith(".npz")):
-        raise NotImplementedError(
-            "the published ZipEnhancer graph (zipenhancer-ref) and torch "
-            "checkpoints (.tar, ModelScope) are not ported yet (ROADMAP "
-            "Queue 1 item 5: models/zipenhancer_ref.py + "
-            "models/port_zipenhancer.py); use .npz weights with gtcrn or "
-            "zipenhancer")
-    written = enhance_batch(args.root, backend=args.backend, weights=args.weights,
+    weights = args.weights
+    if weights and not str(weights).endswith(".npz"):
+        if args.backend == "gtcrn":
+            from .models.port import load_gtcrn_checkpoint
+
+            weights = load_gtcrn_checkpoint(weights).state_dict()
+        elif args.backend == "zipenhancer-ref":
+            from .models.port_zipenhancer import load_zipenhancer_modelscope
+
+            weights = load_zipenhancer_modelscope(weights).state_dict()
+        else:
+            raise SystemExit(
+                f"--weights {args.weights}: torch checkpoints are supported "
+                "for --backend gtcrn (.tar) and zipenhancer-ref (ModelScope "
+                "bin); use .npz for the trainable backends")
+    written = enhance_batch(args.root, backend=args.backend, weights=weights,
                             device="cpu" if args.cpu else None)
     print(f"enhanced {len(written)} files")
     return 0
@@ -305,9 +316,12 @@ def main(argv: list[str] | None = None) -> int:
     p.add_argument("root")
     p.add_argument("--backend", default="gtcrn",
                    choices=["gtcrn", "zipenhancer", "zipenhancer-ref"],
-                   help="zipenhancer-ref (the published graph) is not ported "
-                        "and raises")
-    p.add_argument("--weights", default=None, help=".npz checkpoint override")
+                   help="zipenhancer-ref = the published ZipEnhancer graph "
+                        "(loads the ModelScope bundle's state_dict)")
+    p.add_argument("--weights", default=None,
+                   help=".npz checkpoint override; a GTCRN DNS3 .tar with "
+                        "gtcrn, a ModelScope pytorch_model.bin with "
+                        "zipenhancer-ref")
     p.add_argument("--cpu", action="store_true",
                    help="run on the CPU instead of the card")
     p.add_argument("--verbose", "-v", action="store_true")

@@ -8,6 +8,8 @@ from .campp import CamPlusPlus, CamPlusPlusModel
 from .gtcrn import GTCRN
 from .zipenhancer import ZipEnhancerModel
 from .demix import DialogDemixer
+from .demucs_ref import HTDemucsRef
+from .zipenhancer_ref import ZipEnhancerRef
 from .registry import make_encoder, make_encoder_model, BACKENDS
 
 __all__ = [
@@ -23,6 +25,8 @@ __all__ = [
     "GTCRN",
     "ZipEnhancerModel",
     "DialogDemixer",
+    "HTDemucsRef",
+    "ZipEnhancerRef",
     "make_encoder",
     "make_encoder_model",
     "BACKENDS",

@@ -5,7 +5,9 @@ floats possibly stored as float16, architecture in the ``__meta__`` JSON
 sidecar).  :func:`params_from_numpy` also takes a JAX params pytree
 flattened to numpy the same way, so any JAX-initialised net can be carried
 across.  Float16 arrays are upcast to float32; the compute dtype is a
-property of the net, not of the stored weights.
+property of the net, not of the stored weights.  Torch checkpoint files (a
+3D-Speaker export, the GTCRN DNS3 tar, a ModelScope bundle, a demucs
+package) are read by :func:`read_torch_file` with ``weights_only=True``.
 """
 from __future__ import annotations
 
@@ -171,11 +173,35 @@ def load_demixer(path: str | Path) -> DialogDemixer:
     return _load_flat(DialogDemixer(**load_params_meta(path).get("net", {})), path)
 
 
+def read_torch_file(path: str | Path):
+    """A torch checkpoint file, read with ``weights_only=True``: tensors,
+    containers and plain values only, never arbitrary pickled objects.  A
+    file that pickles a class (a release demucs ``.th`` stores
+    ``demucs.htdemucs.HTDemucs`` under ``klass``) needs that class's package
+    to unpickle, in this package as in the JAX one; when the package is not
+    installed the refusal is a ``ModuleNotFoundError`` that names it
+    (ROADMAP F17)."""
+    import importlib.util
+    import pickle
+
+    try:
+        return torch.load(str(path), map_location="cpu", weights_only=True)
+    except pickle.UnpicklingError as e:
+        m = re.search(r"GLOBAL ([\w.]+)", str(e))
+        top = m[1].split(".")[0] if m else None
+        if top is None or importlib.util.find_spec(top) is not None:
+            raise
+        raise ModuleNotFoundError(
+            f"{path}: the checkpoint pickles {m[1]}, and reading it needs the "
+            f"{top!r} package, which is not installed (as in the JAX package); "
+            "a checkpoint of tensors and plain values (for demucs: "
+            "{'kwargs': ..., 'state': ...}) reads without it", name=top) from e
+
+
 def torch_checkpoint(path: str | Path) -> dict:
-    """A torch checkpoint file's state_dict: a bare one, or the one under
-    ``state_dict``.  Read with ``weights_only=True``: tensors, containers
-    and plain values only, never arbitrary pickled objects."""
-    ckpt = torch.load(str(path), map_location="cpu", weights_only=True)
+    """A torch checkpoint file's state_dict (:func:`read_torch_file`): a
+    bare one, or the one under ``state_dict``."""
+    ckpt = read_torch_file(path)
     if isinstance(ckpt, dict) and "state_dict" in ckpt:
         return ckpt["state_dict"]
     return ckpt
@@ -192,6 +218,19 @@ def float32_arrays(src) -> dict[str, np.ndarray]:
             v = v.detach().cpu().numpy()
         out[k] = np.array(v, dtype=np.float32)
     return out
+
+
+#: the JAX package's name for a torch state_dict carried across as a flat
+#: dict of float32 arrays
+port_torch_state_dict = float32_arrays
+
+
+def load_gtcrn_checkpoint(path: str | Path) -> GTCRN:
+    """The GTCRN DNS3 checkpoint (a torch tar with a ``model`` entry, or a
+    bare state_dict) as a loaded :class:`GTCRN`."""
+    ckpt = read_torch_file(path)
+    sd = ckpt.get("model", ckpt) if isinstance(ckpt, dict) else ckpt
+    return _load_flat(GTCRN(), port_torch_state_dict(sd))
 
 
 def check_schema(sd: dict, manifest: dict[str, tuple[int, ...]]) -> None:

@@ -65,7 +65,15 @@ def seeded_state_dict(manifest: dict[str, tuple[int, ...]],
     statistics do not normalize the activations, and with He-normal
     weights ERes2NetV2's eval-mode residual stacks grow by orders of
     magnitude, until its AFF gates turn float32 rounding into a different
-    embedding and two summation orders disagree."""
+    embedding and two summation orders disagree.
+
+    The published enhancer graphs' leaves start near their JAX ``init``
+    values: a one-dimensional ``weight`` outside a BatchNorm with a
+    ``bias`` sibling (instance, group and layer norms) U(0.8, 1.2), without
+    one (PReLU) U(0.2, 0.3); Zipformer ``bypass_scale`` U(0.4, 0.6),
+    LayerScale ``scale`` U(5e-4, 1.5e-3), the learnable sigmoid's
+    ``slope`` U(0.8, 1.2).  The speaker encoders' manifests have none of
+    these leaves, so their draws are unchanged."""
     rng = np.random.default_rng(seed)
     bn = {k.rsplit(".", 1)[0] for k in manifest if k.endswith("running_mean")}
     out = {}
@@ -77,6 +85,15 @@ def seeded_state_dict(manifest: dict[str, tuple[int, ...]],
         elif leaf == "running_var":
             a = rng.uniform(0.5, 1.5, shape)
         elif prefix in bn and leaf == "weight":
+            a = rng.uniform(0.8, 1.2, shape)
+        elif leaf == "weight" and len(shape) == 1:
+            a = (rng.uniform(0.8, 1.2, shape) if f"{prefix}.bias" in manifest
+                 else rng.uniform(0.2, 0.3, shape))
+        elif leaf == "bypass_scale":
+            a = rng.uniform(0.4, 0.6, shape)
+        elif leaf == "scale":
+            a = rng.uniform(5e-4, 1.5e-3, shape)
+        elif leaf == "slope":
             a = rng.uniform(0.8, 1.2, shape)
         elif len(shape) >= 2:
             a = rng.normal(0.0, (1.0 / np.prod(shape[1:])) ** 0.5, shape)

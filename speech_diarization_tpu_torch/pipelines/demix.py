@@ -6,9 +6,10 @@ batch walk that writes ``<out>/<stem>/<file>.wav`` trees.
 
 The chunks, the separator and the overlap-add of all six stem channels run
 on the nets' device; the waveform is copied there once and the stems (or
-the one stem a caller needs) back once.  Ported HTDemucs ``.th`` checkpoints (``SDTPU_DEMUCS_CKPTS`` or
-``weights/*.th``), which the JAX package prefers when present, are not
-ported yet and raise.
+the one stem a caller needs) back once.  The separator is an ensemble of
+HTDemucs ``.th`` checkpoints (``SDTPU_DEMUCS_CKPTS``, ``:``-separated, or
+``weights/*.th``) when any exists, as in the JAX package, else the shipped
+U-Net.
 """
 from __future__ import annotations
 
@@ -24,17 +25,13 @@ from ..dsp.ola import ola_normalization, overlap_add
 from ..dsp.stft import hann_window
 from ..io.audio import read_audio, write_wav
 from ..io.walk import expand_audios
-from ..models.demix import STEMS, DialogDemixer
-from ..utils.device import resolve_device
+from ..models.demix import STEMS
+from ..utils.device import disable_tf32, resolve_device
 from ..utils.logging import get_logger
 
 log = get_logger("demix")
 
 DEMIX_SR = 44100
-
-_HTDEMUCS_UNPORTED = ("demix: HTDemucs .th checkpoints are not ported yet "
-                      "(ROADMAP Queue 1 item 5: models/demucs_ref.py + "
-                      "models/port_demucs.py)")
 
 
 def demucs_style_read(source, target_sr: int = DEMIX_SR) -> tuple[np.ndarray, int]:
@@ -53,15 +50,21 @@ class EnsembleDemixer:
     """Mean-of-ensemble separator over overlapped chunks.
 
     ``nets``: separators of one geometry (the ensemble); default: the
-    shipped ``demix_mc.npz``, else ``demix_synthetic.npz`` (an ensemble of
-    one).  ``device``: ``None`` is the card (raises without CUDA)."""
+    HTDemucs checkpoints that exist among ``SDTPU_DEMUCS_CKPTS`` (else
+    ``weights/*.th``), each through ``models/port_demucs.load_htdemucs``;
+    with none, the shipped ``demix_mc.npz``, else ``demix_synthetic.npz``
+    (an ensemble of one).  A named checkpoint that does not exist is dropped
+    (ROADMAP F9).  ``device``: ``None`` is the card (raises without
+    CUDA)."""
 
     CHUNK_BATCH = 40      # chunks a forward: bounds the memory of long files
 
-    def __init__(self, nets: Sequence[DialogDemixer] | None = None,
+    def __init__(self, nets: Sequence[torch.nn.Module] | None = None,
                  chunk_s: float = 10.0, overlap: float = 0.25, shifts: int = 1,
                  max_shift_s: float = 0.5, device=None):
         self.device = resolve_device(device)
+        if self.device.type == "cuda":
+            disable_tf32()
         if nets is None:
             from ..models.port import load_demixer
             from ..utils import weights
@@ -69,8 +72,17 @@ class EnsembleDemixer:
             env = os.environ.get("SDTPU_DEMUCS_CKPTS", "")
             ckpts = ([Path(p) for p in env.split(":") if p]
                      or sorted(weights.WEIGHTS_ROOT.glob("*.th")))
-            if any(c.exists() for c in ckpts):
-                raise NotImplementedError(_HTDEMUCS_UNPORTED)
+            ckpts = [c for c in ckpts if c.exists()]
+            if ckpts:
+                from ..models.port_demucs import load_htdemucs
+
+                nets = [load_htdemucs(c) for c in ckpts]
+                if any(n.manifest() != nets[0].manifest() for n in nets[1:]):
+                    raise ValueError(
+                        "demucs ensemble checkpoints disagree on architecture")
+                log.info("demix: HTDemucs ensemble of %d ported checkpoints",
+                         len(nets))
+        if nets is None:
             default = weights.prefer_weights(("demix_mc.npz", "demix_synthetic.npz"))
             if default is None:
                 raise FileNotFoundError("demix: no weights given and none ship")

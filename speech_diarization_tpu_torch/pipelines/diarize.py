@@ -34,9 +34,10 @@ source (:meth:`DiarizationPipeline.prefetch`) and ``collect_diagnostics``.
 
 The counterpart of the JAX package's ``pipelines/diarize.py`` (``__call__``
 -> ``_streamed_start`` / ``_legacy_call`` -> ``_segments_from_grid``, and
-the functional :func:`diarize`).  Not ported, and refused with
-``NotImplementedError`` rather than dropped: the published ZipEnhancer graph
-and HTDemucs checkpoints (ROADMAP Queue 1 item 5).
+the functional :func:`diarize`).  The enhancer may be any backend of
+``pipelines/enhance.py``, the published ZipEnhancer graph
+(``zipenhancer-ref``) included; the auto-route's demixer is the HTDemucs
+ensemble of ``.th`` checkpoints when any is present.
 """
 from __future__ import annotations
 
@@ -613,8 +614,9 @@ class DiarizationPipeline:
         """The auto-route's separation front-end for a speech-shaped noise
         floor, built once per pipeline: ``[T]`` tensor -> the dialog stem
         rescaled to the input's RMS (over the whole padded vector).  It
-        needs a separation-grade demixer: ported ``.th`` checkpoints (not
-        ported yet: building raises) or ``demix_mc.npz``; the shipped
+        needs a separation-grade demixer: an HTDemucs ensemble of ``.th``
+        checkpoints (``SDTPU_DEMUCS_CKPTS`` or ``weights/*.th``, which
+        ``EnsembleDemixer`` prefers) or ``demix_mc.npz``; the shipped
         ``demix_synthetic.npz`` does not separate and is excluded.  With
         none, None and a warning: the route keeps the denoiser, as in the
         JAX package."""

@@ -11,12 +11,17 @@ net's device: the JAX package's ``pipelines/enhance.py``.
   stereo on the host -> :class:`~.demix.EnsembleDemixer` on the device ->
   the dialog stem -> 16 kHz on the host.
 
+* ``zipenhancer-ref``: the published ZipEnhancer graph
+  (:class:`~..models.zipenhancer_ref.ZipEnhancerRef`, the architecture of the
+  ModelScope bundle) through :func:`windowed_enhance`, as ``zipenhancer``.
+
 The JAX package pads each last batch of chunks or windows with zero rows to
 a fixed shape; the rows are independent in eval mode, so only the real ones
-run here.  The published ZipEnhancer graph (``zipenhancer-ref``) is not
-ported yet and raises.
+run here.
 """
 from __future__ import annotations
+
+from collections.abc import Mapping
 
 import numpy as np
 import torch
@@ -26,15 +31,10 @@ from ..dsp.framing import num_frames
 from ..dsp.ola import ola_normalization, overlap_add
 from ..dsp.stft import hann_window, istft_ri, sqrt_hann_window, stft_ri
 from ..models.gtcrn import GTCRN
-from ..utils.device import resolve_device
+from ..utils.device import disable_tf32, resolve_device
 from ..utils.logging import get_logger
 
 log = get_logger("enhance")
-
-_REF_UNPORTED = ("the published ZipEnhancer graph (zipenhancer-ref) is not "
-                 "ported yet (ROADMAP Queue 1 item 5: "
-                 "models/zipenhancer_ref.py + models/port_zipenhancer.py)")
-
 
 class GtcrnEnhancer:
     """GTCRN wav -> wav enhancement at 16 kHz with long-audio chunked OLA.
@@ -138,6 +138,10 @@ def default_weights_path(backend: str):
 
 
 def _checkpoint(backend: str, weights):
+    """``weights`` (a mapping of arrays as it is, or a path), else the
+    shipped checkpoint of ``backend``."""
+    if isinstance(weights, Mapping):
+        return weights
     path = weights if weights is not None else default_weights_path(backend)
     if path is None:
         raise FileNotFoundError(f"{backend}: no weights given and none ship")
@@ -145,25 +149,46 @@ def _checkpoint(backend: str, weights):
     return path
 
 
+def _zipenhancer_ref(weights):
+    """:class:`ZipEnhancerRef` at its published defaults with ``weights``
+    (an ``.npz`` path or a flat mapping of arrays keyed by its state_dict
+    names), or random weights with the JAX package's warning.  The random
+    draw comes from a ``torch.Generator`` seeded 0 and cannot equal the
+    JAX package's ``jax.random`` draw."""
+    from ..models.port import _load_flat
+    from ..models.registry import seeded_init
+    from ..models.zipenhancer_ref import ZipEnhancerRef
+
+    if weights is not None:
+        return _load_flat(ZipEnhancerRef(), _checkpoint("zipenhancer-ref", weights))
+    log.warning("zipenhancer-ref: no checkpoint given — RANDOM weights; "
+                "'enhanced' audio will be garbage. Port the ModelScope "
+                "artifact via models/port_zipenhancer.load_zipenhancer_modelscope.")
+    return seeded_init(ZipEnhancerRef(), 0)
+
+
 def make_enhance_fn(backend: str, weights=None, device=None, **kwargs):
     """The pipeline's enhancer: ``[T]`` float32 tensor -> ``[T]`` tensor on
     ``device`` (``None``: the card; raises without CUDA).  ``weights``: a
-    checkpoint path overriding the shipped one.  ``kwargs`` go to the
-    backend: ``chunk_s`` / ``overlap_s`` (gtcrn), ``window_s`` /
-    ``hop_ratio`` / ``batch_size`` (zipenhancer), and the
-    :class:`~.demix.EnsembleDemixer` options (demix-dialog)."""
-    if backend == "zipenhancer-ref":
-        raise NotImplementedError(_REF_UNPORTED)
-    if backend not in ("gtcrn", "zipenhancer", "demix-dialog"):
+    checkpoint path overriding the shipped one, or (gtcrn, zipenhancer,
+    zipenhancer-ref) a flat mapping of arrays keyed by the net's state_dict
+    names, as the CLI passes a ported torch checkpoint (the JAX package's
+    ``params``).  ``kwargs`` go to the backend: ``chunk_s`` / ``overlap_s``
+    (gtcrn), ``window_s`` / ``hop_ratio`` / ``batch_size`` (zipenhancer,
+    zipenhancer-ref), and the :class:`~.demix.EnsembleDemixer` options
+    (demix-dialog)."""
+    if backend not in ("gtcrn", "zipenhancer", "zipenhancer-ref", "demix-dialog"):
         raise ValueError(f"unknown enhancement backend: {backend}")
     dev = resolve_device(device)
+    if dev.type == "cuda":
+        disable_tf32()
     from ..models.port import load_demixer, load_gtcrn, load_zipenhancer
 
     if backend == "gtcrn":
-        return GtcrnEnhancer(load_gtcrn(_checkpoint(backend, weights)).to(dev),
-                             **kwargs)
-    if backend == "zipenhancer":
-        net = load_zipenhancer(_checkpoint(backend, weights)).to(dev)
+        return GtcrnEnhancer(load_gtcrn(_checkpoint(backend, weights)).to(dev), **kwargs)
+    if backend in ("zipenhancer", "zipenhancer-ref"):
+        net = (load_zipenhancer(_checkpoint(backend, weights)) if backend == "zipenhancer"
+               else _zipenhancer_ref(weights)).to(dev)
 
         def zip_fn(y: torch.Tensor) -> torch.Tensor:
             with torch.inference_mode():

@@ -164,11 +164,29 @@ def test_separate_matches(ensembles, case):
 
 
 def test_an_htdemucs_checkpoint_is_refused(tmp_path, monkeypatch):
+    """A release ``.th`` pickles the ``demucs.htdemucs.HTDemucs`` class:
+    without the ``demucs`` package neither ensemble can read it, and both
+    name the package (ROADMAP F17).  Readable packages load
+    (``tests/test_torch_htdemucs.py``)."""
+    import sys
+    import types
+
     ckpt = tmp_path / "htdemucs.th"
-    ckpt.write_bytes(b"")
+    mods = {n: types.ModuleType(n) for n in ("demucs", "demucs.htdemucs")}
+    klass = type("HTDemucs", (), {"__module__": "demucs.htdemucs"})
+    mods["demucs.htdemucs"].HTDemucs = klass
+    sys.modules.update(mods)
+    try:
+        torch.save({"klass": klass, "args": (), "kwargs": {}, "state": {}}, ckpt)
+    finally:
+        for n in mods:
+            sys.modules.pop(n)
     monkeypatch.setenv("SDTPU_DEMUCS_CKPTS", str(ckpt))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 5"):
+    with pytest.raises(ModuleNotFoundError) as err:
         EnsembleDemixer(device="cpu")
+    with pytest.raises(ModuleNotFoundError) as jerr:
+        JEnsemble()
+    assert err.value.name == jerr.value.name == "demucs"
 
 
 def test_a_missing_checkpoint_falls_back_to_the_shipped_npz(tmp_path, monkeypatch):

@@ -162,14 +162,11 @@ def test_make_enhance_fn_gtcrn_is_the_shipped_net(noisy, net):
 @pytest.mark.parametrize("backend", ["zipenhancer", "zipenhancer-ref",
                                      "demix-dialog"])
 def test_unported_backends_raise(backend):
-    """Only the published ZipEnhancer graph is still unported.  The
-    shipped-weight ZipEnhancer and demix backends build and keep a
-    waveform's length (their parity with the JAX package:
-    test_torch_zipenhancer.py, test_torch_demix.py)."""
-    if backend == "zipenhancer-ref":
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-            make_enhance_fn(backend, device="cpu")
-        return
+    """No backend is unported now: the shipped-weight ZipEnhancer and demix
+    backends and the published ZipEnhancer graph (random weights, with a
+    warning) build and keep a waveform's length (their parity with the JAX
+    package: test_torch_zipenhancer.py, test_torch_demix.py,
+    test_torch_zipenhancer_ref.py)."""
     y = torch.from_numpy(_wave(SR + 123, 6))
     out = make_enhance_fn(backend, device="cpu")(y)
     assert out.shape == y.shape and torch.isfinite(out).all()

@@ -479,13 +479,26 @@ def test_a_geometry_that_cannot_stream_takes_the_whole_file_path(models, pipes):
 
 def test_a_separation_grade_demixer_is_refused(models, runs, monkeypatch,
                                                tmp_path):
-    """With an HTDemucs checkpoint present the babble route would demix
-    through it, which is not ported yet: the port raises instead of
-    denoising."""
+    """With an HTDemucs checkpoint present the babble route demixes through
+    it.  A release ``.th`` pickles the ``demucs`` class, which neither
+    package can read without ``demucs`` (ROADMAP F17): the port raises,
+    naming the package, instead of denoising.  Readable packages run the
+    route (test_torch_htdemucs.py)."""
+    import sys
+    import types
+
     ckpt = tmp_path / "htdemucs.th"
-    ckpt.write_bytes(b"")
+    mods = {n: types.ModuleType(n) for n in ("demucs", "demucs.htdemucs")}
+    klass = type("HTDemucs", (), {"__module__": "demucs.htdemucs"})
+    mods["demucs.htdemucs"].HTDemucs = klass
+    sys.modules.update(mods)
+    try:
+        torch.save({"klass": klass, "kwargs": {}, "state": {}}, ckpt)
+    finally:
+        for n in mods:
+            sys.modules.pop(n)
     monkeypatch.setenv("SDTPU_DEMUCS_CKPTS", str(ckpt))
     pipe = DiarizationPipeline(port.DiarizationConfig(), encoder=models["enc"],
                                vad=models["vad"], device="cpu")
-    with pytest.raises(NotImplementedError, match="demix"):
+    with pytest.raises(ModuleNotFoundError, match="demucs"):
         pipe(runs["babble15"]["w"])

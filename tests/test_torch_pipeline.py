@@ -313,16 +313,19 @@ def test_unported_stages_raise(kw, what):
 
 @pytest.mark.parametrize("backend,weights", [
     ("zipenhancer", None), ("demix-dialog", None), ("zipenhancer-ref", "x.npz")])
-def test_unported_enhancement_backends_raise(backend, weights):
-    """The published ZipEnhancer graph is not ported: a pipeline built with
-    weights for it raises.  The shipped-weight ZipEnhancer and demix
-    backends are: the pipeline builds their enhancer (their whole-file
-    runs: test_torch_enhancers.py, test_torch_demix.py)."""
+def test_unported_enhancement_backends_raise(backend, weights, tmp_path):
+    """Every enhancement backend is ported now, the published ZipEnhancer
+    graph too (built here from an ``.npz`` of its seed-0 draw): the pipeline
+    builds each enhancer, which keeps a waveform's length (the whole-file
+    runs: test_torch_enhancers.py, test_torch_demix.py,
+    test_torch_zipenhancer_ref.py)."""
+    if weights is not None:
+        from speech_diarization_tpu_torch.models import ZipEnhancerRef
+        from speech_diarization_tpu_torch.models.registry import seeded_state_dict
+
+        weights = tmp_path / weights
+        np.savez(weights, **seeded_state_dict(ZipEnhancerRef().manifest(), 0))
     cfg = _port_cfg(enhance=port.EnhanceConfig(backend=backend, weights=weights))
-    if backend == "zipenhancer-ref":
-        with pytest.raises(NotImplementedError, match=backend):
-            DiarizationPipeline(cfg, encoder=object(), vad=object(), device="cpu")
-        return
     pipe = DiarizationPipeline(
         cfg, encoder=load_speaker_encoder(WEIGHTS / "ecapa_robust_stream.npz"),
         vad=load_vad(WEIGHTS / "vad_conv_mc.npz"), device="cpu")

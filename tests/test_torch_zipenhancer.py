@@ -207,9 +207,18 @@ def test_enhance_subcommand_writes_what_the_jax_cli_writes(cli_outputs):
     assert rerun == []                  # resume: every output exists
 
 
-@pytest.mark.parametrize("argv", [["--backend", "zipenhancer-ref"],
+@pytest.mark.parametrize("argv", [["--weights", "pytorch_model.bin"],
                                   ["--weights", "model_trained_on_dns3.tar"]],
                          ids=["zipenhancer-ref", "tar-weights"])
 def test_enhance_subcommand_refuses_the_published_graphs(tmp_path, argv):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 5"):
-        main(["enhance", str(tmp_path), "--cpu", *argv])
+    """A published graph's torch checkpoint (the ModelScope bundle, the
+    GTCRN DNS3 tar) with the trainable ``--backend zipenhancer`` exits as
+    the JAX CLI does, with its message (the graphs themselves run:
+    ``tests/test_torch_zipenhancer_ref.py``, ``tests/test_torch_importers.py``)."""
+    argv = ["enhance", str(tmp_path), "--backend", "zipenhancer", *argv]
+    with pytest.raises(SystemExit) as err:
+        main([*argv, "--cpu"])
+    with pytest.raises(SystemExit) as jerr:
+        jmain(argv)
+    assert str(err.value) == str(jerr.value)
+    assert "torch checkpoints are supported for --backend gtcrn" in str(err.value)
