@@ -152,6 +152,22 @@ Phases (any failure exits nonzero and prints no result line):
      decisions, the overlap regions and the final segments are compared;
      and over a 25 s file in white noise at 10 dB (the whole-file path
      through GTCRN).
+  6. Training (``speech_diarization_tpu_torch/train``): the recipes that made
+     the shipped main-path weights, at the shipped widths, warm-started from
+     them: the conv VAD (8 x 4 s), the proto encoder (12 speakers x 4
+     utterances x 3 s, windows of 1 s at a hop of 0.5 s, the decomposed
+     head), the powerset detector (8 x 5 s), GTCRN (8 x 2 s) and
+     ``make_ecapa_train_step`` (16 x 2 s, train-mode BN).  For each: step 1
+     on the card against the CPU (loss, flattened gradient: bars
+     ``TRAIN_*``); ten steps after a warm-up with the median step time on
+     CUDA events beside its float32 bound (3 x the forward's operations),
+     peak memory, busy share, K2's launches a step by shape (one; none for
+     GTCRN; K1 never) and the loss curve; the export after 0 steps equal to
+     the shipped npz, and in the pipeline equal to the shipped file's
+     segments (60 s bench draw; GTCRN on a white10 60 s draw); a
+     checkpoint after step 5 restored gives step 6's loss and leaves
+     exactly.  K2 at
+     each training batch against its plain version and ``torch.stft``.
 Then a line with the walls of this slice's routes and of the whole run,
 one JSON line listing the kernels, the card's nvidia-smi line, and the
 result line ``{"ok": true, "device": {...}}``.
@@ -1113,6 +1129,319 @@ def published_graphs_phase(dev, enc, vad, bench_cfg, noisy_route, noisy600, y10)
             os.environ["SDTPU_DEMUCS_CKPTS"] = env_before
         tmp_dir.cleanup()
     return {"runs": runs, "ders": ders, "errs": errs, "spans": spans}
+
+
+# tolerances of a training step on the card against the CPU (step 1, same
+# parameters and batch, TF32 off): the loss's relative difference; the
+# cosine of the flattened gradients and their largest difference relative
+# to the largest gradient
+TRAIN_LOSS_REL = 1e-4
+TRAIN_GRAD_COS = 0.9999
+# 1e-3, but 1e-2 for the proto encoder: K2's 3xTF32 log-mel differs from
+# the plain float32 one within its tolerance (at this batch by 4.5e-6 rms,
+# 3.7e-4 at most), and the stem's weight gradient sums those features.  On
+# an H100, K2's features move that gradient by 5.0e-3 of the largest, and
+# Gaussian noise of 1e-5 on the plain features by 6.3e-4-5.0e-3 (16 draws;
+# scripts/torch_train_grad_noise.py)
+TRAIN_GRAD_REL = {"encoder-proto": 1e-2}
+
+
+def train_step_flops(loss_fn, batch) -> float:
+    """Operations (two per multiply-add) of one forward of a training loss,
+    counted by ``torch.utils.flop_counter`` from the products and
+    convolutions it meets."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with torch.no_grad(), FlopCounterMode(display=False) as fc:
+        loss_fn(*batch)
+    return float(fc.get_total_flops())
+
+
+def training_phase(dev, smi, bench_cfg, der_pct) -> dict:
+    """Phase 6: the training recipes that made the shipped main-path
+    weights, at the shipped widths, warm-started from those weights.  For
+    each configuration: step 1 on the card against the port's CPU path
+    (same parameters, same batch); ten steps after a warm-up (median ms a
+    step on CUDA events beside its float32 bound, peak memory allocated
+    above what was resident before the steps, K2's
+    launches a step by shape, the busy share of two profiled steps, the
+    loss curve, finite); the export after 0 steps equal to the shipped npz
+    (float16 -> float32) and, loaded into the pipeline, the shipped file's
+    segments; a checkpoint saved after step 5 and restored gives step 6's
+    loss and, after its update, leaves exactly.  K2's training geometries against its plain version and
+    ``torch.stft`` (``k2_measure``).  Returns the results by configuration
+    and the K2 rows."""
+    import dataclasses
+    import shutil
+    import tempfile
+    from functools import partial
+
+    import torch
+
+    from speech_diarization_tpu_torch.config import EnhanceConfig, OverlapConfig
+    from speech_diarization_tpu_torch.models.ecapa import EcapaTdnn
+    from speech_diarization_tpu_torch.models.port import (
+        load_params_meta, load_params_npz, load_segmentation, load_speaker_encoder,
+        load_vad,
+    )
+    from speech_diarization_tpu_torch.ops import kernels
+    from speech_diarization_tpu_torch.pipelines.diarize import DiarizationPipeline
+    from speech_diarization_tpu_torch.train import multicond as mc
+    from speech_diarization_tpu_torch.train import recipes
+    from speech_diarization_tpu_torch.train.checkpoint import (
+        export_inference_weights, restore_train_state, save_train_state,
+    )
+    from speech_diarization_tpu_torch.train.heldout import make_conversation_heldout
+    from speech_diarization_tpu_torch.train.proto import proto_job
+    from speech_diarization_tpu_torch.train.steps import (
+        apply_step, make_ecapa_train_step,
+    )
+    from speech_diarization_tpu_torch.train.synthetic import (
+        make_conversation, make_speaker_bank, make_speaker_batch,
+    )
+
+    t_phase = time.perf_counter()
+    wdir = HERE / "weights"
+    files = {"vad": "vad_conv_mc.npz", "encoder-proto": "ecapa_robust_stream.npz",
+             "segmentation": "segmentation_conv.npz", "gtcrn": "gtcrn_mc.npz",
+             "ecapa_train_step": "ecapa_robust_stream.npz"}
+    flat = {k: load_params_npz(wdir / f) for k, f in files.items()}
+    enc_meta = load_params_meta(wdir / files["encoder-proto"])
+    enc_cfg = dict(enc_meta["net"], dilations=tuple(enc_meta["net"]["dilations"]))
+    seg_meta = load_params_meta(wdir / files["segmentation"])["net"]
+    seg_kw = {k: seg_meta[k] for k in ("powerset", "channels", "hidden", "n_gru",
+                                       "n_fc", "ds", "arch", "n_xf", "n_heads")}
+
+    class StepJob:
+        """``make_ecapa_train_step`` behind the recipes' job interface."""
+
+        def __init__(self, device):
+            self.net = EcapaTdnn(**enc_cfg)
+            init_fn, self.step_fn, shard = make_ecapa_train_step(device, self.net, 64)
+            cls = np.random.default_rng(0).standard_normal(
+                (64, self.net.emb_dim)).astype(np.float32) * 0.05
+            self.state = shard(init_fn(params={**flat["ecapa_train_step"],
+                                               "classifier": cls}))
+            self.loss_fn = lambda w, l: self.step_fn.loss_fn(self.state.params, w, l)
+            self.device = torch.device(device)
+
+        def batch_tensors(self, batch):
+            return tuple(torch.as_tensor(b).to(self.device) for b in batch)
+
+    bank = make_speaker_bank(np.random.default_rng(8), 64)
+    # each configuration: (recipe and batch, job builder by device and pool
+    # size, meta the export writes, extra leaves the export drops)
+    configs = {
+        "vad": lambda d, small=False: recipes.vad_job(
+            batch=8, dur_s=4.0, lr=1e-3, seed=7, arch="conv",
+            example_fn=partial(mc.make_vad_example_mc,
+                               channels=mc.ChannelBank(np.random.default_rng(8))),
+            init_params=flat["vad"], device=d),
+        "encoder-proto": lambda d, small=False: proto_job(
+            spk_per_batch=12, utt_per_spk=4, lr=3e-4, seed=7,
+            net=EcapaTdnn(**enc_cfg), init_params=flat["encoder-proto"],
+            pool_speakers=4 if small else 24, pool_utts=1 if small else 4,
+            channel_kwargs={"snr_db": (8.0, 30.0)}, device=d),
+        "segmentation": lambda d, small=False: recipes.segmentation_job(
+            steps=1500, batch=8, lr=2e-3, seed=7, init_params=flat["segmentation"],
+            example_fn=partial(mc.make_segmentation_example_mc,
+                               channels=mc.ChannelBank(np.random.default_rng(8))),
+            overlap_weight=2.0, device=d, **seg_kw),
+        "gtcrn": lambda d, small=False: recipes.gtcrn_job(
+            batch=8, dur_s=2.0, lr=5e-4, seed=7, init_params=flat["gtcrn"],
+            batch_fn=partial(mc.make_noisy_clean_batch_mc,
+                             channels=mc.ChannelBank(np.random.default_rng(8))),
+            device=d),
+        "ecapa_train_step": lambda d, small=False: StepJob(d),
+    }
+    k2_shape = {"vad": (8, 64000), "encoder-proto": (48, 48000),
+                "segmentation": (8, 80000), "ecapa_train_step": (16, 32000)}
+    out, k2_rows, failed = {}, {}, []
+    tmp = Path(tempfile.mkdtemp(prefix="sdtpu_train_"))
+    try:
+        for name, build in configs.items():
+            t_cfg = time.perf_counter()
+            job = build(dev)
+            if name == "ecapa_train_step":
+                g = np.random.default_rng(9)
+                draw = lambda: make_speaker_batch(g, bank, 16, dur_s=2.0)  # noqa: E731
+            else:
+                draw = job.next_batch
+            # step 1's batch, then five more, each taken twice by the ten steps
+            batches = [draw() for _ in range(6)]
+            host_s = time.perf_counter() - t_cfg
+            # (3) export identity after 0 steps
+            ref = load_params_npz(wdir / files[name])
+            path = tmp / f"{name}.npz"
+            export_inference_weights(path, job.net, getattr(job, "meta", None))
+            got = load_params_npz(path)
+            got.pop("classifier", None)
+            same = set(got) == set(ref) and all(
+                np.array_equal(got[k], ref[k]) for k in ref)
+            if not same:
+                failed.append(f"{name}: the export after 0 steps differs from "
+                              f"{files[name]}")
+            # (1) step 1 on the card against the CPU
+            grads = {}
+            for where, j in (("cuda", job), ("cpu", build("cpu", small=True))):
+                loss = j.loss_fn(*j.batch_tensors(batches[0]))
+                loss.backward()
+                vec = torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p))
+                                 .detach().float().reshape(-1).cpu()
+                                 for p in j.state.params.values()])
+                grads[where] = (loss.item(), vec.double())
+                j.state.optimizer.zero_grad(set_to_none=True)
+            (l_c, g_c), (l_p, g_p) = grads["cuda"], grads["cpu"]
+            loss_rel = abs(l_c - l_p) / max(abs(l_p), 1e-12)
+            cos = float((g_c @ g_p) / (g_c.norm() * g_p.norm()))
+            grad_rel = float((g_c - g_p).abs().max() / g_p.abs().max())
+            log(f"[6] {name}: step 1 card vs CPU: loss {l_c:.6f} vs {l_p:.6f} (rel "
+                f"{loss_rel:.2e}, bar {TRAIN_LOSS_REL:g}), gradient cos {cos:.8f} "
+                f"(bar {TRAIN_GRAD_COS}), max diff {grad_rel:.2e} of the largest "
+                f"(bar {TRAIN_GRAD_REL.get(name, 1e-3):g}), {g_c.numel()} values; {smi}")
+            if not (loss_rel <= TRAIN_LOSS_REL and cos >= TRAIN_GRAD_COS
+                    and grad_rel <= TRAIN_GRAD_REL.get(name, 1e-3)):
+                failed.append(f"{name}: the card's step disagrees with the CPU")
+            # (2) ten steps after a warm-up, the checkpoint after step 5
+            tensors = [job.batch_tensors(b) for b in batches]
+            tensors += tensors[1:]
+            flops = train_step_flops(job.loss_fn, tensors[0])
+            losses = [apply_step(job.state, job.loss_fn, *tensors[0])]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            kernels.reset_launches()
+            ev = [(torch.cuda.Event(enable_timing=True),
+                   torch.cuda.Event(enable_timing=True)) for _ in range(10)]
+            for i in range(1, 11):
+                ev[i - 1][0].record()
+                losses.append(apply_step(job.state, job.loss_fn, *tensors[i]))
+                ev[i - 1][1].record()
+            torch.cuda.synchronize()
+            shapes = {k: v / 10 for k, v in kernels.LAUNCH_SHAPES.items()}
+            step_ms = [a.elapsed_time(b) for a, b in ev]
+            peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+            losses = [float(x) for x in losses]
+            # K2 is not counted here: on the card it is no product the counter
+            # sees (its own bound is in the K2 rows)
+            bound_ms = 1e3 * 3 * flops / PEAK_FLOPS["f32"]
+            # busy share over two profiled steps
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for i in (9, 10):
+                    apply_step(job.state, job.loss_fn, *tensors[i])
+                torch.cuda.synchronize()
+                wall_us = 1e6 * (time.perf_counter() - t0)
+            busy = sum(kernel_times_us(prof).values()) / wall_us
+            med = float(np.median(step_ms))
+            log(f"[6] {name}: step median {med:.3f} ms "
+                f"(steps {[round(s, 2) for s in step_ms]}), float32 bound "
+                f"{bound_ms:.3f} ms (3 x {flops / 1e9:.2f} GFLOP forward / 67 TFLOP/s), "
+                f"peak memory {peak_gb:.3f} GB above the resident set, busy "
+                f"{100 * busy:.1f} % of two profiled steps, K2 launches a step "
+                f"{shapes}, host batch draw "
+                f"{host_s:.1f} s for 6 batches; losses {[round(x, 5) for x in losses]}; "
+                f"{smi}")
+            if not all(np.isfinite(losses)):
+                failed.append(f"{name}: a non-finite loss")
+            k2_want = {"vad": 1, "encoder-proto": 1, "segmentation": 1,
+                       "ecapa_train_step": 1, "gtcrn": 0}[name]
+            if sum(v for k, v in shapes.items() if k.startswith("fused_log_mel")) != k2_want:
+                failed.append(f"{name}: K2 launches a step {shapes}, expected {k2_want}")
+            if any(k.startswith("asp_grid_stats") for k in shapes):
+                failed.append(f"{name}: K1 (no backward) ran in training")
+            # (4) the checkpoint, in a run of its own under deterministic
+            # algorithms (cuDNN's default weight gradients add in no fixed
+            # order): steps 1-5, saved, step 6; a fresh job restored from the
+            # file takes step 6 to the same loss (the parameters) and, after
+            # its update, the same leaves (the moments and the schedule's
+            # count too)
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            try:
+                whole = build(dev, small=True)
+                for i in range(5):
+                    apply_step(whole.state, whole.loss_fn, *tensors[i])
+                save_train_state(tmp / f"{name}.pt", whole.state)
+                ref6 = float(apply_step(whole.state, whole.loss_fn, *tensors[5]))
+                fresh = build(dev, small=True)
+                restore_train_state(tmp / f"{name}.pt", fresh.state)
+                restored_at = fresh.state.step
+                resumed = float(apply_step(fresh.state, fresh.loss_fn, *tensors[5]))
+            finally:
+                torch.use_deterministic_algorithms(False)
+            differ = {k: float((fresh.state.params[k] - v).abs().max())
+                      for k, v in whole.state.params.items()
+                      if not torch.equal(fresh.state.params[k], v)}
+            log(f"[6] {name}: restored after step {restored_at}, step 6 loss "
+                f"{resumed!r} vs uninterrupted {ref6!r}; leaves after the "
+                f"update differing from the uninterrupted run's: {len(differ)} "
+                f"of {len(whole.state.params)} {dict(list(differ.items())[:5])}")
+            if restored_at != 5 or resumed != ref6 or differ:
+                failed.append(f"{name}: the restored run's step 6 differs")
+            out[name] = {"step_ms": med, "steps_ms": step_ms, "bound_ms": bound_ms,
+                         "fwd_gflop": flops / 1e9, "peak_gb": peak_gb, "busy": busy,
+                         "loss_rel": loss_rel, "grad_cos": cos, "grad_rel": grad_rel,
+                         "losses": losses, "k2_shapes": shapes,
+                         "seconds": time.perf_counter() - t_cfg}
+            if name in k2_shape:
+                y = tensors[0][0].reshape(-1, tensors[0][0].shape[-1])
+                assert tuple(y.shape) == k2_shape[name], y.shape
+                k2_rows[name] = k2_measure(y, y.numel(), n_mels=40)
+                k2_rows[name]["launches_per_step"] = sum(
+                    v for k, v in shapes.items() if k.startswith("fused_log_mel"))
+                r = k2_rows[name]
+                log(f"[6] K2 at {name}'s {list(y.shape)}: {r['ms']:.4f} ms, plain "
+                    f"{r['plain_ms']:.4f} ms, torch.stft {r['library_ms']:.4f} ms, "
+                    f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), max err "
+                    f"{r['max_abs_err']:.2e} (tol {r['tol']:.2e}); {smi}")
+                if not r["max_abs_err"] <= r["tol"]:
+                    failed.append(f"K2 disagrees at {name}'s geometry")
+            del job, whole, fresh, tensors
+            torch.cuda.empty_cache()
+
+        # the exports in the pipeline: the 60 s bench draw (VAD, encoder,
+        # detector) and a 60 s draw in white noise at 10 dB (GTCRN), against
+        # the shipped files.  The recipe writes no bisection calibration
+        # (scripts/calibrate_bisect.py adds it after training, as in the JAX
+        # package), so the exported encoder takes the shipped one's.
+        shipped = load_speaker_encoder(wdir / files["encoder-proto"],
+                                       dtype=torch.bfloat16).to(dev).eval()
+        exported = load_speaker_encoder(tmp / "encoder-proto.npz",
+                                        dtype=torch.bfloat16).to(dev).eval()
+        exported.refine_sub_cos = shipped.refine_sub_cos
+        segs = {}
+        wave, truth = make_conversation(np.random.default_rng(0), 60.0, n_speakers=3, sr=SR)
+        noisy, ntruth = make_conversation_heldout(np.random.default_rng(0), 60.0,
+                                                  n_speakers=3, sr=SR, snr_db=10.0,
+                                                  noise_kind="white")
+        for tag, enc_, vad_, seg_w, gt_w in (
+                ("shipped", shipped, load_vad(wdir / files["vad"]),
+                 wdir / files["segmentation"], wdir / files["gtcrn"]),
+                ("exported", exported, load_vad(tmp / "vad.npz"),
+                 tmp / "segmentation.npz", tmp / "gtcrn.npz")):
+            cfg = dataclasses.replace(bench_cfg(True, enhance=EnhanceConfig(
+                weights=str(gt_w))), overlap=OverlapConfig(weights=str(seg_w)))
+            pipe = DiarizationPipeline(cfg, encoder=enc_, vad=vad_.to(dev).eval())
+            segs[tag] = (pipe((wave, SR)).segments, pipe((noisy, SR)).segments)
+        for i, (draw, tr) in enumerate((("bench 60 s", truth), ("white10 60 s", ntruth))):
+            a, b = segs["shipped"][i], segs["exported"][i]
+            eq = (len(a) == len(b) and np.array_equal(a.starts, b.starts)
+                  and np.array_equal(a.ends, b.ends) and np.array_equal(a.spks, b.spks))
+            log(f"[6] exports in the pipeline, {draw}: {len(b)} segments vs "
+                f"{len(a)} shipped, equal {eq}, DER {der_pct(tr, b):.4f} %")
+            if not eq:
+                failed.append(f"the exported weights give other segments on the "
+                              f"{draw} draw")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[6] training phase took {time.perf_counter() - t_phase:.1f} s")
+    if failed:
+        raise AssertionError("[6] " + "; ".join(failed))
+    return {"configs": out, "k2": k2_rows}
 
 
 def main() -> int:
@@ -2081,6 +2410,10 @@ def main() -> int:
         raise AssertionError("the card disagrees with the CPU reference on "
                              "the noisy-input route")
 
+    # ---------------------------------------------------------- phase 6 ----
+    training = training_phase(dev, smi, bench_cfg, der_pct)
+    rows[0]["training"] = training["k2"]
+
     for r in rows:
         # this slice's path: the bench configuration at the shipped default
         r["launches"] = launches[True, 600][r["name"]]
@@ -2139,13 +2472,14 @@ def main() -> int:
             "launches_options", "launches_engine", "batch",
             "batch_vad", "t_80", "batch_windowed_40", "batch_windowed_80", "a32",
             "a128", "engine_chunks_60s", "engine_chunks_600s", "engine_grid",
-            "bucketed")
+            "bucketed", "training")
     log(f"[end] engine 600 s {engine['conv', 'bench_600s']['wall']:.4f} s, bucketed "
         f"60 s {bucketed_wall:.4f} s, batch {({k: round(v, 3) for k, v in batch_walls.items()})} "
         f"s, diag {diag_wall:.3f} s, encoders 60 s "
         f"{({k: round(v['wall'], 4) for k, v in seeded['runs'].items()})} s, "
         f"eres2netv2 600 s {seeded['wall600']:.4f} s, published graphs "
-        f"{({k: round(v['wall'], 4) for k, v in published['runs'].items()})} s; "
+        f"{({k: round(v['wall'], 4) for k, v in published['runs'].items()})} s, "
+        f"training steps {({k: round(v['step_ms'], 3) for k, v in training['configs'].items()})} ms; "
         f"the whole run took "
         f"{time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}

@@ -283,7 +283,9 @@ def fused_log_mel(y: torch.Tensor, sample_rate: int = 16000, n_mels: int = 80,
     [B, T] -> [B, T//hop + 1, n_mels], center=True reflect padding of each
     row.  CPU tensor: the plain version.  CUDA tensor: ONE launch of
     ``csrc/fused_fbank.cu`` for the whole batch (reflect pad and fold done
-    in the kernel's staging loops), or an exception.
+    in the kernel's staging loops), or an exception.  The kernel has no
+    backward: a waveform that requires grad while autograd records is
+    refused (:func:`~..ops.kernels.refuse_autograd`); training passes data.
 
     A CUDA batch needs unit stride along the samples only: the kernel
     addresses rows by ``y.stride(0)``, so overlapping windows cut from one
@@ -296,6 +298,7 @@ def fused_log_mel(y: torch.Tensor, sample_rate: int = 16000, n_mels: int = 80,
         out = log_mel_spectrogram(y, sample_rate, n_mels, win_ms, hop_ms,
                                   f_min, f_max, eps)
         return out[0] if y.ndim == 1 else out
+    kernels.refuse_autograd("fused_log_mel", y)
     n_fft, hop, f_max = _frame_params(sample_rate, win_ms, hop_ms, f_max)
     t = y.shape[-1]
     _check_length(t, n_fft)

@@ -20,6 +20,10 @@ import torch.nn.functional as F
 from .ola import overlap_add
 
 
+# Device constants, made once.  They are made outside inference mode: one
+# first made under ``torch.inference_mode()`` (a pipeline's call) would be an
+# inference tensor, which autograd cannot save for a training step's
+# backward.
 _CONSTS: dict = {}
 
 
@@ -31,7 +35,8 @@ def hann_window(n: int, periodic: bool = True, device=None) -> torch.Tensor:
     if key not in _CONSTS:
         m = n if periodic else n - 1
         w = 0.5 - 0.5 * np.cos(2.0 * np.pi * np.arange(n) / max(m, 1))
-        _CONSTS[key] = torch.tensor(w, dtype=torch.float32, device=device)
+        with torch.inference_mode(False):
+            _CONSTS[key] = torch.tensor(w, dtype=torch.float32, device=device)
     return _CONSTS[key]
 
 
@@ -39,8 +44,9 @@ def sqrt_hann_window(n: int, periodic: bool = True, device=None) -> torch.Tensor
     """sqrt(Hann): the GTCRN runner's analysis and synthesis window."""
     key = ("sqrt_hann", n, periodic, str(device))
     if key not in _CONSTS:
-        _CONSTS[key] = torch.sqrt(torch.clamp(hann_window(n, periodic, device),
-                                              min=0.0))
+        with torch.inference_mode(False):
+            _CONSTS[key] = torch.sqrt(torch.clamp(
+                hann_window(n, periodic, device), min=0.0))
     return _CONSTS[key]
 
 
@@ -72,7 +78,8 @@ def _const(name: str, n_fft: int, device) -> torch.Tensor:
     key = (name, n_fft, str(device))
     if key not in _CONSTS:
         a = _dft_matrix(n_fft) if name == "dft" else _idft_matrix(n_fft)
-        _CONSTS[key] = torch.from_numpy(a).to(device)
+        with torch.inference_mode(False):
+            _CONSTS[key] = torch.from_numpy(a).to(device)
     return _CONSTS[key]
 
 

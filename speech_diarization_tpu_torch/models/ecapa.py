@@ -48,7 +48,7 @@ class ConvBN(nn.Module):
         self.bn_var = _param(c_out)
 
     def forward(self, x: torch.Tensor, dilation: int = 1, padding: int = 0,
-                act: bool = True) -> torch.Tensor:
+                act: bool = True, train: bool = False) -> torch.Tensor:
         if padding > 0:
             x = F.pad(x, (padding, padding), mode="reflect")
         # cast point: weights to the activation dtype at every conv
@@ -56,8 +56,18 @@ class ConvBN(nn.Module):
                          dilation=dilation)
         if act:
             x = F.relu(x)
+        if train:
+            return batch_norm_apply(x, *batch_stats(x, (0, 2)), self.bn_gamma,
+                                    self.bn_beta)
         return batch_norm_apply(x, self.bn_mean, self.bn_var, self.bn_gamma,
                                 self.bn_beta)
+
+
+def batch_stats(x: torch.Tensor, dims) -> tuple[torch.Tensor, torch.Tensor]:
+    """Train-mode BatchNorm statistics: float32 mean and biased variance
+    (divided by n, as ``jnp.var``) over ``dims``."""
+    x32 = x.float()
+    return x32.mean(dim=dims), x32.var(dim=dims, correction=0)
 
 
 class BNStats(nn.Module):
@@ -83,17 +93,18 @@ class SERes2Block(nn.Module):
         self.se_b2 = _param(c)
 
     def forward(self, x: torch.Tensor, dilation: int,
-                se_win: int | None = None) -> torch.Tensor:
+                se_win: int | None = None, train: bool = False) -> torch.Tensor:
         residual = x
-        y = self.conv1(x)
+        y = self.conv1(x, train=train)
         groups = torch.chunk(y, self.scale, dim=1)
         outs = [groups[0]]
         prev = None
         for i in range(1, self.scale):
             inp = groups[i] if prev is None else groups[i] + prev
-            prev = self.res2[i - 1](inp, dilation=dilation, padding=dilation)
+            prev = self.res2[i - 1](inp, dilation=dilation, padding=dilation,
+                                    train=train)
             outs.append(prev)
-        y = self.conv2(torch.cat(outs, dim=1))
+        y = self.conv2(torch.cat(outs, dim=1), train=train)
         # squeeze-excitation: utterance mean, or in streaming mode a sliding
         # mean so each frame's gate matches an isolated se_win crop
         dt = y.dtype
@@ -141,23 +152,29 @@ class EcapaTdnn(nn.Module):
         self.register_load_state_dict_post_hook(
             lambda module, _keys: module.fold_k1())
 
-    def trunk(self, feats: torch.Tensor, se_win: int | None = None) -> torch.Tensor:
+    def trunk(self, feats: torch.Tensor, se_win: int | None = None,
+              train: bool = False) -> torch.Tensor:
         """feats [B, T, n_mels] -> [B, 3C, T] post-MFA features (compute
-        dtype).  Shift-invariant when ``se_win`` is set (streaming mode)."""
+        dtype).  Shift-invariant when ``se_win`` is set (streaming mode).
+        ``train``: every BatchNorm on the batch's statistics over (batch,
+        time) instead of its running ones."""
         x = feats.transpose(1, 2).to(self.dtype)
-        x = self.stem(x, padding=2)
+        x = self.stem(x, padding=2, train=train)
         outs = []
         for blk, d in zip(self.block, self.dilations):
-            x = blk(x, d, se_win=se_win)
+            x = blk(x, d, se_win=se_win, train=train)
             outs.append(x)
-        return self.mfa(torch.cat(outs, dim=1))
+        return self.mfa(torch.cat(outs, dim=1), train=train)
 
-    def embed_utterances(self, feats: torch.Tensor) -> torch.Tensor:
+    def embed_utterances(self, feats: torch.Tensor,
+                         train: bool = False) -> torch.Tensor:
         """Per-utterance embeddings: fbank [B, T, n_mels] -> [B, emb_dim]
-        float32 (trunk with utterance-mean SE, then :meth:`asp_head`)."""
-        return self.asp_head(self.trunk(feats))
+        float32 (trunk with utterance-mean SE, then :meth:`asp_head`);
+        ``train``: train-mode BatchNorm throughout (the JAX ``apply(...,
+        train=True)``)."""
+        return self.asp_head(self.trunk(feats, train=train), train=train)
 
-    def asp_head(self, x: torch.Tensor) -> torch.Tensor:
+    def asp_head(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         """Attentive-stats pooling with global context over each
         utterance's frames, then post-BN and the embedding layer: trunk
         features [B, CC, T] -> [B, emb_dim] float32.  The context and the
@@ -175,73 +192,89 @@ class EcapaTdnn(nn.Module):
                         dim=1).to(dt)
         a = F.relu(conv1d_torch(ctx, self.att_w1.to(dt), self.att_b1.to(dt)))
         ab = self.att_bn
-        a = torch.tanh(batch_norm_apply(a, ab.mean, ab.var, ab.gamma, ab.beta))
+        mean_var = batch_stats(a, (0, 2)) if train else (ab.mean, ab.var)
+        a = torch.tanh(batch_norm_apply(a, *mean_var, ab.gamma, ab.beta))
         a = conv1d_torch(a, self.att_w2.to(dt), self.att_b2.to(dt)).float()
         p = torch.softmax(a, dim=2)                                 # [B, CC, T]
         mu = (p * x32).sum(dim=2)
         sd = torch.sqrt(torch.clamp(
             (p * (x32 - mu[:, :, None]) ** 2).sum(dim=2), min=eps))
-        return self._stats_to_emb(torch.cat([mu, sd], dim=1))
+        return self._stats_to_emb(torch.cat([mu, sd], dim=1), train=train)
 
-    def _stats_to_emb(self, stats: torch.Tensor) -> torch.Tensor:
+    def _stats_to_emb(self, stats: torch.Tensor,
+                      train: bool = False) -> torch.Tensor:
         pb = self.post_bn
-        stats = batch_norm_apply(stats, pb.mean, pb.var, pb.gamma, pb.beta)
+        mean_var = batch_stats(stats, 0) if train else (pb.mean, pb.var)
+        stats = batch_norm_apply(stats, *mean_var, pb.gamma, pb.beta)
         return conv1d_torch(stats[:, :, None], self.fc_w, self.fc_b)[:, :, 0].float()
 
     def _window_context(self, x: torch.Tensor, first_f: int, hop_f: int,
                         win_f: int, n_windows: int):
-        """Per-window global-context mean/std [W, CC] from two float32
-        prefix sums over the frames."""
+        """Per-window global-context mean/std [..., W, CC] of x [..., CC,
+        T_f] from two float32 prefix sums over each row's frames."""
         eps = 1e-12
         x32 = x.float()
         starts = first_f + hop_f * torch.arange(n_windows, device=x.device)
         cs1 = F.pad(torch.cumsum(x32, dim=-1), (1, 0))
         cs2 = F.pad(torch.cumsum(x32 * x32, dim=-1), (1, 0))
-        s1 = cs1[:, starts + win_f] - cs1[:, starts]
-        s2 = cs2[:, starts + win_f] - cs2[:, starts]
-        mu_g = s1.T / win_f
-        sd_g = torch.sqrt(torch.clamp(s2.T / win_f - mu_g * mu_g, min=eps))
+        s1 = cs1[..., starts + win_f] - cs1[..., starts]
+        s2 = cs2[..., starts + win_f] - cs2[..., starts]
+        mu_g = s1.transpose(-1, -2) / win_f
+        sd_g = torch.sqrt(torch.clamp(s2.transpose(-1, -2) / win_f
+                                      - mu_g * mu_g, min=eps))
         return mu_g, sd_g, starts
 
     def asp_head_grid(self, x: torch.Tensor, first_f: int, hop_f: int,
                       win_f: int, n_windows: int) -> torch.Tensor:
         """Decomposed sliding-grid ASP in the net's dtype: x [CC, T_f] ->
-        [W, emb_dim].  The JAX package's ``asp_head_grid``."""
+        [W, emb_dim], or a batch of rows [B, CC, T_f] -> [B, W, emb_dim]
+        (the JAX ``vmap`` of it).  The JAX package's ``asp_head_grid``:
+        plain PyTorch, differentiable, which is what training runs."""
         eps = 1e-12
-        cc = x.shape[0]
+        cc = x.shape[-2]
         dt = self.dtype
         mu_g, sd_g, starts = self._window_context(x, first_f, hop_f, win_f,
                                                   n_windows)
         w1 = self.att_w1[..., 0]
         w1x, w1m, w1s = w1[:, :cc], w1[:, cc:2 * cc], w1[:, 2 * cc:]
-        hx = w1x.to(dt) @ x.to(dt)                                  # [A, T_f]
+        hx = w1x.to(dt) @ x.to(dt)                                  # [.., A, T_f]
         bw = (mu_g.to(dt) @ w1m.to(dt).T + sd_g.to(dt) @ w1s.to(dt).T
-              + self.att_b1.to(dt))                                 # [W, A]
+              + self.att_b1.to(dt))                                 # [.., W, A]
         idx = starts[:, None] + torch.arange(win_f, device=x.device)[None, :]
-        a = F.relu(hx[:, idx].permute(1, 0, 2) + bw[:, :, None])    # [W, A, win]
+        # windows of all rows as one batch: [N, A, win]
+        a = F.relu(hx[..., idx].movedim(-3, -2) + bw[..., None])
+        a = a.reshape(-1, *a.shape[-2:])
         ab = self.att_bn
         a = torch.tanh(batch_norm_apply(a, ab.mean, ab.var, ab.gamma, ab.beta))
         # logits with float32 accumulation and output (operands in dt)
         w2 = self.att_w2[..., 0].to(dt).float()
         e = torch.einsum("ca,wat->wct", w2, a.float())
         e = e + self.att_b2.float()[None, :, None]
-        p = torch.softmax(e, dim=2)                                 # [W, CC, win]
-        xw = x[:, idx].permute(1, 0, 2).float()
+        p = torch.softmax(e, dim=2)                                 # [N, CC, win]
+        xw = x[..., idx].movedim(-3, -2).reshape(-1, cc, win_f).float()
         mu = (p * xw).sum(-1)
         m2 = (p * xw * xw).sum(-1)
         sd = torch.sqrt(torch.clamp(m2 - mu * mu, min=eps))
-        return self._stats_to_emb(torch.cat([mu, sd], dim=1))
+        emb = self._stats_to_emb(torch.cat([mu, sd], dim=1))
+        return emb.reshape(*x.shape[:-2], n_windows, emb.shape[-1])
 
     def fold_k1(self) -> None:
         """K1's constants, made from the weights at construction and after
         every ``load_state_dict`` (they are buffers, so they move with the
-        module): the
+        module; after optimizer steps they are stale until this runs
+        again, which the training recipes do at their end): the
         attention pre-projection split into its feature, mean and std parts
         and its bias, inference BN folded to a scale and shift, all float32,
         and the feature part and the logits projection in bf16, the kernel's
         operand type.  The attention width is zero-padded to a multiple of
         64, the kernel's slice: a padded unit gives tanh(relu(0) * s + 0) =
         0 and meets a zero column of ``w2``, so the stats are unchanged."""
+        with torch.no_grad():
+            consts = self._k1_constants()
+        for name, t in consts.items():
+            self.register_buffer(name, t, persistent=False)
+
+    def _k1_constants(self) -> dict[str, torch.Tensor]:
         cc, a = self.cat_channels, self.att_channels
         pad = -(-a // _K1_A_SLICE) * _K1_A_SLICE - a
         w1 = F.pad(self.att_w1[..., 0].float(), (0, 0, 0, pad))      # [A', 3CC]
@@ -259,8 +292,7 @@ class EcapaTdnn(nn.Module):
             "k1_w2": F.pad(self.att_w2[..., 0].float(), (0, pad))
             .to(torch.bfloat16).contiguous(),                       # [CC, A']
         }
-        for name, t in consts.items():
-            self.register_buffer(name, t, persistent=False)
+        return consts
 
     def k1_inputs(self, x: torch.Tensor, first_f: int, hop_f: int, win_f: int,
                   n_windows: int) -> tuple:
@@ -341,7 +373,9 @@ def asp_grid_stats(x: torch.Tensor, bw: torch.Tensor, w1x: torch.Tensor,
     s_bn/t_bn [A], w2 [CC, A], b2 [CC] -> [W, 2*CC] float32.  CPU tensor:
     the plain version (any A).  CUDA tensor: ``csrc/asp_grid.cu`` (two
     launches of one C entry, counted once), built for A 64 and 128 (pad a
-    narrower A with zeros: :meth:`EcapaTdnn.fold_k1`), or an exception."""
+    narrower A with zeros: :meth:`EcapaTdnn.fold_k1`), or an exception;
+    the kernel has no backward, so it refuses inputs that require grad
+    while autograd records (:func:`~..ops.kernels.refuse_autograd`)."""
     if x.device.type == "cpu":
         return _asp_grid_stats_plain(x, bw, w1x, s_bn, t_bn, w2, b2, first_f,
                                      hop_f, win_f, n_windows)
@@ -355,6 +389,7 @@ def asp_grid_stats(x: torch.Tensor, bw: torch.Tensor, w1x: torch.Tensor,
     if win_f < 1 or n_windows < 1:
         raise ValueError(f"asp_grid_stats kernel: win_f={win_f}, "
                          f"n_windows={n_windows}")
+    kernels.refuse_autograd("asp_grid_stats", x, bw, w1x, s_bn, t_bn, w2, b2)
     n_rows = (n_windows - 1) * hop_f + win_f
     dev = x.device
     xb = _k1_features(x, first_f, n_rows)
@@ -412,32 +447,54 @@ class EcapaModel(nn.Module):
         return self.net.embed_utterances(feats)
 
     def encode_grid_feats(self, feats: torch.Tensor, n_windows: int, margin: int,
-                          win: int, hop: int) -> torch.Tensor:
+                          win: int, hop: int,
+                          backend: str | None = None) -> torch.Tensor:
         """Streaming sliding-window embeddings from the chunk's log-mel
         ``feats`` [T_f, n_mels]: sliding fbank mean-norm, ONE trunk pass with
-        sliding SE, then per-window ASP -> [n_windows, emb_dim].  Window
-        ``i`` pools trunk frames from ``(margin + i*hop) / mel_hop``."""
+        sliding SE, then per-window ASP -> [n_windows, emb_dim].  A batch of
+        chunks [B, T_f, n_mels] (the training recipes' utterances) is one
+        trunk pass over B rows -> [B, n_windows, emb_dim] (the plain head
+        only).  Window ``i``
+        pools trunk frames from ``(margin + i*hop) / mel_hop``.
+
+        ``backend`` (the JAX argument): 'kernel' pools through K1, which
+        has no backward; 'decomposed' through the plain differentiable
+        head, which training must name; None or 'auto' is the kernel on a
+        CUDA tensor and the plain head on the CPU."""
+        if backend in (None, "auto"):
+            backend = "kernel" if feats.device.type == "cuda" else "decomposed"
+        if backend not in ("kernel", "decomposed"):
+            raise ValueError(f"unknown ASP backend {backend!r}")
+        if backend == "kernel" and feats.ndim != 2:
+            raise ValueError("the K1 head pools one chunk; a batch of chunks "
+                             "takes backend='decomposed'")
         mel_hop = int(self.sample_rate * 10 // 1000)
         if margin % hop or hop % mel_hop or win % mel_hop:
             raise ValueError("grid geometry must align to the 10 ms mel hop")
         win_f = win // mel_hop + 1          # frames per window (center=True)
         hop_f = hop // mel_hop
-        f = feats[None].float()                                    # [1, T_f, M]
+        f = (feats[None] if feats.ndim == 2 else feats).float()    # [B, T_f, M]
         f = f - sliding_mean_time(f.transpose(1, 2), win_f).transpose(1, 2)
-        x = self.net.trunk(f, se_win=win_f)[0]                      # [CC, T_f]
+        x = self.net.trunk(f, se_win=win_f)                         # [B, CC, T_f]
         first = margin // mel_hop
         need_f = first + (n_windows - 1) * hop_f + win_f
         if x.shape[-1] < need_f:
             x = F.pad(x, (0, need_f - x.shape[-1]))
-        if x.device.type == "cuda":
-            return self.net.asp_head_grid_kernel(x, first, hop_f, win_f, n_windows)
-        return self.net.asp_head_grid(x, first, hop_f, win_f, n_windows)
+        if backend == "kernel":
+            return self.net.asp_head_grid_kernel(x[0], first, hop_f, win_f,
+                                                 n_windows)
+        out = self.net.asp_head_grid(x, first, hop_f, win_f, n_windows)
+        return out[0] if feats.ndim == 2 else out
 
     def encode_grid_chunk(self, y: torch.Tensor, n_windows: int, margin: int,
-                          win: int, hop: int) -> torch.Tensor:
-        """[T_chunk] waveform slice incl. margins -> [n_windows, emb_dim]."""
+                          win: int, hop: int,
+                          backend: str | None = None) -> torch.Tensor:
+        """[T_chunk] waveform slice incl. margins -> [n_windows, emb_dim];
+        a batch [B, T] is one log-mel launch and one trunk pass ->
+        [B, n_windows, emb_dim] (``backend``: :meth:`encode_grid_feats`)."""
         from ..dsp.mel import fused_log_mel
 
         feats = fused_log_mel(y, sample_rate=self.sample_rate,
                               n_mels=self.net.n_mels)
-        return self.encode_grid_feats(feats, n_windows, margin, win, hop)
+        return self.encode_grid_feats(feats, n_windows, margin, win, hop,
+                                      backend=backend)

@@ -17,6 +17,7 @@ ten recurrences of 22,501 steps; the intra-RNNs run over the 33 bins.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -26,6 +27,42 @@ from .layers import BatchNorm, layer_norm_apply
 _ENC_GT_DILATIONS = (1, 2, 5)
 _DEC_GT_DILATIONS = (5, 2, 1)
 _LOW_BINS = 65    # bins below the ERB bands, passed through
+
+
+def erb_filterbank(
+    low_bins: int = 65, n_erb: int = 64, nfft: int = 512,
+    high_hz: float = 8000.0, fs: float = 16000.0,
+) -> np.ndarray:
+    """Triangular filterbank on the ERB-rate scale, [n_erb, nfft//2+1-low_bins].
+
+    Independent construction of the fixed (non-trainable) analysis matrix the
+    reference bakes into ``erb_fc`` (``gtcrn.py:30-49``): band centers equally
+    spaced in ERB-rate between the low cut (bin ``low_bins``) and ``high_hz``,
+    triangles between neighboring centers, half-triangles at both edges (the
+    last band is the complement of its neighbor so the rows tile to 1).
+    A checkpoint overwrites it; a net trained from scratch starts from it
+    (``train/init.py``).
+    """
+    hz2erb = lambda f: 21.4 * np.log10(0.00437 * np.asarray(f) + 1.0)
+    erb2hz = lambda e: (10.0 ** (np.asarray(e) / 21.4) - 1.0) / 0.00437
+    low_hz = low_bins / nfft * fs
+    centers = np.linspace(hz2erb(low_hz), hz2erb(high_hz), n_erb)
+    bins = np.round(erb2hz(centers) / fs * nfft).astype(int)
+    n_freqs = nfft // 2 + 1
+    fb = np.zeros((n_erb, n_freqs), dtype=np.float32)
+    eps = 1e-12
+    # first band: falling edge only
+    j = np.arange(bins[0], bins[1])
+    fb[0, bins[0]:bins[1]] = (bins[1] - j + eps) / (bins[1] - bins[0] + eps)
+    # interior bands: rising + falling triangles
+    for i in range(1, n_erb - 1):
+        j = np.arange(bins[i - 1], bins[i])
+        fb[i, bins[i - 1]:bins[i]] = (j - bins[i - 1] + eps) / (bins[i] - bins[i - 1] + eps)
+        j = np.arange(bins[i], bins[i + 1])
+        fb[i, bins[i]:bins[i + 1]] = (bins[i + 1] - j + eps) / (bins[i + 1] - bins[i] + eps)
+    # last band: complement of its neighbor over the final span
+    fb[-1, bins[-2]:bins[-1] + 1] = 1.0 - fb[-2, bins[-2]:bins[-1] + 1]
+    return np.abs(fb[:, low_bins:])
 
 
 class ERB(nn.Module):

@@ -38,6 +38,25 @@ def batch_norm_apply(x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor,
     return x * scale.to(x.dtype) + shift.to(x.dtype)
 
 
+def make_trainable(net: nn.Module) -> nn.Module:
+    """Every leaf of the JAX parameter tree as a trainable tensor, in place:
+    each parameter requires grad, and each persistent floating buffer (the
+    BatchNorm running statistics, leaves of the JAX tree that its recipes
+    train in eval-mode BN) becomes a parameter under the same name, so the
+    ``state_dict`` keys do not change.  Non-persistent buffers (constants
+    derived from the weights) stay buffers."""
+    for mod in net.modules():
+        for name, buf in list(mod._buffers.items()):
+            if (buf is None or name in mod._non_persistent_buffers_set
+                    or not buf.is_floating_point()):
+                continue
+            del mod._buffers[name]
+            mod.register_parameter(name, nn.Parameter(buf.detach()))
+    for p in net.parameters():
+        p.requires_grad_(True)
+    return net
+
+
 class BatchNorm(nn.Module):
     """Inference BatchNorm over axis 1 (:func:`batch_norm_apply`) whose
     ``state_dict`` keys are those of torch's ``nn.BatchNorm1d/2d`` less
@@ -67,7 +86,9 @@ class BatchNorm(nn.Module):
 
 # Per-shape constants live on the device once: a host-to-device copy from
 # pageable memory inside the per-chunk program would make the host wait for
-# the device and serialize dispatch with compute.
+# the device and serialize dispatch with compute.  They are made outside
+# inference mode: one first made under ``torch.inference_mode()`` would be
+# an inference tensor, which autograd cannot save for a training backward.
 _CONSTS: dict = {}
 
 
@@ -77,7 +98,8 @@ def _band(b: int, h0: int, h1: int, device) -> torch.Tensor:
         k = np.arange(3 * b)[:, None] - b                   # input offset
         o = np.arange(b)[None, :]                           # output pos
         band = ((k >= o - h0) & (k <= o + h1)).astype(np.float32)
-        _CONSTS[key] = torch.from_numpy(band).to(device)
+        with torch.inference_mode(False):
+            _CONSTS[key] = torch.from_numpy(band).to(device)
     return _CONSTS[key]
 
 
@@ -87,7 +109,8 @@ def _counts(t: int, h0: int, h1: int, device) -> torch.Tensor:
     if key not in _CONSTS:
         pos = np.arange(t)
         cnt = np.clip(pos + h1 + 1, 0, t) - np.clip(pos - h0, 0, t)
-        _CONSTS[key] = torch.from_numpy(cnt.astype(np.float32)).to(device)
+        with torch.inference_mode(False):
+            _CONSTS[key] = torch.from_numpy(cnt.astype(np.float32)).to(device)
     return _CONSTS[key]
 
 

@@ -70,6 +70,47 @@ def _state_key(flat_key: str) -> str:
     return re.sub(r"^block(\d+)/", r"block.\1/", flat_key).replace("/", ".")
 
 
+# and back: a net's state_dict key -> the JAX package's flat key
+_GRU_FLAT = {v: k for k, v in _GRU_KEYS.items()}
+_SEG_GRU_STATE = re.compile(r"^gru(\d+)\.(weight|bias)_(ih|hh)_l0(_reverse)?$")
+# nets whose JAX parameter dict is already keyed by the state_dict names
+DOTTED_NETS = (GTCRN, ZipEnhancerModel, DialogDemixer)
+
+
+def flat_key(state_key: str, dotted: bool = False) -> str:
+    """The JAX flat key of a ``state_dict`` key (the inverse of the mapping
+    :func:`params_from_numpy` applies): 'block.0.conv1.w' ->
+    'block0/conv1/w', 'gru.weight_ih_l0' -> 'gru/w_ih',
+    'gru2.bias_hh_l0_reverse' -> 'gru2_b/b_hh'.  ``dotted``: the net's
+    JAX keys are its state_dict keys (GTCRN, ZipEnhancer, the demixer)."""
+    if dotted:
+        return state_key
+    m = _SEG_GRU_STATE.match(state_key)
+    if m:
+        return f"gru{m[1]}_{'b' if m[4] else 'f'}/{m[2][0]}_{m[3]}"
+    k = _GRU_FLAT.get(state_key, state_key)
+    return re.sub(r"^block\.(\d+)\.", r"block\1.", k).replace(".", "/")
+
+
+def flat_params(net: torch.nn.Module) -> dict[str, np.ndarray]:
+    """A net's weights as the JAX package's flat dict of float32 arrays:
+    the format of :func:`save_params_npz`, loadable in both packages."""
+    dotted = isinstance(net, DOTTED_NETS)
+    return {flat_key(k, dotted): v.detach().float().cpu().numpy()
+            for k, v in net.state_dict().items()}
+
+
+def save_params_npz(params: dict, path: str | Path,
+                    meta: dict | None = None) -> None:
+    """The JAX package's checkpoint format: flat npz, the architecture (any
+    JSON-able dict) under the reserved ``__meta__`` key as UTF-8 bytes."""
+    arrays = {k: np.asarray(v) for k, v in params.items()}
+    if meta is not None:
+        arrays["__meta__"] = np.frombuffer(json.dumps(meta).encode(),
+                                           dtype=np.uint8)
+    np.savez(str(path), **arrays)
+
+
 def params_from_numpy(flat: dict[str, np.ndarray], arch_meta: dict,
                       kind: str | None = None, dtype=None) -> torch.nn.Module:
     """Rebuild a net from its architecture meta and load ``flat`` into it.

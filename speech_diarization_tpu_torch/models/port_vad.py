@@ -5,8 +5,8 @@ published module: its architecture is recoverable only from the serialized
 graph.  :func:`silero_state_dict` extracts its raw tensors and
 :func:`silero_probs_fn` wraps the TorchScript module as a host oracle of
 frame probabilities.  Both were torch code in the JAX package and are
-copied here as they are.  Distilling the VAD from that oracle is a training
-loop and is not ported (ROADMAP Queue 1 item 8).
+copied here as they are.  :func:`distill_vad_from_silero` trains the
+recurrent VAD against such an oracle.
 """
 from __future__ import annotations
 
@@ -47,9 +47,48 @@ def silero_probs_fn(path: str | Path, sample_rate: int = 16000) -> Callable:
     return probs
 
 
-def distill_vad_from_silero(*args, **kwargs):
-    """Refused: training the VAD against the Silero oracle is a training
-    loop (ROADMAP Queue 1 item 8)."""
-    raise NotImplementedError(
-        "distill_vad_from_silero is a training loop and is not ported yet "
-        "(ROADMAP Queue 1 item 8: training)")
+def distill_vad_from_silero(teacher: str | Path | Callable, steps: int = 500,
+                            batch: int = 8, dur_s: float = 4.0, lr: float = 2e-3,
+                            seed: int = 0, out_path: str | Path | None = None,
+                            init_params: dict | None = None, device=None):
+    """Train the recurrent VAD (``VadNet``) to match a teacher's frame
+    probabilities on synthetic audio (teacher-student distillation): the
+    JAX function's loop, on one device.  ``teacher``: the Silero
+    TorchScript file (:func:`silero_probs_fn`) or any callable [T] float32
+    -> probabilities of consecutive 512-sample chunks.  The student's 10 ms
+    frames take the probability of the teacher chunk that covers them.
+    ``init_params``: a flat dict of the student's weights (else the seeded
+    init).  Returns (model, metrics with the losses and the held-out
+    agreement with the teacher) like ``train_vad_synthetic``."""
+    from ..train.recipes import vad_job
+    from ..train.synthetic import make_vad_example
+    from ..train.checkpoint import export_inference_weights
+
+    teacher = teacher if callable(teacher) else silero_probs_fn(teacher)
+    hop, chunk = 160, 512              # student frames, teacher chunks
+
+    def targets(w: np.ndarray) -> np.ndarray:
+        tprob = teacher(w)
+        f_idx = (np.arange(len(w) // hop + 1) * hop // chunk).clip(
+            0, len(tprob) - 1)
+        return tprob[f_idx]
+
+    def example(rng, dur):
+        w, _ = make_vad_example(rng, dur)
+        return w, targets(w)
+
+    job = vad_job(batch, dur_s, lr, seed, "gru", example, init_params, device)
+    metrics = {"loss": []}
+    for i in range(steps):
+        loss = job.step()
+        if (i + 1) % 50 == 0 or i == 0:
+            metrics["loss"].append(float(loss))
+    w, _ = make_vad_example(np.random.default_rng(seed + 1), dur_s)
+    tp = targets(w)
+    with torch.no_grad():
+        sp = job.model.probs(job.batch_tensors((w,))[0]).cpu().numpy()
+    n = min(len(sp), len(tp))
+    metrics["teacher_agreement"] = float(((sp[:n] > 0.5) == (tp[:n] > 0.5)).mean())
+    if out_path is not None:
+        export_inference_weights(out_path, job.net)
+    return job.model, metrics

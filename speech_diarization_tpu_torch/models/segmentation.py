@@ -29,6 +29,7 @@ head it is a few small float32 GEMMs, the same on the card and on the CPU.
 """
 from __future__ import annotations
 
+import itertools
 import math
 
 import numpy as np
@@ -250,3 +251,52 @@ def seeded_init(net: SegNet, seed: int = 0) -> SegNet:
             else:
                 p.zero_()
     return net
+
+
+def pit_bce_loss(pred: torch.Tensor, target: torch.Tensor,
+                 eps: float = 1e-7) -> torch.Tensor:
+    """Permutation-invariant BCE over the K speaker slots: pred / target
+    [B, T, K]; each chunk takes the least mean BCE over the K! slot
+    permutations."""
+    k = pred.shape[-1]
+    losses = []
+    for perm in itertools.permutations(range(k)):
+        p = pred[..., list(perm)]
+        bce = -(target * torch.log(p + eps) + (1 - target) * torch.log(1 - p + eps))
+        losses.append(bce.mean(dim=(1, 2)))                         # [B]
+    return torch.stack(losses).min(dim=0).values.mean()
+
+
+def powerset_pit_ce_loss(logits: torch.Tensor, target: torch.Tensor,
+                         overlap_weight: float = 0.0) -> torch.Tensor:
+    """Permutation-invariant cross-entropy over the speaker-subset powerset:
+    logits [B, T, 2^K], target [B, T, K] binary activities.  A permutation's
+    target class is its permuted activity pattern read as a binary number;
+    each chunk takes the least mean CE over the K! permutations.  Frames
+    with two or more active speakers weigh ``1 + overlap_weight``, the
+    weights renormalized to a mean of one per chunk."""
+    k = target.shape[-1]
+    logp = torch.log_softmax(logits, dim=-1)                        # [B, T, C]
+    weights = 2 ** torch.arange(k, device=logits.device)
+    tgt = (target > 0.5).long()
+    fw = 1.0 + overlap_weight * (tgt.sum(-1) >= 2).to(logp.dtype)   # [B, T]
+    fw = fw / fw.mean(dim=1, keepdim=True)
+    losses = []
+    for perm in itertools.permutations(range(k)):
+        cls = (tgt[..., list(perm)] * weights).sum(-1)              # [B, T]
+        ce = -torch.gather(logp, -1, cls[..., None])[..., 0]
+        losses.append((fw * ce).mean(dim=1))                        # [B]
+    return torch.stack(losses).min(dim=0).values.mean()
+
+
+def best_permutation_accuracy(pred: np.ndarray, target: np.ndarray) -> float:
+    """Frame accuracy after the best slot permutation of each chunk (the
+    probe metric: slot identity means something only within a chunk)."""
+    k = pred.shape[-1]
+    if pred.ndim == 2:
+        pred, target = pred[None], target[None]
+    p = pred > 0.5
+    t = target > 0.5
+    accs = np.stack([(p[..., list(perm)] == t).mean(axis=(1, 2))
+                     for perm in itertools.permutations(range(k))])  # [K!, B]
+    return float(accs.max(axis=0).mean())

@@ -161,3 +161,19 @@ def check_cuda_tensor(t, name: str, dtype, shape=None) -> None:
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, "
                          f"got {tuple(t.shape)}")
+
+
+def refuse_autograd(name: str, *tensors) -> None:
+    """Raise when autograd is recording and an input requires grad: the
+    kernels have no backward, and their outputs would carry no ``grad_fn``,
+    so a loss through them would train nothing upstream without a word.
+    Training takes the plain differentiable path instead (the ASP's
+    ``backend='decomposed'``; the log-mel of data, which needs no grad)."""
+    import torch
+
+    if torch.is_grad_enabled() and any(
+            getattr(t, "requires_grad", False) for t in tensors):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel has no backward, and an input requires "
+            "grad; take the plain differentiable path (for the pooling: "
+            "backend='decomposed'), or call it under torch.no_grad()")

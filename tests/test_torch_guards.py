@@ -17,7 +17,9 @@ SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
                                         ROOT / "scripts" / "torch_profile_diarize.py",
                                         ROOT / "scripts" / "torch_kernel_check.py",
                                         ROOT / "scripts" / "torch_bench.py",
-                                        ROOT / "scripts" / "torch_eval_heldout.py"]
+                                        ROOT / "scripts" / "torch_eval_heldout.py",
+                                        ROOT / "scripts" / "torch_train_mc.py",
+                                        ROOT / "scripts" / "torch_train_grad_noise.py"]
 
 
 def _imports(path: Path) -> set[str]:

@@ -1,7 +1,8 @@
 """The port's torch checkpoint importers against the JAX package:
 ``models/port.py::load_gtcrn_checkpoint`` / ``port_torch_state_dict`` (the
 GTCRN DNS3 ``.tar``), the ``enhance --backend gtcrn --weights *.tar``
-subcommand, ``models/port_vad.py`` (the Silero TorchScript tools), and the
+subcommand, ``models/port_vad.py`` (the Silero TorchScript tools and the
+VAD's distillation from such a teacher, against the JAX loop), and the
 seeded draws the published graphs and the speaker encoders share
 (``models/registry.seeded_state_dict``).
 
@@ -161,9 +162,28 @@ def test_silero_probs_fn_matches(silero, sample_rate):
     np.testing.assert_array_equal(fn(y), out)        # the state is reset per call
 
 
-def test_distillation_names_the_training_item(silero):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 8"):
-        port_vad.distill_vad_from_silero(silero)
+def test_distillation_names_the_training_item(silero, monkeypatch, tmp_path):
+    """``distill_vad_from_silero`` (a refusal until the training slice)
+    runs the JAX distillation loop: the same TorchScript teacher, the same
+    student weights (the JAX init, carried across), two steps on the same
+    draws -> the logged loss within rtol 1e-4, the held-out agreement with
+    the teacher equal, and an export the JAX ``load_vad`` reads."""
+    import jax
+
+    from speech_diarization_tpu.models.vad import VadModel as JVad
+    from speech_diarization_tpu.train.recipes import _flatten, load_vad as jload
+
+    params = JVad().init(jax.random.PRNGKey(0))
+    monkeypatch.setattr(JVad, "init", lambda self, key: params)
+    kw = dict(steps=2, batch=2, dur_s=1.0, seed=3)
+    _, jm = jport_vad.distill_vad_from_silero(silero, **kw)
+    model, m = port_vad.distill_vad_from_silero(
+        silero, **kw, init_params=_flatten(params), device="cpu",
+        out_path=tmp_path / "vad.npz")
+    np.testing.assert_allclose(m["loss"], jm["loss"], rtol=1e-4)
+    assert m["teacher_agreement"] == jm["teacher_agreement"]
+    jmodel, jparams = jload(tmp_path / "vad.npz")
+    assert set(_flatten(jparams)) == set(_flatten(params))
 
 
 # -------------------------------------------------------- seeded draws ---
