@@ -168,6 +168,18 @@ Phases (any failure exits nonzero and prints no result line):
      checkpoint after step 5 restored gives step 6's loss and leaves
      exactly.  K2 at
      each training batch against its plain version and ``torch.stft``.
+  7. The single-card public surface (``surface_phase``): every exported
+     name imports; the CLI's ``diarize`` on a ``.flac`` decoded by stub
+     ``ffmpeg`` / ``ffprobe`` (the bench 60 s draw; RTTM equal to the
+     ``.wav`` run's); the cumsum sliding mean on the card against the
+     banded form (``win`` 1025) and the CPU (1201, 2001) on 6,400 frames
+     of log-mel and trunk activations, and the trunk with ``se_win=1201``
+     card vs CPU (bars ``SLIDING_TOL_REL``, ``TRUNK_TOL_REL``); bench
+     milestones 3.5 (the embed chunk's roofline) and 5 (K2 against the
+     plain log-mel at ``[512, 16000]``); the web UI's slider config on the
+     tone conversation, card vs CPU segments; ``Profiler.trace`` around a
+     60 s call naming both kernels.  Each run's K1 and K2 launches are
+     counted (``launches_surface``).
 Then a line with the walls of this slice's routes and of the whole run,
 one JSON line listing the kernels, the card's nvidia-smi line, and the
 result line ``{"ok": true, "device": {...}}``.
@@ -186,6 +198,13 @@ import numpy as np
 HERE = Path(__file__).resolve().parent
 SR = 16000
 T_START = time.perf_counter()
+sys.path.insert(0, str(HERE))
+# the H100's peaks, the bound from bytes and operations, the kernels'
+# analytic work and the card's clock live in the port: its bench uses them too
+from speech_diarization_tpu_torch.ops.cost import (  # noqa: E402
+    PEAK_FLOPS, asp_grid_work, bound, fused_log_mel_work,
+)
+from speech_diarization_tpu_torch.utils.profiling import cuda_time_ms  # noqa: E402
 
 # DER (%) of the JAX reference on the CPU on the bench draws, overlap rescue
 # off and on (scripts/torch_port_der_bar.py); the port must stay within one
@@ -237,9 +256,6 @@ JAX_CPU_DER_PCT_ENHANCED = {("zipenhancer", "white", 10.0, 60): 4.2436,
                             ("demix-dialog", "white", 10.0, 600): 2.8824}
 DER_SLACK_PCT = 1.0
 
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and dense rates by type
-PEAK_BYTES_S = 3.35e12
-PEAK_FLOPS = {"bf16_tensor": 989e12, "tf32_tensor": 495e12, "f32": 67e12}
 
 # tolerances of kernel vs plain version on the card (max abs error over the
 # output, relative to the plain output's largest magnitude).  Both sides
@@ -295,51 +311,15 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-_HOLD = []
-
-
-def cuda_time_ms(fn, iters: int = 20) -> float:
-    """Mean time of ``fn`` on the card (CUDA events around ``iters`` calls).
-    Two large matrix products go first and keep the card busy for a few
-    milliseconds while the host queues the timed calls behind them: a
-    kernel of some 30 us is otherwise timed at the host's launch rate."""
-    import torch
-
-    if not _HOLD:
-        _HOLD.append(torch.ones((4096, 4096), device="cuda"))
-    fn()
-    torch.cuda.synchronize()
-    e0 = torch.cuda.Event(enable_timing=True)
-    e1 = torch.cuda.Event(enable_timing=True)
-    _HOLD[0] @ _HOLD[0]
-    _HOLD[0] @ _HOLD[0]
-    e0.record()
-    for _ in range(iters):
-        fn()
-    e1.record()
-    torch.cuda.synchronize()
-    return e0.elapsed_time(e1) / iters
-
-
-def bound(bytes_moved: float, ops: dict[str, float]) -> tuple[float, str]:
-    """Least time for the work: the larger of bytes over the memory rate
-    and, for each operation type, its count over that type's peak."""
-    t_bytes = bytes_moved / PEAK_BYTES_S
-    t_ops = max(n / PEAK_FLOPS[k] for k, n in ops.items())
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
-
-
 def k2_measure(y, n_unique: int, n_mels: int = 40) -> dict:
     """K2 at ``n_mels`` on ``y`` ([T] or [B, T], possibly a view with
     overlapping rows of ``n_unique`` distinct samples) against its plain
     version, with kernel, plain and library times and the bound."""
     import torch
 
-    from speech_diarization_tpu_torch.dsp.mel import (
-        _mel_filterbank_np, fused_log_mel, log_mel_spectrogram,
-    )
+    from speech_diarization_tpu_torch.dsp.mel import fused_log_mel, log_mel_spectrogram
 
-    n_fft, n_bins = 400, 201
+    n_fft = 400
     out = fused_log_mel(y, n_mels=n_mels)
     ref = log_mel_spectrogram(y, n_mels=n_mels).reshape(out.shape)
     torch.cuda.synchronize()
@@ -347,25 +327,10 @@ def k2_measure(y, n_unique: int, n_mels: int = 40) -> dict:
     err = (out - ref).abs().max().item()
     ref_max = ref.abs().max().item()
     tol = TOL_REL["fused_log_mel"] * ref_max
-    # the function's inputs: waveform, the two windowed [n_fft, n_bins]
-    # DFT bases and the mel filterbank, whatever form a kernel stores
-    k2_bytes = 4 * (n_unique + 2 * n_fft * n_bins + n_bins * n_mels
-                    + out.numel())
-    # the least operations the function needs, per frame: the even/odd
-    # fold about tap n_fft/2 (exact: the window and the cosines are
-    # symmetric, the sines antisymmetric) leaves n_fft/2 taps against
-    # the cosines and n_fft/2 - 1 against the sines.  A quiet band's log
-    # needs float32 accuracy, which the tensor cores give as three TF32
-    # products (3xTF32), so the DFT is counted three times at the TF32
-    # tensor-core rate.  The fold, power, the filterbank's nonzero
-    # weights only and the log at the float32 rate.
-    fb_nnz = int(np.count_nonzero(_mel_filterbank_np(
-        n_bins, 20.0, SR / 2 - 100.0, n_mels, SR)))
-    dft_ops = n_frames * (2 * (n_fft // 2) * n_bins
-                          + 2 * (n_fft // 2 - 1) * n_bins)
-    f32_ops = n_frames * (2 * (n_fft // 2 - 1) + 3 * n_bins + 2 * fb_nnz
-                          + 2 * n_mels)
-    b_ms, b_by = bound(k2_bytes, {"tf32_tensor": 3 * dft_ops, "f32": f32_ops})
+    # the function's work (ops/cost.py): bytes once, the fold's least
+    # operations with the DFT as three TF32 products
+    work = fused_log_mel_work(n_frames, n_mels, n_unique, n_fft, SR)
+    b_ms, b_by = bound(work["bytes"], work["ops"])
     win = torch.hann_window(n_fft, periodic=True, device=y.device)
     return {
         "shape": list(y.shape), "row_stride": y.stride(0) if y.ndim == 2 else None,
@@ -399,14 +364,8 @@ def k1_measure(net, x, n_w: int, first_f: int, hop_f: int = 10,
     err = (out - ref).abs().max().item()
     ref_max = ref.abs().max().item()
     cc, a_dim = x.shape[0], net.att_channels
-    n_rows = (n_w - 1) * hop_f + win_f
-    k1_bytes = (2 * n_rows * cc + 4 * n_w * a_dim + 2 * 2 * a_dim * cc
-                + 4 * (2 * a_dim + cc) + 4 * out.numel())
-    k1_tensor = 2 * n_rows * cc * a_dim + 2 * n_w * win_f * a_dim * cc
-    # per (window, row, channel): bias, max, sub, exp, sum, p*x (2),
-    # p*x^2 (3) = 10; per (window, row, a): bias, relu, BN fma, tanh = 5
-    k1_f32 = n_w * win_f * (10 * cc + 5 * a_dim)
-    b_ms, b_by = bound(k1_bytes, {"bf16_tensor": k1_tensor, "f32": k1_f32})
+    work = asp_grid_work(cc, a_dim, hop_f, win_f, n_w)
+    b_ms, b_by = bound(work["bytes"], work["ops"])
     return {
         "a_dim": a_dim, "a_padded": args[2].shape[0], "cc": cc, "windows": n_w,
         "max_abs_err": err, "tol": TOL_REL["asp_grid_stats"] * ref_max,
@@ -1444,6 +1403,210 @@ def training_phase(dev, smi, bench_cfg, der_pct) -> dict:
     return {"configs": out, "k2": k2_rows}
 
 
+# sliding mean: largest difference between two float32 computations of it,
+# relative to the input's largest magnitude (a float32 prefix sum over
+# 6,400 frames; tests/test_torch_sliding.py measures 7e-7 between the
+# port's and the JAX package's on the CPU)
+SLIDING_TOL_REL = 4e-6
+# the trunk with se_win 1201 on the card against the CPU, float32, TF32 off
+# (max abs error over the output, relative to its peak): cuDNN's float32
+# convolutions sum in another order than the CPU's
+TRUNK_TOL_REL = 1e-4
+# tests/test_webui.py's sliders (vad on/off/min-speech/min-silence/pad, SCD
+# threshold, clustering, max speakers, merge gap, max turn, min cosine,
+# frame reassignment)
+UI_SLIDERS = (0.5, 0.35, 250, 100, 30, 1.5, "ahc", 6, 0.5, 30.0, 0.8, True)
+
+
+def surface_phase(dev, enc) -> dict:
+    """Phase 7: the single-card public surface.  (a) every name of every
+    subpackage's ``__all__`` imports; (b) the CLI's ``diarize`` on a
+    ``.flac`` decoded by stub ``ffmpeg`` / ``ffprobe`` executables put first
+    on ``PATH`` (the stub ffmpeg writes the bench 60 s draw, as the WAV
+    holds it, as f32le; the same stub on every machine, and soundfile kept
+    out of the chain, so the run is the same everywhere): its RTTM equal to
+    the ``.wav`` run's, K1 and K2 launched; (c) the cumsum sliding mean on
+    the card: against the banded form at ``win`` 1025 on log-mel features
+    and trunk activations of 6,400 frames, against the CPU at 1201 and
+    2001, and the trunk with ``se_win=1201`` against the CPU; (d) bench
+    milestones 3.5 and 5 through ``scripts/torch_bench.py``'s functions;
+    (e) the web UI's slider config on ``make_tone_conversation(0)``, the
+    pipeline on the card against the CPU; (f) ``Profiler.trace`` around a
+    60 s pipeline call, its trace naming both kernels.  Returns the
+    launches by kernel over (b), (e) and (f) and the measurements."""
+    import importlib
+    import importlib.util
+    import os
+    import pkgutil
+    import tempfile
+
+    import torch
+
+    import speech_diarization_tpu_torch as port
+    from speech_diarization_tpu_torch import cli, webui
+    from speech_diarization_tpu_torch.config import DiarizationConfig
+    from speech_diarization_tpu_torch.dsp.mel import fused_log_mel
+    from speech_diarization_tpu_torch.io.audio import read_wav, write_wav
+    from speech_diarization_tpu_torch.models.layers import sliding_mean_time
+    from speech_diarization_tpu_torch.models.port import load_speaker_encoder
+    from speech_diarization_tpu_torch.ops import kernels
+    from speech_diarization_tpu_torch.pipelines.diarize import DiarizationPipeline
+    from speech_diarization_tpu_torch.train.synthetic import (
+        make_conversation, make_tone_conversation,
+    )
+    from speech_diarization_tpu_torch.utils.profiling import Profiler
+
+    t_phase = time.perf_counter()
+    out = {"launches": {k: 0 for k in kernels.LAUNCHES}, "launches_by_run": {}}
+
+    def counted(tag, fn):
+        kernels.reset_launches()
+        res = fn()
+        torch.cuda.synchronize()
+        out["launches_by_run"][tag] = dict(kernels.LAUNCHES)
+        for k, v in kernels.LAUNCHES.items():
+            out["launches"][k] += v
+        if not all(kernels.LAUNCHES.values()):
+            raise AssertionError(f"[7] {tag}: a kernel was not launched: "
+                                 f"{kernels.LAUNCHES}")
+        return res
+
+    # (a) exports
+    n_names = len(port.__all__)
+    for m in pkgutil.iter_modules(port.__path__):
+        if m.ispkg:
+            mod = importlib.import_module(f"{port.__name__}.{m.name}")
+            for name in getattr(mod, "__all__", ()):
+                getattr(mod, name)
+                n_names += 1
+    log(f"[7a] {n_names} exported names of the port and its subpackages import")
+
+    # (b) non-WAV decode through the stub ffmpeg, on the card
+    wave60, _ = make_conversation(np.random.default_rng(0), 60.0, n_speakers=3,
+                                  sr=SR)
+    path_env, sf = os.environ.get("PATH", ""), sys.modules.get("soundfile")
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        wav = tmp / "wav" / "x.wav"
+        write_wav(wav, wave60, SR)
+        raw = tmp / "x.f32"
+        raw.write_bytes(read_wav(wav)[0][0].astype("<f4").tobytes())
+        (tmp / "bin").mkdir()
+        (tmp / "bin" / "ffmpeg").write_text(f"#!/bin/sh\ncat '{raw}'\n")
+        (tmp / "bin" / "ffprobe").write_text("#!/bin/sh\necho 16000,1\n")
+        for name in ("ffmpeg", "ffprobe"):
+            (tmp / "bin" / name).chmod(0o755)
+        flac = tmp / "flac" / "x.flac"
+        flac.parent.mkdir()
+        flac.write_bytes(b"fLaC")
+        os.environ["PATH"] = f"{tmp / 'bin'}{os.pathsep}{path_env}"
+        sys.modules["soundfile"] = None
+        try:
+            rttm = {}
+            for kind, src in (("wav", wav), ("flac", flac)):
+                od = tmp / f"out_{kind}"
+                argv = ["diarize", str(src), "--out-dir", str(od), "--format", "rttm"]
+                t0 = time.perf_counter()
+                rc = (counted("cli_flac", lambda: cli.main(argv)) if kind == "flac"
+                      else cli.main(argv))
+                if rc != 0:
+                    raise AssertionError(f"[7b] cli diarize {src.name}: exit {rc}")
+                rttm[kind] = (od / "x.rttm").read_text().splitlines()
+                log(f"[7b] sdtpu-torch diarize {src.name} on the card: "
+                    f"{time.perf_counter() - t0:.2f} s, {len(rttm[kind])} RTTM lines")
+        finally:
+            os.environ["PATH"] = path_env
+            if sf is None:
+                sys.modules.pop("soundfile", None)
+            else:
+                sys.modules["soundfile"] = sf
+    log(f"[7b] .flac through the stub ffmpeg: RTTM equal to the .wav run's: "
+        f"{rttm['flac'] == rttm['wav']}; launches "
+        f"{out['launches_by_run']['cli_flac']}")
+    if not rttm["wav"] or rttm["flac"] != rttm["wav"]:
+        raise AssertionError("[7b] the .flac run's RTTM differs from the .wav run's")
+
+    # (c) the cumsum sliding mean on the card
+    enc32 = load_speaker_encoder(HERE / "weights" / "ecapa_robust_stream.npz")
+    y64 = torch.from_numpy(np.clip(make_conversation(
+        np.random.default_rng(2), 64.0, n_speakers=3, sr=SR)[0], -0.99, 0.99)).to(dev)
+    with torch.inference_mode():
+        feats = fused_log_mel(y64, n_mels=40)[:6400]              # [6400, 40]
+        net_c = enc32.net.to(dev)
+        trunk_c = net_c.trunk(feats[None])                         # [1, 768, T]
+    rows = {"log-mel [1, 40, 6400]": feats.T[None].contiguous(),
+            "trunk [1, 256, 6400]": trunk_c[:, :256].float().contiguous()}
+    sliding = {}
+    for tag, x in rows.items():
+        bar = SLIDING_TOL_REL * x.abs().max().item()
+        d = (sliding_mean_time(x, 1025, "cumsum")
+             - sliding_mean_time(x, 1025, "banded")).abs().max().item()
+        sliding[f"{tag} win 1025 cumsum vs banded"] = (d, bar)
+        for win in (1201, 2001):
+            d = (sliding_mean_time(x, win).cpu()
+                 - sliding_mean_time(x.cpu(), win)).abs().max().item()
+            sliding[f"{tag} win {win} card vs CPU"] = (d, bar)
+    with torch.inference_mode():
+        t_card = net_c.trunk(feats[None], se_win=1201).cpu()
+        net_p = load_speaker_encoder(HERE / "weights" / "ecapa_robust_stream.npz").net
+        t_cpu = net_p.trunk(feats[None].cpu(), se_win=1201)
+    sliding["trunk se_win 1201 card vs CPU"] = (
+        (t_card - t_cpu).abs().max().item(),
+        TRUNK_TOL_REL * t_cpu.abs().max().item())
+    for k, (d, bar) in sliding.items():
+        log(f"[7c] {k}: max difference {d:.3e} (bar {bar:.3e})")
+    if not all(d <= bar for d, bar in sliding.values()):
+        raise AssertionError("[7c] a sliding-mean difference is over its bar")
+    out["sliding"] = sliding
+
+    # (d) bench milestones 3.5 and 5
+    spec = importlib.util.spec_from_file_location(
+        "torch_bench", HERE / "scripts" / "torch_bench.py")
+    bench = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(bench)
+    out["mfu"] = bench.mfu_micro_bench(enc)
+    out["fbank"] = bench.fbank_micro_bench()
+    log(f"[7d] milestone 3.5: {out['mfu']}")
+    log(f"[7d] milestone 5: {out['fbank']}")
+
+    # (e) the web UI's compute on the card
+    cfg = webui._ui_config(*UI_SLIDERS)
+    tone, _ = make_tone_conversation(0)
+    y_ui, sr = webui.normalize_gradio_audio((SR, (tone * 32767).astype(np.int16)))
+    segs = {"cuda": counted("webui", lambda: DiarizationPipeline(cfg)((y_ui, sr)))
+            .segments,
+            "cpu": DiarizationPipeline(cfg, device="cpu")((y_ui, sr)).segments}
+    same = (len(segs["cuda"]) == len(segs["cpu"]) and all(
+        np.array_equal(getattr(segs["cuda"], f), getattr(segs["cpu"], f))
+        for f in ("starts", "ends", "spks")))
+    log(f"[7e] web UI config on the tone conversation: {len(segs['cuda'])} "
+        f"segments on the card, {len(segs['cpu'])} on the CPU, equal: {same}; "
+        f"launches {out['launches_by_run']['webui']}")
+    if not same:
+        raise AssertionError("[7e] the web UI's segments on the card differ "
+                             "from the CPU's")
+
+    # (f) Profiler.trace around one 60 s pipeline call
+    pipe = DiarizationPipeline(DiarizationConfig(), encoder=enc)
+    pipe((wave60, SR))
+    prof = Profiler()
+    with tempfile.TemporaryDirectory() as tmp:
+        with prof.trace(tmp):
+            with prof.span("diarize 60 s"):
+                counted("trace", lambda: pipe((wave60, SR)))
+        trace = (Path(tmp) / "trace.json").read_text()
+        kb = len(trace) // 1024
+    named = {k: k in trace for k in ("asp_preproj_kernel", "asp_window_kernel",
+                                     "fused_log_mel_kernel")}
+    log(f"[7f] Profiler.trace of a 60 s call ({prof.report()['diarize 60 s']['total_s']:.3f} "
+        f"s under the profiler): {kb} KiB, kernels named {named}")
+    if not all(named.values()):
+        raise AssertionError("[7f] the trace does not name both kernels")
+    out["wall"] = time.perf_counter() - t_phase
+    log(f"[7] surface phase took {out['wall']:.1f} s; launches {out['launches']}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1451,7 +1614,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(HERE))
     import speech_diarization_tpu_torch as port
 
     if Path(port.__file__).resolve().parents[1] != HERE:
@@ -2414,10 +2576,15 @@ def main() -> int:
     training = training_phase(dev, smi, bench_cfg, der_pct)
     rows[0]["training"] = training["k2"]
 
+    # ---------------------------------------------------------- phase 7 ----
+    surface = surface_phase(dev, enc)
+
     for r in rows:
         # this slice's path: the bench configuration at the shipped default
         r["launches"] = launches[True, 600][r["name"]]
         r["launches_overlap_off"] = launches[False, 600][r["name"]]
+        # phase 7: the non-WAV CLI run, the web UI's pipeline and the traced call
+        r["launches_surface"] = surface["launches"][r["name"]]
         # the noisy-input route on the 600 s file in white noise, through
         # GTCRN, ZipEnhancer and the demixer
         r["launches_noisy"] = noisy["white", 10.0, 600]["launches"][r["name"]]
@@ -2466,7 +2633,7 @@ def main() -> int:
     rows[1]["launches_options"] = {k: v["asp_grid_stats"] for k, v in opt_launches.items()}
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "launches_overlap_off", "launches_noisy", "launches_zipenhancer",
+            "launches_overlap_off", "launches_surface", "launches_noisy", "launches_zipenhancer",
             "launches_demix", "launches_zipenhancer-ref_white10_600s",
             "launches_htdemucs_white10_600s", "launch_shapes_published",
             "launches_options", "launches_engine", "batch",
@@ -2479,7 +2646,8 @@ def main() -> int:
         f"{({k: round(v['wall'], 4) for k, v in seeded['runs'].items()})} s, "
         f"eres2netv2 600 s {seeded['wall600']:.4f} s, published graphs "
         f"{({k: round(v['wall'], 4) for k, v in published['runs'].items()})} s, "
-        f"training steps {({k: round(v['step_ms'], 3) for k, v in training['configs'].items()})} ms; "
+        f"training steps {({k: round(v['step_ms'], 3) for k, v in training['configs'].items()})} ms, "
+        f"surface phase {surface['wall']:.1f} s; "
         f"the whole run took "
         f"{time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}

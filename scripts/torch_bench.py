@@ -17,7 +17,19 @@ milestones, on the same files and configuration:
    raw best pass; corpus DER is the mean over the six files.  A corpus
    error, or a corpus DER more than one point from the JAX pipeline's on
    the CPU on the same draws, either way (``scripts/torch_port_der_bar.py
-   --corpus``), exits nonzero (``bench.py`` logs corpus failures and goes on; this does not).
+   --corpus``), exits nonzero (``bench.py`` logs corpus failures and goes on; this does not);
+3.5. the embed chunk's roofline (``SDTPU_BENCH_MFU=0`` skips it): the
+   streaming grid's chunk (600 windows of 2 s at a 0.1 s hop, 4 s margins)
+   on the bf16 trunk, timed in a blocking loop and as back-to-back calls on
+   CUDA events (``_onchip``); its operations and bytes from
+   ``utils/profiling.py::model_complexity`` (the kernels' analytic counts
+   included) against the H100's peaks (``ops/cost.py``);
+5. opt-in (``SDTPU_BENCH_FBANK=1``): kernel K2 against the plain log-mel on
+   a ``[512, 16000]`` batch (CUDA events).
+
+A milestone that fails raises, and the script exits nonzero; no value is
+carried over from an earlier run (``bench.py`` falls back to a last-good
+file; this does not).
 
 Files are ``make_conversation(np.random.default_rng(0), D, n_speakers=3)``;
 the configuration is spectral clustering (max 8 speakers), the shipped
@@ -163,9 +175,29 @@ def main() -> int:
     extra = {"wall_s": round(wall, 4), "rtf_60s_bucket": round(small_rtf, 2),
              "der_pct": der, "der_60s_pct": small_der, **tag}
     emit(rtf, f"{int(FULL_S)}s_full", extra)
-    if os.environ.get("SDTPU_BENCH_CORPUS", "1") != "1":
+    if os.environ.get("SDTPU_BENCH_CORPUS", "1") == "1":
+        if corpus_milestone(pipe, cfg, score, extra) != 0:
+            return 1
+        emit(rtf, f"{int(FULL_S)}s_full", extra)
+    if args.cpu:
         return 0
-    # -- milestone 3: corpus throughput ----------------------------------------
+    # -- milestone 3.5: the embed chunk's roofline -------------------------------
+    if os.environ.get("SDTPU_BENCH_MFU", "1") == "1":
+        mfu = mfu_micro_bench(pipe.encoder)
+        log(f"mfu micro-bench: {mfu}")
+        extra.update(mfu)
+        emit(rtf, f"{int(FULL_S)}s_full", extra)
+    # -- milestone 5 (opt-in): K2 against the plain log-mel ----------------------
+    if os.environ.get("SDTPU_BENCH_FBANK", "0") == "1":
+        fb = fbank_micro_bench()
+        log(f"fbank micro-bench: {fb}")
+        emit(rtf, f"{int(FULL_S)}s_full", {**extra, **fb})
+    return 0
+
+
+def corpus_milestone(pipe, cfg, score, extra: dict) -> int:
+    """Milestone 3: corpus throughput; adds its keys to ``extra``; 1 on a
+    corpus error or a DER off the JAX CPU bar."""
     from speech_diarization_tpu_torch.pipelines.corpus import corpus_diarize
     from speech_diarization_tpu_torch.train.synthetic import make_conversation
 
@@ -205,13 +237,96 @@ def main() -> int:
                   "corpus_overhead_s": round(overhead, 4),
                   "corpus_der_pct": corpus_der,
                   "corpus_der_pct_files": [ders[i] for i in sorted(ders)]})
-    emit(rtf, f"{int(FULL_S)}s_full", extra)
     if FULL_S == 600.0:
         if not abs(corpus_der - JAX_CPU_CORPUS_DER_PCT) <= DER_SLACK_PCT:
             log(f"[corpus] DER {corpus_der}% more than {DER_SLACK_PCT} point "
                 f"from the JAX CPU {JAX_CPU_CORPUS_DER_PCT}%")
             return 1
     return 0
+
+
+def mfu_micro_bench(encoder, iters: int = 5, k: int = 16) -> dict:
+    """Milestone 3.5 (``bench.py::_mfu_micro_bench``) on the card: the
+    streaming grid's chunk (600 windows of 2 s at a 0.1 s hop with 4 s
+    margins: one K2 launch, the trunk, one K1 launch) of ``encoder`` on a
+    seeded draw.  ``embed_chunk_ms`` is the mean of ``iters`` blocking
+    calls (each synchronized); the ``_onchip`` keys time ``k``
+    back-to-back calls on CUDA events.  Operations and bytes are
+    ``model_complexity``'s (products only; bytes with no fusion; K1's and
+    K2's analytic counts added), against the H100's bf16 tensor peak and
+    memory rate."""
+    import torch
+
+    from speech_diarization_tpu_torch.ops.cost import PEAK_BYTES_S, PEAK_FLOPS
+    from speech_diarization_tpu_torch.ops import kernels
+    from speech_diarization_tpu_torch.utils.profiling import (
+        cuda_time_ms, model_complexity,
+    )
+
+    win, hop, wpc = 2 * SR, SR // 10, 600
+    margin = 4 * SR
+    span = 2 * margin + (wpc - 1) * hop + win
+    seg = torch.from_numpy(np.random.default_rng(0).standard_normal(span)
+                           .astype(np.float32)).cuda()
+
+    def chunk():
+        return encoder.encode_grid_chunk(seg, wpc, margin, win, hop)
+
+    out = {}
+    with torch.inference_mode():
+        with kernels.tally() as launched:
+            cost = model_complexity(chunk)
+        k1 = [w for name, w in launched if name == "asp_grid_stats"]
+        k2 = [w for name, w in launched if name == "fused_log_mel"]
+        if len(k1) != 1 or len(k2) != 1:
+            raise RuntimeError(f"the embed chunk launched K1 {len(k1)} and K2 "
+                               f"{len(k2)} times (expected once each)")
+        flops, nbytes = cost["flops"], cost["bytes_accessed"]
+        out["asp_kernel_gflops"] = round(k1[0]["flops"] / 1e9, 4)
+        out["fbank_kernel_gflops"] = round(k2[0]["flops"] / 1e9, 4)
+        chunk()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            chunk()
+            torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / iters
+        dtc = cuda_time_ms(chunk, k) / 1e3
+    peak = PEAK_FLOPS["bf16_tensor"]
+    out["embed_chunk_ms"] = round(dt * 1e3, 4)
+    out["embed_gflops"] = round(flops / 1e9, 4)
+    out["embed_gbytes"] = round(nbytes / 1e9, 4)
+    out["mfu_embed"] = round(flops / dt / peak, 5)
+    out["embed_hbm_frac"] = round(nbytes / dt / PEAK_BYTES_S, 5)
+    out["embed_arith_intensity"] = round(flops / max(nbytes, 1.0), 2)
+    out["embed_chunk_ms_onchip"] = round(dtc * 1e3, 4)
+    out["mfu_embed_onchip"] = round(flops / dtc / peak, 5)
+    out["embed_hbm_frac_onchip"] = round(nbytes / dtc / PEAK_BYTES_S, 5)
+    return out
+
+
+def fbank_micro_bench(batch: int = 512, t: int = 16000, iters: int = 20) -> dict:
+    """Milestone 5 (``bench.py::_fbank_micro_bench``) on the card: K2
+    (``fused_log_mel``) against the plain log-mel (the framed matrix-product
+    form, the JAX 'matmul' backend) on a seeded ``[batch, t]`` batch, 40
+    mels (the encoder's front end); each the mean of ``iters`` calls on
+    CUDA events, with K2's largest difference from the plain output."""
+    import torch
+
+    from speech_diarization_tpu_torch.dsp.mel import fused_log_mel, log_mel_spectrogram
+    from speech_diarization_tpu_torch.utils.profiling import cuda_time_ms
+
+    wavs = torch.from_numpy(np.random.default_rng(0).standard_normal((batch, t))
+                            .astype(np.float32)).cuda()
+    with torch.inference_mode():
+        err = (fused_log_mel(wavs, n_mels=40)
+               - log_mel_spectrogram(wavs, n_mels=40)).abs().max().item()
+        return {"fbank_shape": [batch, t],
+                "fbank_fused_ms": round(cuda_time_ms(
+                    lambda: fused_log_mel(wavs, n_mels=40), iters), 4),
+                "fbank_matmul_ms": round(cuda_time_ms(
+                    lambda: log_mel_spectrogram(wavs, n_mels=40), iters), 4),
+                "fbank_max_abs_err": err}
 
 
 if __name__ == "__main__":

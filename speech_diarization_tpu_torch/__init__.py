@@ -25,6 +25,8 @@ from .config import (
     OverlapConfig,
     ResegConfig,
     ScdConfig,
+    ShardingConfig,
+    StemsConfig,
     VadConfig,
     config_from_dict,
     config_to_dict,
@@ -42,6 +44,8 @@ __all__ = [
     "OverlapConfig",
     "ResegConfig",
     "ScdConfig",
+    "ShardingConfig",
+    "StemsConfig",
     "VadConfig",
     "config_from_dict",
     "config_to_dict",

@@ -2,17 +2,22 @@
 AS-Norm (torch): spectral (the numpy path of the JAX package, ROADMAP F2),
 AHC, HDBSCAN and two-stage HDBSCAN, and :func:`cluster_embeddings`, the
 dispatcher over them (``diar_diag.py:213-229``)."""
-from .affinity import asnorm_scores, l2_normalize, whiten
+from .affinity import asnorm_scores, cosine_affinity, l2_normalize, whiten
 from .ahc import ahc_cluster
 from .density import hdbscan_cleaned, hdbscan_cluster, hdbscan_two_stage
 from .kmeans import farthest_point_init, kmeans
-from .spectral import bisect_windows, refine_labels_by_windows, spectral_cluster
+from .spectral import (
+    bisect_windows, estimate_num_speakers, refine_labels_by_windows,
+    spectral_cluster,
+)
 
 __all__ = [
     "ahc_cluster",
     "asnorm_scores",
     "bisect_windows",
     "cluster_embeddings",
+    "cosine_affinity",
+    "estimate_num_speakers",
     "farthest_point_init",
     "hdbscan_cleaned",
     "hdbscan_cluster",

@@ -1,5 +1,6 @@
-"""Whitening and adaptive score normalization as torch functions on tensors
-of any device: the JAX package's ``cluster/affinity.py``.
+"""Cosine affinity, whitening and adaptive score normalization as torch
+functions on tensors of any device: the JAX package's
+``cluster/affinity.py``.
 
 ``whiten`` is the pipeline's ``EmbedConfig.whiten`` step before
 clustering; ``asnorm_scores`` is the AS-Norm of the reference's diagnostic
@@ -13,6 +14,12 @@ import torch
 
 def l2_normalize(x: torch.Tensor, eps: float = 1e-8, dim: int = -1) -> torch.Tensor:
     return x / (torch.linalg.norm(x, dim=dim, keepdim=True) + eps)
+
+
+def cosine_affinity(embs: torch.Tensor) -> torch.Tensor:
+    """[N, D] -> [N, N] cosine similarity (one product)."""
+    e = l2_normalize(embs)
+    return e @ e.T
 
 
 def whiten(embs: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:

@@ -7,16 +7,31 @@ JAX package's numpy mirror ``_spectral_labels_np`` — the path its main path
 ran on the TPU — not its jitted CPU path.  The power suppresses moderate
 cross-speaker similarity without destroying its ordering; the ``eps`` floor
 keeps outlier rows weakly connected (an isolated node would fake one extra
-"speaker").
+"speaker").  :func:`estimate_num_speakers` is the same eigengap rule on
+a tensor of eigenvalues (the JAX package's public helper).
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from .kmeans import kmeans
 
 _SHARPEN_P = 3.0   # affinity sharpening power
 _EDGE_EPS = 1e-4   # weak-connectivity floor
+
+
+def estimate_num_speakers(eigvals: torch.Tensor, min_speakers: int,
+                          max_speakers: int) -> torch.Tensor:
+    """Eigengap heuristic on ascending normalized-Laplacian eigenvalues:
+    ``k = argmax(lambda_{i+1} - lambda_i)`` over the allowed range, as a 0-d
+    int32 tensor."""
+    kmax = min(max_speakers, eigvals.shape[0] - 1)
+    gaps = eigvals[1:kmax + 1] - eigvals[:kmax]     # gap i -> k = i+1 clusters
+    idx = torch.arange(1, kmax + 1, device=eigvals.device)
+    allowed = (idx >= min_speakers) & (idx <= max_speakers)
+    gaps = torch.where(allowed, gaps, torch.full_like(gaps, -float("inf")))
+    return (torch.argmax(gaps) + 1).to(torch.int32)
 
 
 def _spectral_labels_np(

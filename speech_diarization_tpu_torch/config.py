@@ -4,9 +4,9 @@ A copy of the JAX package's schema, field for field and default for
 default, so that a config written for one package hydrates the other.
 Every duration field carries its unit (``_s`` seconds, ``_ms``
 milliseconds); every entry point hydrates the same frozen dataclasses by
-keyword.  The port reads the fields of the stages it runs; the pipeline
-refuses (``NotImplementedError``) settings that would need a stage that is
-not ported yet, such as ``overlap.enabled`` or ``reseg.enabled``.
+keyword.  The port reads the fields of the stages it runs;
+``ShardingConfig`` (the JAX package's device mesh) is kept for the schema
+and read by none of them.
 """
 from __future__ import annotations
 

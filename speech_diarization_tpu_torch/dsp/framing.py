@@ -6,6 +6,7 @@ until a consumer needs one.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -35,3 +36,10 @@ def frame_signal(y: torch.Tensor, win: int, hop: int,
     if needed > t:
         y = F.pad(y, (0, needed - t))
     return y[..., :needed].unfold(-1, win, hop)
+
+
+def frame_index_grid(n_samples: int, win: int, hop: int,
+                     pad_tail: bool = True) -> np.ndarray:
+    """Start sample of each frame of :func:`frame_signal` (host, for
+    timestamp math)."""
+    return hop * np.arange(num_frames(n_samples, win, hop, pad_tail))

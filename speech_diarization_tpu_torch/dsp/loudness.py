@@ -113,6 +113,38 @@ def integrated_loudness(y: torch.Tensor, fs: int) -> torch.Tensor:
     return torch.where(n_g > 0, lufs, torch.full_like(lufs, -200.0))
 
 
+def integrated_loudness_host(y: np.ndarray, fs: int) -> float:
+    """Host (numpy / scipy) integrated loudness: the exact IIR cascade by
+    ``lfilter`` in float64 and the same BS.1770-4 gating.  An oracle for
+    tests and offline tooling (about 1 M samples/s on a host core, so the
+    pipelines meter on the device instead)."""
+    from scipy import signal as sps
+
+    z = np.asarray(y, np.float64)
+    for b, a in k_weighting_coeffs(float(fs)):
+        z = sps.lfilter(b, a, z)
+    block = int(round(0.400 * fs))
+    hop = int(round(0.100 * fs))
+    if z.shape[-1] < block:
+        ms = float(np.mean(z * z))
+        return -0.691 + 10.0 * np.log10(max(ms, 1e-20))
+    n = (z.shape[-1] - block) // hop + 1
+    # energy per 400 ms block at 75 % overlap from a cumulative sum (O(T))
+    cs = np.concatenate([[0.0], np.cumsum(z * z)])
+    starts = hop * np.arange(n)
+    msq = (cs[starts + block] - cs[starts]) / block
+    lb = -0.691 + 10.0 * np.log10(np.maximum(msq, 1e-20))
+    abs_gate = lb > -70.0
+    if not abs_gate.any():
+        return -200.0
+    mean_abs = msq[abs_gate].mean()
+    rel_thresh = -0.691 + 10.0 * np.log10(max(mean_abs, 1e-20)) - 10.0
+    gate = abs_gate & (lb > rel_thresh)
+    if not gate.any():
+        return -200.0
+    return -0.691 + 10.0 * np.log10(max(float(msq[gate].mean()), 1e-20))
+
+
 def loudness_normalize(y: torch.Tensor, fs: int, target_lufs: float = -18.0,
                        clip: float = 0.99) -> torch.Tensor:
     """Scale ``y`` to the target integrated loudness metered over the whole

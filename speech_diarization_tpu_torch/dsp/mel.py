@@ -35,7 +35,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from ..ops import kernels
+from ..ops import cost, kernels
 
 
 def _hz_to_mel(f):
@@ -62,6 +62,14 @@ def _mel_filterbank_np(
     up = slopes[:, 2:] / f_diff[None, 1:]
     fb = np.maximum(0.0, np.minimum(down, up))
     return fb.astype(np.float32)
+
+
+def mel_filterbank(n_freqs: int, f_min: float, f_max: float, n_mels: int,
+                   sample_rate: int, device=None) -> torch.Tensor:
+    """Triangular HTK-scale mel filterbank [n_freqs, n_mels] float32 on
+    ``device`` (the CPU by default)."""
+    return torch.from_numpy(_mel_filterbank_np(
+        n_freqs, f_min, f_max, n_mels, sample_rate).copy()).to(device)
 
 
 @lru_cache(maxsize=8)
@@ -329,6 +337,10 @@ def fused_log_mel(y: torch.Tensor, sample_rate: int = 16000, n_mels: int = 80,
         out.data_ptr(), n_frames,
         torch.cuda.current_stream(y.device).cuda_stream,
         form="[T]" if y.ndim == 1 else "[B, T]",
+        work=lambda: cost.fused_log_mel_work(
+            n_batch * n_frames, n_mels,
+            min(n_batch * t, (n_batch - 1) * row_stride + t), n_fft,
+            sample_rate),
         shape=(f"[T] {n_mels} mels" if y.ndim == 1
                else f"[B, T] rows of {t} at a stride of {row_stride}, "
                     f"{n_mels} mels"))

@@ -1,13 +1,17 @@
-"""STFT / iSTFT over real-pair spectra, with the JAX package's semantics
-(``dsp/stft.py::stft_ri`` / ``istft_ri``) at the GTCRN runner's settings:
-``center=True`` reflect padding, a periodic sqrt-Hann window of ``n_fft``
-points, spectra as ``[..., n_bins, n_frames, 2]`` (real, imag), and a
+"""STFT / iSTFT with the JAX package's semantics (``dsp/stft.py``):
+``center=True`` reflect padding by default, a periodic sqrt-Hann window of
+``win_length`` points centred in ``n_fft`` unless one is given, and a
 length-restoring inverse with window-square normalization.
 
-Both directions are float32 matrix products against the real-DFT bases
-(one product each: cosine and sine columns side by side), as the JAX
-package computes them; TF32 must be off on the card
-(``utils.device.disable_tf32``).
+:func:`stft_ri` / :func:`istft_ri` take spectra as real pairs
+``[..., n_bins, n_frames, 2]`` (real, imag): float32 matrix products
+against the real-DFT bases (one product each: cosine and sine columns side
+by side), as the JAX package computes them; TF32 must be off on the card
+(``utils.device.disable_tf32``).  :func:`stft` / :func:`istft` take complex
+``[..., n_bins, n_frames]`` spectra: the same products by default
+(``matmul``), or ``torch.fft.rfft`` / ``irfft`` as the JAX package's FFT
+form.  The products give an exact zero for the imaginary part of the DC
+and Nyquist bins; an FFT keeps rounding noise there.
 """
 from __future__ import annotations
 
@@ -83,15 +87,59 @@ def _const(name: str, n_fft: int, device) -> torch.Tensor:
     return _CONSTS[key]
 
 
-def stft_ri(y: torch.Tensor, n_fft: int = 512, hop: int = 256) -> torch.Tensor:
-    """[T] or [B, T] float32 -> real pairs [..., n_bins, 1 + T//hop, 2]."""
+def _window(n_fft: int, win_length: int | None, window: torch.Tensor | None,
+            device) -> torch.Tensor:
+    """The analysis / synthesis window as ``n_fft`` points: sqrt-Hann of
+    ``win_length`` unless ``window`` is given, zero-padded to ``n_fft`` on
+    both sides when shorter."""
+    win_length = win_length or n_fft
+    if window is None:
+        window = sqrt_hann_window(win_length, device=device)
+    else:
+        window = window.to(device=device, dtype=torch.float32)
+    if win_length < n_fft:
+        lpad = (n_fft - win_length) // 2
+        window = F.pad(window, (lpad, n_fft - win_length - lpad))
+    return window
+
+
+def _frames(y: torch.Tensor, n_fft: int, hop: int, window: torch.Tensor,
+            center: bool) -> torch.Tensor:
+    """[B, T] -> windowed frames [B, n, n_fft] (reflect-padded by
+    ``n_fft // 2`` when ``center``; no frame past the end)."""
+    if center:
+        pad = n_fft // 2
+        y = F.pad(y, (pad, pad), mode="reflect")
+    return y.unfold(-1, n_fft, hop) * window
+
+
+def _synthesize(frames: torch.Tensor, window: torch.Tensor, hop: int,
+                n_fft: int, center: bool, length: int | None) -> torch.Tensor:
+    """Windowed overlap-add of [B, n, n_fft] frames, normalized by the
+    overlapped squared window, trimmed of the centre pads."""
+    frames = frames * window
+    y = overlap_add(frames, hop)
+    wsq = overlap_add((window * window).expand(1, frames.shape[1], n_fft), hop)
+    y = y / torch.clamp(wsq, min=1e-11)
+    if center:
+        pad = n_fft // 2
+        y = y[:, pad:]
+        y = y[:, :length] if length is not None else y[:, :y.shape[1] - pad]
+    elif length is not None:
+        y = y[:, :length]
+    return y
+
+
+def stft_ri(y: torch.Tensor, n_fft: int = 512, hop: int = 256,
+            win_length: int | None = None, window: torch.Tensor | None = None,
+            center: bool = True) -> torch.Tensor:
+    """[T] or [B, T] float32 -> real pairs [..., n_bins, n_frames, 2]
+    (``1 + T//hop`` frames when ``center``)."""
     squeeze = y.ndim == 1
     if squeeze:
         y = y[None]
-    pad = n_fft // 2
-    y = F.pad(y, (pad, pad), mode="reflect")
-    frames = (y.unfold(-1, n_fft, hop)
-              * sqrt_hann_window(n_fft, device=y.device))      # [B, n, n_fft]
+    frames = _frames(y, n_fft, hop, _window(n_fft, win_length, window, y.device),
+                     center)                                     # [B, n, n_fft]
     n_bins = n_fft // 2 + 1
     ri = (frames @ _const("dft", n_fft, y.device)).reshape(
         *frames.shape[:2], 2, n_bins)                            # [B, n, 2, k]
@@ -100,20 +148,62 @@ def stft_ri(y: torch.Tensor, n_fft: int = 512, hop: int = 256) -> torch.Tensor:
 
 
 def istft_ri(spec_ri: torch.Tensor, n_fft: int = 512, hop: int = 256,
-             length: int | None = None) -> torch.Tensor:
+             length: int | None = None, win_length: int | None = None,
+             window: torch.Tensor | None = None,
+             center: bool = True) -> torch.Tensor:
     """Real pairs [..., n_bins, n_frames, 2] -> [..., T] (``length`` samples
     when given, else the frames' span less the centre pads)."""
-    window = sqrt_hann_window(n_fft, device=spec_ri.device)
     squeeze = spec_ri.ndim == 3
     if squeeze:
         spec_ri = spec_ri[None]
     ri = spec_ri.permute(0, 2, 3, 1)                             # [B, n, 2, k]
     frames = ri.reshape(*ri.shape[:2], -1) @ _const("idft", n_fft, spec_ri.device)
-    frames = frames * window                                     # [B, n, n_fft]
-    y = overlap_add(frames, hop)
-    wsq = overlap_add((window * window).expand(1, frames.shape[1], n_fft), hop)
-    y = y / torch.clamp(wsq, min=1e-11)
-    pad = n_fft // 2
-    y = y[:, pad:]
-    y = y[:, :length] if length is not None else y[:, :y.shape[1] - pad]
+    y = _synthesize(frames, _window(n_fft, win_length, window, spec_ri.device),
+                    hop, n_fft, center, length)
+    return y[0] if squeeze else y
+
+
+def spec_as_real(spec: torch.Tensor) -> torch.Tensor:
+    """complex [..., F, T] -> real [..., F, T, 2] (real, imag)."""
+    return torch.stack([spec.real, spec.imag], dim=-1)
+
+
+def real_as_spec(x: torch.Tensor) -> torch.Tensor:
+    """real [..., F, T, 2] -> complex [..., F, T]."""
+    return torch.complex(x[..., 0].contiguous(), x[..., 1].contiguous())
+
+
+def stft(y: torch.Tensor, n_fft: int = 512, hop: int = 256,
+         win_length: int | None = None, window: torch.Tensor | None = None,
+         center: bool = True, matmul: bool | None = None) -> torch.Tensor:
+    """STFT of [..., T] -> complex64 [..., n_bins, n_frames] (torch layout).
+    ``matmul`` (the default, None) forms it from :func:`stft_ri`'s
+    products; ``matmul=False`` with ``torch.fft.rfft``."""
+    if matmul is None or matmul:
+        return real_as_spec(stft_ri(y, n_fft, hop, win_length, window, center))
+    squeeze = y.ndim == 1
+    if squeeze:
+        y = y[None]
+    frames = _frames(y, n_fft, hop, _window(n_fft, win_length, window, y.device),
+                     center)
+    spec = torch.fft.rfft(frames, n=n_fft, dim=-1).transpose(1, 2)
+    return spec[0] if squeeze else spec
+
+
+def istft(spec: torch.Tensor, n_fft: int = 512, hop: int = 256,
+          win_length: int | None = None, window: torch.Tensor | None = None,
+          center: bool = True, length: int | None = None,
+          matmul: bool | None = None) -> torch.Tensor:
+    """Inverse STFT of complex [..., n_bins, n_frames] -> [..., T]: weighted
+    overlap-add with window-square normalization.  ``matmul`` as in
+    :func:`stft`."""
+    if matmul is None or matmul:
+        return istft_ri(spec_as_real(spec), n_fft, hop, length, win_length,
+                        window, center)
+    squeeze = spec.ndim == 2
+    if squeeze:
+        spec = spec[None]
+    frames = torch.fft.irfft(spec.transpose(1, 2), n=n_fft, dim=-1)
+    y = _synthesize(frames, _window(n_fft, win_length, window, spec.device),
+                    hop, n_fft, center, length)
     return y[0] if squeeze else y

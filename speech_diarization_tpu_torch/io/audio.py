@@ -1,12 +1,17 @@
-"""Host-side audio I/O: WAV decode, mono mix and polyphase resampling
-(mono input through the native resampler when it builds, as in the JAX
-package; else scipy's, the same filter).
+"""Host-side audio I/O: decode, mono mix and polyphase resampling (mono
+input through the native resampler when it builds, as in the JAX package;
+else scipy's, the same filter).
 
-WAV (PCM 8/16/24/32) is decoded with numpy; other containers are not read by
-this package yet (convert to WAV first).
+WAV (PCM 8/16/24/32) is decoded with numpy.  Other containers (flac, mp3,
+ogg, m4a, ...) go through ``soundfile`` when it imports, else an ``ffmpeg``
+subprocess when one is on ``PATH`` (``ffprobe`` reads the rate and channel
+count), else :func:`read_audio` raises ``RuntimeError``: the JAX package's
+order and error.
 """
 from __future__ import annotations
 
+import shutil
+import subprocess
 import wave
 from pathlib import Path
 
@@ -58,12 +63,59 @@ def write_wav(path: str | Path, y: np.ndarray, sr: int) -> None:
         w.writeframes(pcm.tobytes())
 
 
+def _read_soundfile(path: Path) -> tuple[np.ndarray, int] | None:
+    try:
+        import soundfile as sf  # optional dependency
+    except ImportError:
+        return None
+    data, sr = sf.read(str(path), always_2d=True)
+    return data.astype(np.float32).T, sr
+
+
+def _read_ffmpeg(path: Path) -> tuple[np.ndarray, int] | None:
+    """Decode through ``ffmpeg`` as interleaved float32.  The rate and the
+    channel count come from ``ffprobe``; when it is absent or fails, the
+    rate is 16 kHz and ffmpeg downmixes to mono (``-ac 1``), since a raw
+    stream of unknown width cannot be deinterleaved (the JAX package's
+    rule)."""
+    ffmpeg = shutil.which("ffmpeg")
+    ffprobe = shutil.which("ffprobe")
+    if not ffmpeg:
+        return None
+    sr, n_ch = 16000, None
+    if ffprobe:
+        try:
+            out = subprocess.run(
+                [ffprobe, "-v", "quiet", "-select_streams", "a:0",
+                 "-show_entries", "stream=sample_rate,channels",
+                 "-of", "csv=p=0", str(path)],
+                capture_output=True, text=True, check=True,
+            ).stdout.strip()
+            fields = out.splitlines()[0].split(",")
+            sr = int(fields[0])
+            if len(fields) > 1:
+                n_ch = int(fields[1])
+        except (OSError, subprocess.SubprocessError, IndexError, ValueError):
+            # an unreadable probe leaves the defaults, as in the JAX package
+            pass
+    ac = ["-ac", str(n_ch)] if n_ch else ["-ac", "1"]
+    proc = subprocess.run(
+        [ffmpeg, "-v", "quiet", "-i", str(path), "-f", "f32le",
+         "-acodec", "pcm_f32le", "-ar", str(sr), *ac, "-"],
+        capture_output=True, check=True,
+    )
+    data = np.frombuffer(proc.stdout, dtype="<f4")
+    ch = n_ch or 1
+    data = data[: (len(data) // ch) * ch]
+    return np.ascontiguousarray(data.reshape(-1, ch).T), sr
+
+
 def read_audio(
     source: str | Path | tuple[np.ndarray, int],
     target_sr: int | None = 16000,
     mono: bool = True,
 ) -> tuple[np.ndarray, int]:
-    """Load audio from a WAV path or an (array, sr) pair; optionally mono-mix
+    """Load audio from a path or an (array, sr) pair; optionally mono-mix
     and resample.  Returns (float32 [T] if mono else [C, T], sr).  Arrays may
     be [T], [C, T] or [T, C]."""
     if isinstance(source, tuple):
@@ -75,11 +127,16 @@ def read_audio(
             y = y[None, :]
     else:
         path = Path(source)
-        if path.suffix.lower() != ".wav":
-            raise NotImplementedError(
-                f"cannot decode {path.suffix}: this package reads WAV only; "
-                "convert to WAV first")
-        y, sr = read_wav(path)
+        if path.suffix.lower() == ".wav":
+            y, sr = read_wav(path)
+        else:
+            got = _read_soundfile(path) or _read_ffmpeg(path)
+            if got is None:
+                raise RuntimeError(
+                    f"cannot decode {path.suffix} (no soundfile/ffmpeg available); "
+                    "convert to WAV first"
+                )
+            y, sr = got
     if mono and y.shape[0] > 1:
         y = y.mean(axis=0, keepdims=True)
     if target_sr is not None and sr != target_sr:

@@ -70,3 +70,22 @@ def save_csv(path: str | Path, segs: SegmentArray) -> None:
         w = csv.DictWriter(f, fieldnames=["start", "end", "speaker"])
         w.writeheader()
         w.writerows(entries)
+
+
+def parse_rttm(path: str | Path) -> SegmentArray:
+    """Read SPEAKER lines back into a SegmentArray; speaker names become
+    contiguous ints in order of first appearance."""
+    import numpy as np
+
+    starts, ends, names = [], [], []
+    with open(path, encoding="utf-8") as f:
+        for line in f:
+            parts = line.split()
+            if len(parts) >= 8 and parts[0] == "SPEAKER":
+                starts.append(float(parts[3]))
+                ends.append(float(parts[3]) + float(parts[4]))
+                names.append(parts[7])
+    ids: dict[str, int] = {}
+    spks = [ids.setdefault(n, len(ids)) for n in names]
+    return SegmentArray(np.array(starts), np.array(ends),
+                        np.array(spks, dtype=np.int32))

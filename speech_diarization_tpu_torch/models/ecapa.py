@@ -27,7 +27,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops import kernels
+from ..ops import cost, kernels
 from .layers import batch_norm_apply, conv1d_torch, sliding_mean_time
 
 
@@ -419,7 +419,10 @@ def asp_grid_stats(x: torch.Tensor, bw: torch.Tensor, w1x: torch.Tensor,
         w2_b.data_ptr(), a_dim, hop_f, win_f, n_windows, n_rows,
         x_t.data_ptr(), hx.data_ptr(), out.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
-        shape=f"A {a_dim}, CC {cc}")
+        shape=f"A {a_dim}, CC {cc}",
+        # the net's own width: fold_k1's zero padding adds all-zero w2 columns
+        work=lambda: cost.asp_grid_work(cc, int((w2 != 0).any(0).sum()), hop_f,
+                                        win_f, n_windows))
     return out
 
 

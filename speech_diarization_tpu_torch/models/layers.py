@@ -1,6 +1,8 @@
 """NN primitives with the JAX package's semantics and torch weight layouts."""
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 import torch.nn as nn
@@ -114,7 +116,8 @@ def _counts(t: int, h0: int, h1: int, device) -> torch.Tensor:
     return _CONSTS[key]
 
 
-def sliding_mean_time(x: torch.Tensor, win: int) -> torch.Tensor:
+def sliding_mean_time(x: torch.Tensor, win: int,
+                      backend: str = "auto") -> torch.Tensor:
     """Centered moving average over the trailing (time) axis, same length.
 
     Edge positions average over the clamped valid range (a shrinking window):
@@ -123,25 +126,41 @@ def sliding_mean_time(x: torch.Tensor, win: int) -> torch.Tensor:
     An off-by-one here shifts every embedding near a chunk edge, which shows
     only in the cross-chunk stitch.
 
-    The sum is the JAX package's banded form (what its main path ran for
-    half-widths up to 512): blocks of ``B`` frames contract a [3B, B] 0/1
-    band matrix in float32 (TF32 off on the card).  Returns ``x.dtype``.
+    ``backend``, as in the JAX package: ``banded`` contracts blocks of ``B``
+    frames against a [3B, B] 0/1 band matrix in float32 (TF32 off on the
+    card); ``cumsum`` differences a float32 prefix sum over an
+    edge-replicated padding of it (two static slices; its rounding grows
+    with the prefix, see PERF.md); ``auto`` takes ``SDTPU_SLIDING_BACKEND``
+    when set, else banded for half-widths up to 512 and cumsum above.
+    Returns ``x.dtype``.
     """
     t = x.shape[-1]
     h0 = win // 2
     h1 = win - 1 - h0
-    if max(h0, h1) > 512:
-        raise NotImplementedError("sliding_mean_time: half-width above 512 "
-                                  "(the cumsum form) is not ported")
     cnt = _counts(t, h0, h1, x.device)
-    b = max(128, -(-max(h0, h1, 1) // 128) * 128)
-    n = -(-t // b)
-    xp = F.pad(x.float(), (0, n * b - t))
-    xb = xp.reshape(*x.shape[:-1], n, b)
-    zero = torch.zeros_like(xb[..., :1, :])
-    prev = torch.cat([zero, xb[..., :-1, :]], dim=-2)
-    nxt = torch.cat([xb[..., 1:, :], zero], dim=-2)
-    x3 = torch.cat([prev, xb, nxt], dim=-1)                 # [..., n, 3B]
-    s = x3 @ _band(b, h0, h1, x.device)
-    s = s.reshape(*x.shape[:-1], n * b)[..., :t]
+    if backend == "auto":
+        backend = os.environ.get("SDTPU_SLIDING_BACKEND", "auto")
+    if backend == "auto":
+        backend = "banded" if max(h0, h1) <= 512 else "cumsum"
+    if backend == "banded":
+        b = max(128, -(-max(h0, h1, 1) // 128) * 128)
+        n = -(-t // b)
+        xp = F.pad(x.float(), (0, n * b - t))
+        xb = xp.reshape(*x.shape[:-1], n, b)
+        zero = torch.zeros_like(xb[..., :1, :])
+        prev = torch.cat([zero, xb[..., :-1, :]], dim=-2)
+        nxt = torch.cat([xb[..., 1:, :], zero], dim=-2)
+        x3 = torch.cat([prev, xb, nxt], dim=-1)             # [..., n, 3B]
+        s = x3 @ _band(b, h0, h1, x.device)
+        s = s.reshape(*x.shape[:-1], n * b)[..., :t]
+        return (s / cnt).to(x.dtype)
+    if backend != "cumsum":
+        raise ValueError(f"sliding_mean_time: unknown backend {backend!r}")
+    cs = torch.cumsum(x.float(), dim=-1)
+    # padded[i] = cs[clip(i - h0, 0, t)] with cs[0] = 0: the window sum of
+    # position p is padded[p + win] - padded[p]
+    lead = cs.shape[:-1]
+    padded = torch.cat([cs.new_zeros(*lead, h0 + 1), cs,
+                        cs[..., -1:].expand(*lead, h1)], dim=-1)
+    s = padded[..., win:win + t] - padded[..., :t]
     return (s / cnt).to(x.dtype)

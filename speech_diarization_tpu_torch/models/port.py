@@ -111,6 +111,17 @@ def save_params_npz(params: dict, path: str | Path,
     np.savez(str(path), **arrays)
 
 
+def update_params_meta(path: str | Path, **updates) -> dict:
+    """Merge ``updates`` into a checkpoint's ``__meta__`` sidecar in place
+    (e.g. a calibrated ``refine_sub_cos``); the arrays are kept as stored
+    (float16 stays float16).  Returns the merged meta."""
+    with np.load(str(path)) as data:
+        arrays = {k: data[k] for k in data.files if k != "__meta__"}
+    meta = load_params_meta(path) | updates
+    save_params_npz(arrays, path, meta=meta)
+    return meta
+
+
 def params_from_numpy(flat: dict[str, np.ndarray], arch_meta: dict,
                       kind: str | None = None, dtype=None) -> torch.nn.Module:
     """Rebuild a net from its architecture meta and load ``flat`` into it.

@@ -24,6 +24,7 @@ tells apart the callers that share one form.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -54,6 +55,8 @@ KERNELS = {
 }
 
 LAUNCHES: dict[str, int] = {name: 0 for name in KERNELS}
+# open tallies (:func:`tally`): each collects (name, work) of every launch
+_TALLIES: list[list] = []
 LAUNCH_FORMS: dict[str, int] = {}
 LAUNCH_SHAPES: dict[str, int] = {}
 
@@ -130,11 +133,26 @@ def library(name: str) -> ctypes.CDLL:
     return lib
 
 
+@contextlib.contextmanager
+def tally():
+    """Collect ``(name, work)`` for every launch inside the block, ``work``
+    being the analytic count of ``ops/cost.py`` the wrapper names
+    (``utils/profiling.py::model_complexity`` adds them to what PyTorch's
+    counters see)."""
+    rec: list = []
+    _TALLIES.append(rec)
+    try:
+        yield rec
+    finally:
+        _TALLIES.remove(rec)
+
+
 def launch(name: str, *args, form: str | None = None,
-           shape: str | None = None) -> None:
+           shape: str | None = None, work=None) -> None:
     """Call a kernel's C entry point and count the launch (also under
     ``form`` and ``shape`` when given); raises if the launch was refused
-    (``cudaGetLastError()`` nonzero)."""
+    (``cudaGetLastError()`` nonzero).  ``work``: a callable returning the
+    launch's analytic count, called only while a :func:`tally` is open."""
     fn = getattr(library(name), KERNELS[name][1])
     rc = fn(*args)
     if rc != 0:
@@ -147,6 +165,10 @@ def launch(name: str, *args, form: str | None = None,
     if shape is not None:
         key = f"{name} {shape}"
         LAUNCH_SHAPES[key] = LAUNCH_SHAPES.get(key, 0) + 1
+    if work is not None and _TALLIES:
+        w = work()
+        for rec in _TALLIES:
+            rec.append((name, w))
 
 
 def check_cuda_tensor(t, name: str, dtype, shape=None) -> None:

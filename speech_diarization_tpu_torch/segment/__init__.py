@@ -3,6 +3,7 @@ from .embed import (
     embed_windows,
     embed_windows_streaming,
     segment_embeddings_from_grid,
+    segment_overlap_weights,
     window_starts,
 )
 from .merge import (
@@ -44,6 +45,7 @@ __all__ = [
     "regions_from_hard_acts",
     "scd_split",
     "segment_embeddings_from_grid",
+    "segment_overlap_weights",
     "speaker_centroids",
     "vad_segments_from_probs",
     "window_starts",

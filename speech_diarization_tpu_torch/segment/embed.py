@@ -79,6 +79,15 @@ def embed_windows_streaming(model, y: torch.Tensor, sr: int, win_s: float,
     return torch.cat(outs)[:w]
 
 
+def segment_overlap_weights(segs: SegmentArray, win_starts_s: np.ndarray,
+                            win_s: float) -> np.ndarray:
+    """[S, W] overlap (seconds) of each grid window with each segment."""
+    ws = win_starts_s[None, :]
+    we = ws + win_s
+    overlap = np.minimum(we, segs.ends[:, None]) - np.maximum(ws, segs.starts[:, None])
+    return np.clip(overlap, 0.0, None)
+
+
 def segment_embeddings_from_grid(
     win_embs: np.ndarray,  # [W, D]
     win_starts_s: np.ndarray,  # [W]

@@ -13,5 +13,17 @@
 * ``recipes.py``, ``proto.py``: the recipes behind the shipped weights;
 * ``mc.py``: the multi-condition driver (``scripts/torch_train_mc.py``).
 
-Nothing is imported here: the modules load on demand.
+The objectives and the steps are exported here, as by the JAX package's
+``train``; the other modules load on demand.
 """
+from .objectives import aam_softmax_loss, bce_vad_loss, si_snr_loss
+from .steps import TrainState, make_ecapa_train_step, make_gtcrn_train_step
+
+__all__ = [
+    "aam_softmax_loss",
+    "si_snr_loss",
+    "bce_vad_loss",
+    "make_ecapa_train_step",
+    "make_gtcrn_train_step",
+    "TrainState",
+]

@@ -13,7 +13,8 @@ flattened by :func:`_flatten`), else the port's own seeded init
 reproducible here.  The log-mel of every step is kernel K2 on the card;
 the streaming encoder pools through the plain differentiable head
 (``backend='decomposed'``), as the JAX recipes do, since K1 has no
-backward.  The loaders are ``models/port.py``'s.
+backward.  The loaders are ``models/port.py``'s; ``load_*_weights`` give
+the state dicts of the nets they build (warm starts).
 
 Each recipe is a ``*_job`` (model, :class:`~.steps.TrainState`, loss,
 batch source) and a loop over it; the jobs are what the tests and the
@@ -700,3 +701,27 @@ def unflatten_params(flat: dict) -> dict:
 
     return fix(nested)
 
+
+def load_vad_weights(path: str | Path) -> dict[str, torch.Tensor]:
+    """The state dict of the VAD that :func:`~..models.port.load_vad` builds
+    from ``path`` (float32): building that net and loading this equals the
+    loader."""
+    from ..models.port import load_vad
+
+    return load_vad(path).net.state_dict()
+
+
+def load_segmentation_weights(path: str | Path) -> dict[str, torch.Tensor]:
+    """The state dict of the overlap detector's net that
+    :func:`~..models.port.load_segmentation` builds from ``path``."""
+    from ..models.port import load_segmentation
+
+    return load_segmentation(path).net.state_dict()
+
+
+def load_demixer_weights(path: str | Path) -> dict[str, torch.Tensor]:
+    """The state dict of the :class:`DialogDemixer` that
+    :func:`~..models.port.load_demixer` builds from ``path``."""
+    from ..models.port import load_demixer
+
+    return load_demixer(path).state_dict()

@@ -104,6 +104,53 @@ def make_conversation(
     )
 
 
+def make_tone_conversation(seed: int, n_speakers: int = 3, turns: int = 8,
+                           sr: int = 16000):
+    """Ground-truthed tone conversation: alternating AM-modulated sines at
+    speaker-distinct carriers with silence gaps, drawn in the JAX package's
+    order (per turn: the speaker, the gap, the duration, then the noise), so
+    a seed gives the same wave and truth in both packages.
+
+    Returns ``(wave [T], (starts, ends, spks))``.
+    """
+    g = np.random.default_rng(seed)
+    freqs = [180.0, 850.0, 2400.0, 420.0][:n_speakers]
+    parts, starts, ends, spks = [], [], [], []
+    t0 = 0.0
+    for _ in range(turns):
+        spk = int(g.integers(0, n_speakers))
+        gap = g.uniform(0.4, 0.8)
+        parts.append(np.zeros(int(gap * sr), np.float32))
+        t0 += gap
+        dur = g.uniform(2.0, 4.0)
+        t = np.arange(int(dur * sr)) / sr
+        sig = 0.3 * np.sin(2 * np.pi * freqs[spk] * t) * (
+            1 + 0.2 * np.sin(2 * np.pi * 2.3 * t))
+        parts.append((sig + 0.01 * g.standard_normal(len(t))).astype(np.float32))
+        starts.append(t0)
+        ends.append(t0 + dur)
+        spks.append(spk)
+        t0 += dur
+    parts.append(np.zeros(int(0.5 * sr), np.float32))
+    return np.concatenate(parts), (
+        np.asarray(starts, np.float64),
+        np.asarray(ends, np.float64),
+        np.asarray(spks, np.int32),
+    )
+
+
+def spectral_probe_encoder(wavs):
+    """Deterministic 16-band spectral-signature encoder for tone files
+    (numpy): [B, T] -> [B, 16] unit rows, the checkpoint-free stand-in for
+    cluster-quality checks."""
+    w = np.asarray(wavs)
+    spec = np.abs(np.fft.rfft(w, axis=1))
+    bands = np.array_split(np.arange(spec.shape[1]), 16)
+    feats = np.stack([spec[:, b].mean(axis=1) for b in bands], axis=1)
+    feats = feats / (np.linalg.norm(feats, axis=1, keepdims=True) + 1e-8)
+    return feats.astype(np.float32)
+
+
 def make_speaker_bank(rng: np.random.Generator, n_speakers: int):
     """Fixed per-speaker (f0, formants) profiles for speaker-ID training."""
     return [
