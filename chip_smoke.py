@@ -180,6 +180,16 @@ Phases (any failure exits nonzero and prints no result line):
      tone conversation, card vs CPU segments; ``Profiler.trace`` around a
      60 s call naming both kernels.  Each run's K1 and K2 launches are
      counted (``launches_surface``).
+  8. Scale (``parallel_phase``), on virtual meshes of the one card: the
+     sharded encoder at dp 2, dp 4 and dp 2 x tp 2 against one device on
+     the windowed grid's 512 windows (one K2 launch a shard); the corpus's
+     sharded route on one 60 s and one 600 s file over two devices (segments
+     equal to the single-device windowed grid, DER against the JAX bar of
+     ``torch_port_der_bar.py --sharded``, walls); bench milestone 4 (K1 on
+     each dp replica against the decomposed head); the ECAPA step on dp 2 x
+     tp 2 and the GTCRN step on dp 2 against one device (bars ``TRAIN_*``,
+     step medians); ``dryrun_multichip(2)`` and ``(4)``.  K1 and K2
+     launches over the phase (``launches_parallel``).
 Then a line with the walls of this slice's routes and of the whole run,
 one JSON line listing the kernels, the card's nvidia-smi line, and the
 result line ``{"ok": true, "device": {...}}``.
@@ -1607,6 +1617,278 @@ def surface_phase(dev, enc) -> dict:
     return out
 
 
+# DER (%) of the JAX corpus's sharded route on the CPU (eight virtual
+# devices) on the 60 s bench draw: the bf16 ecapa_robust_stream.npz as the
+# encoder to shard, vad_conv_mc.npz, the windowed grid (--sharded of
+# scripts/torch_port_der_bar.py)
+JAX_CPU_DER_PCT_SHARDED = 1.3439
+# the sharded encoder against the single-device one, atol and rtol
+# (tests/test_sharded_inference.py:40)
+SHARDED_TOL = 1e-4
+
+
+def parallel_phase(dev, smi, enc, vad, bench_cfg, der_pct, cards=None) -> dict:
+    """Phase 8: ROADMAP item 7 on virtual meshes of the one card (a mesh
+    that names ``dev`` several times), or on the first of ``cards`` (real
+    devices, at least 4; ``scripts/torch_mesh_cards.py``).  (a) ``make_sharded_encode_fn`` with
+    the float32 ``ecapa_robust_stream.npz`` on the windowed grid's
+    ``[512, 32000]`` batch (a view at a row stride of 1,600) at dp 2, dp 4
+    and dp 2 x tp 2 (``mfa``, ``fc_w`` split) against the single-device
+    ``encode_batch`` (atol / rtol ``SHARDED_TOL``), one K2 launch a shard by
+    shape, times against the single-device call, and K2 at each shard's
+    geometry against its plain version; (b) ``corpus_diarize`` on one file
+    with two devices and ``encode_model`` (the sharded route) on the 60 s
+    and 600 s bench draws: segments equal to the single-device windowed
+    grid with the same encoder (as a bare encode function: no calibrated
+    refine threshold), DER on 60 s within one point of
+    ``JAX_CPU_DER_PCT_SHARDED``, walls beside the single-device run's;
+    (c) bench milestone 4 at dp 2 (``torch_bench.sharded_asp_check``):
+    min cosine above 0.9999, K1 twice; (d) ``make_ecapa_train_step`` at
+    phase 6's width (16 x 2 s, train-mode BN, 64 classes) on dp 2 x tp 2
+    and ``make_gtcrn_train_step`` (8 x 2 s) on dp 2: step 1 against the
+    single-device step on the card (bars ``TRAIN_*``), the median of ten
+    steps beside the single-device median, K2 launches a step by shape;
+    (e) ``dryrun_multichip(2)`` and ``(4)``.  Returns the measurements and
+    the launches by kernel over the phase's runs."""
+    import copy
+
+    import torch
+
+    from speech_diarization_tpu_torch.dryrun import dryrun_multichip
+    from speech_diarization_tpu_torch.models.ecapa import EcapaTdnn
+    from speech_diarization_tpu_torch.models.port import (
+        load_params_meta, load_params_npz, load_speaker_encoder,
+    )
+    from speech_diarization_tpu_torch.ops import kernels
+    from speech_diarization_tpu_torch.parallel import make_mesh, make_sharded_encode_fn
+    from speech_diarization_tpu_torch.pipelines.corpus import corpus_diarize
+    from speech_diarization_tpu_torch.pipelines.diarize import DiarizationPipeline
+    from speech_diarization_tpu_torch.train.recipes import make_noisy_clean_batch
+    from speech_diarization_tpu_torch.train.steps import (
+        apply_step, make_ecapa_train_step, make_gtcrn_train_step,
+    )
+    from speech_diarization_tpu_torch.train.synthetic import (
+        make_conversation, make_speaker_bank, make_speaker_batch,
+    )
+
+    sys.path.insert(0, str(HERE / "scripts"))
+    from torch_bench import sharded_asp_check
+
+    t_phase = time.perf_counter()
+    wdir = HERE / "weights"
+    out = {"launches": {k: 0 for k in kernels.LAUNCHES}, "k2": {}, "encode": {},
+           "corpus": {}, "train": {}, "dryrun": {}}
+    failed = []
+
+    def counted(fn):
+        kernels.reset_launches()
+        res = fn()
+        torch.cuda.synchronize()
+        for k, v in kernels.LAUNCHES.items():
+            out["launches"][k] += v
+        return res, dict(kernels.LAUNCH_SHAPES)
+
+    def mesh_of(n, tp=1):
+        return make_mesh(devices=cards[:n] if cards else [dev] * n, tp=tp)
+
+    # (a) the sharded encoder on one encode batch of the windowed grid
+    enc32 = load_speaker_encoder(wdir / "ecapa_robust_stream.npz").to(dev).eval()
+    wave60, truth60 = make_conversation(np.random.default_rng(0), 60.0, n_speakers=3,
+                                        sr=SR)
+    y60 = torch.from_numpy(wave60).to(dev)
+    wins = y60[:511 * 1600 + 32000].unfold(0, 32000, 1600)
+    k2_win = "fused_log_mel [B, T] rows of 32000 at a stride of 1600, 40 mels"
+    with torch.inference_mode():
+        ref = enc32.encode_batch(wins)
+        single_ms = cuda_time_ms(lambda: enc32.encode_batch(wins), 5)
+        out["encode"]["single_ms"] = single_ms
+        for tag, n, tp, pats in (("dp2", 2, 1, ()), ("dp4", 4, 1, ()),
+                                 ("dp2xtp2", 4, 2, ("mfa", "fc_w"))):
+            sharded = make_sharded_encode_fn(enc32, None, mesh_of(n, tp), pats)
+            got, shapes = counted(lambda: sharded(wins))
+            err = (got - ref).abs()
+            worst = float((err / (SHARDED_TOL + SHARDED_TOL * ref.abs())).max())
+            ms = cuda_time_ms(lambda: sharded(wins), 5)
+            dp = n // tp
+            out["encode"][tag] = {"max_abs_err": float(err.max()), "tol_used": worst,
+                                  "ms": ms, "k2_shapes": shapes,
+                                  "split": sorted(sharded._split[0])}
+            log(f"[8a] sharded encoder {tag} on [512, 32000] (float32, C 256): max "
+                f"abs diff {float(err.max()):.3e} from one device ({worst:.3f} of "
+                f"atol/rtol {SHARDED_TOL:g}); {ms:.3f} ms vs {single_ms:.3f} ms on "
+                f"one device; K2 launches {shapes}; {len(sharded._split[0])} "
+                f"leaves split; {smi}")
+            if not worst <= 1.0:
+                failed.append(f"the sharded encoder {tag} differs from one device")
+            # a shard on another card is a contiguous copy there
+            rows = sum(v for k, v in shapes.items()
+                       if k.startswith("fused_log_mel [B, T] rows of 32000 at"))
+            if rows != dp or sum(shapes.values()) != dp or (
+                    not cards and shapes != {k2_win: dp}):
+                failed.append(f"{tag}: K2 launches {shapes}, expected {dp} of {k2_win}")
+        for dp in (2, 4):
+            rows_ = 512 // dp
+            k2 = k2_measure(wins[:rows_], (rows_ - 1) * 1600 + 32000)
+            out["k2"][f"encode_dp{dp}"] = k2
+            if not k2["max_abs_err"] <= k2["tol"]:
+                failed.append(f"K2 disagrees at the dp {dp} shard")
+
+    # (b) the corpus's sharded route on one file and two devices
+    cfg = bench_cfg(True)
+    bare = copy.deepcopy(enc)        # the encoder as a bare encode function
+    bare.streaming_trained, bare.refine_sub_cos = False, None
+    single = DiarizationPipeline(cfg, encoder=bare, vad=vad)
+    # the route's pipeline kept warm: its wall without the corpus's set-up
+    lone = DiarizationPipeline(cfg, encoder=make_sharded_encode_fn(
+        enc, None, mesh_of(2)), vad=vad)
+    wave600, truth600 = make_conversation(np.random.default_rng(0), 600.0,
+                                          n_speakers=3, sr=SR)
+    for dur, wave, truth in ((60, wave60, truth60), (600, wave600, truth600)):
+        res1 = single((wave, SR))
+        lone((wave, SR))
+        walls1, walls2 = [], []
+        for _ in range(2):
+            for pipe_, walls in ((single, walls1), (lone, walls2)):
+                t0 = time.perf_counter()
+                pipe_((wave, SR))
+                walls.append(time.perf_counter() - t0)
+        reports = []
+        for _ in range(2):
+            rep, shapes = counted(lambda: corpus_diarize(
+                [(wave, SR)], cfg, devices=list(mesh_of(2).devices.flat),
+                encode_model=enc, vad=vad, keep_results=True))
+            reports.append(rep)
+        rep = reports[0]
+        entry = rep.files[0] if rep.files else {}
+        segs = entry["result"].segments if entry else None
+        same = segs is not None and (
+            len(segs) == len(res1.segments)
+            and np.allclose(segs.starts, res1.segments.starts, atol=1e-6)
+            and np.allclose(segs.ends, res1.segments.ends, atol=1e-6)
+            and np.array_equal(segs.spks, res1.segments.spks))
+        der = der_pct(truth, segs) if segs is not None else float("nan")
+        wall2 = min(r.files[0]["wall_s"] for r in reports if r.files)
+        out["corpus"][dur] = {"device": entry.get("device"), "segments": len(segs or []),
+                              "equal": same, "der_pct": der, "wall_sharded_s": wall2,
+                              "wall_single_s": min(walls1),
+                              "wall_sharded_warm_s": min(walls2), "k2_shapes": shapes,
+                              "errors": rep.errors}
+        bar = f" (bar {JAX_CPU_DER_PCT_SHARDED} +- {DER_SLACK_PCT})" if dur == 60 else ""
+        log(f"[8b] corpus, one {dur} s file on two devices: route "
+            f"{entry.get('device')}, {len(segs or [])} segments, equal to one "
+            f"device's windowed grid {same}, DER {der:.4f} %{bar}; file wall "
+            f"{wall2:.4f} s in the corpus (its pipeline new), {min(walls2):.4f} s "
+            f"warm, vs {min(walls1):.4f} s on one device; K2 "
+            f"{shapes}; {smi}")
+        if rep.errors or entry.get("device") != "sharded[2]" or not same:
+            failed.append(f"the sharded corpus route on {dur} s: {rep.errors or entry.get('device')}, "
+                          f"equal {same}")
+        if dur == 60 and not abs(der - JAX_CPU_DER_PCT_SHARDED) <= DER_SLACK_PCT:
+            failed.append(f"the sharded route's DER {der:.4f} % is off the JAX bar")
+
+    # (c) bench milestone 4: K1 under sharding at dp 2
+    with torch.inference_mode():
+        (sh, _) = counted(lambda: sharded_asp_check(
+            enc, devices=list(mesh_of(2).devices.flat)))
+    out["asp"] = sh
+    log(f"[8c] K1 under sharding: {sh}; {smi}")
+
+    # (d) the mesh training steps against one device
+    meta = load_params_meta(wdir / "ecapa_robust_stream.npz")["net"]
+    enc_cfg = dict(meta, dilations=tuple(meta["dilations"]))
+    cls = np.random.default_rng(0).standard_normal((64, enc_cfg["emb_dim"])) \
+        .astype(np.float32) * 0.05
+    ecapa_flat = {**load_params_npz(wdir / "ecapa_robust_stream.npz"), "classifier": cls}
+    gtcrn_flat = load_params_npz(wdir / "gtcrn_mc.npz")
+    bank = make_speaker_bank(np.random.default_rng(8), 64)
+    g = np.random.default_rng(9)
+    e_batches = [make_speaker_batch(g, bank, 16, dur_s=2.0) for _ in range(6)]
+    g = np.random.default_rng(10)
+    g_batches = [make_noisy_clean_batch(g, 8, 2.0) for _ in range(6)]
+
+    def ecapa(where):
+        init_fn, step_fn, shard = make_ecapa_train_step(where, EcapaTdnn(**enc_cfg), 64)
+        state = shard(init_fn(params=ecapa_flat))
+        return state, lambda *b: step_fn.loss_fn(state.params, *b), True
+
+    def gtcrn(where):
+        init_fn, step_fn = make_gtcrn_train_step(where)
+        return init_fn(params=gtcrn_flat), step_fn.loss_fn, False
+
+    for name, build, batches, where in (("ecapa_train_step", ecapa, e_batches, mesh_of(4, 2)),
+                                        ("gtcrn", gtcrn, g_batches, mesh_of(2))):
+        res = {}
+        for tag, w in (("single", dev), ("mesh", where)):
+            state, loss_fn, with_params = build(w)
+            tensors = [tuple(torch.as_tensor(a).to(dev) for a in b) for b in batches]
+            tensors += tensors[1:]
+            loss = loss_fn(*tensors[0])
+            loss.backward()
+            vec = torch.cat([(p.grad if p.grad is not None else torch.zeros(p.shape))
+                             .detach().float().reshape(-1).cpu()
+                             for p in state.params.values()])
+            state.optimizer.zero_grad(set_to_none=True)
+            apply_step(state, loss_fn, *tensors[0])
+            kernels.reset_launches()
+            ev = [(torch.cuda.Event(enable_timing=True),
+                   torch.cuda.Event(enable_timing=True)) for _ in range(10)]
+            losses = []
+            for i in range(1, 11):
+                ev[i - 1][0].record()
+                losses.append(apply_step(state, loss_fn, *tensors[i]))
+                ev[i - 1][1].record()
+            torch.cuda.synchronize()
+            for k, v in kernels.LAUNCHES.items():
+                out["launches"][k] += v
+            res[tag] = {"loss": loss.item(), "grad": vec.double(),
+                        "step_ms": float(np.median([a.elapsed_time(b) for a, b in ev])),
+                        "k2_shapes": {k: v / 10 for k, v in kernels.LAUNCH_SHAPES.items()},
+                        "losses": [float(x) for x in losses]}
+            del state, tensors
+        (l_s, g_s), (l_m, g_m) = ((res[t]["loss"], res[t]["grad"]) for t in ("single", "mesh"))
+        loss_rel = abs(l_m - l_s) / max(abs(l_s), 1e-12)
+        cos = float((g_m @ g_s) / (g_m.norm() * g_s.norm()))
+        grad_rel = float((g_m - g_s).abs().max() / g_s.abs().max())
+        dp, tp = where.shape["dp"], where.shape["tp"]
+        out["train"][name] = {
+            "mesh": f"dp{dp}xtp{tp}", "loss_rel": loss_rel, "grad_cos": cos,
+            "grad_rel": grad_rel, "step_ms_single": res["single"]["step_ms"],
+            "step_ms_mesh": res["mesh"]["step_ms"],
+            "k2_shapes_mesh": res["mesh"]["k2_shapes"],
+            "losses_mesh": res["mesh"]["losses"]}
+        log(f"[8d] {name} on dp{dp}xtp{tp} vs one device: step 1 loss {l_m:.6f} vs "
+            f"{l_s:.6f} (rel {loss_rel:.2e}, bar {TRAIN_LOSS_REL:g}), gradient cos "
+            f"{cos:.8f} (bar {TRAIN_GRAD_COS}), max diff {grad_rel:.2e} of the largest "
+            f"(bar {TRAIN_GRAD_REL.get(name, 1e-3):g}); step median "
+            f"{res['mesh']['step_ms']:.3f} ms vs {res['single']['step_ms']:.3f} ms; "
+            f"K2 a step {res['mesh']['k2_shapes']}; {smi}")
+        k2_want = 0 if name == "gtcrn" else dp
+        if not (loss_rel <= TRAIN_LOSS_REL and cos >= TRAIN_GRAD_COS
+                and grad_rel <= TRAIN_GRAD_REL.get(name, 1e-3)):
+            failed.append(f"{name}: the mesh step disagrees with one device")
+        if sum(res["mesh"]["k2_shapes"].values()) != k2_want or not all(
+                np.isfinite(res["mesh"]["losses"])):
+            failed.append(f"{name}: K2 a step {res['mesh']['k2_shapes']}, expected "
+                          f"{k2_want}; losses {res['mesh']['losses']}")
+    y_tr = torch.as_tensor(e_batches[0][0]).to(dev)[:8]
+    out["k2"]["train_dp2"] = k2_measure(y_tr, y_tr.numel())
+
+    # (e) the dry run on virtual meshes of 2 and 4
+    for n in (2, 4):
+        t0 = time.perf_counter()
+        (r, _) = counted(lambda: dryrun_multichip(n, device=dev))    # virtual
+        r["wall_s"] = time.perf_counter() - t0
+        out["dryrun"][n] = r
+        log(f"[8e] dryrun_multichip({n}): {r}")
+    out["wall"] = time.perf_counter() - t_phase
+    log(f"[8] parallel phase took {out['wall']:.1f} s; launches {out['launches']}")
+    if failed:
+        raise AssertionError("[8] " + "; ".join(failed))
+    if not all(out["launches"].values()):
+        raise AssertionError(f"[8] a kernel was not launched: {out['launches']}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2579,12 +2861,21 @@ def main() -> int:
     # ---------------------------------------------------------- phase 7 ----
     surface = surface_phase(dev, enc)
 
+    # ---------------------------------------------------------- phase 8 ----
+    parallel = parallel_phase(dev, smi, enc, vad, bench_cfg, der_pct)
+    rows[0]["sharded"] = {**parallel["k2"], "launches_encode": {
+        k: v["k2_shapes"] for k, v in parallel["encode"].items() if k != "single_ms"}}
+    rows[1]["sharded"] = {"asp_check": parallel["asp"]}
+
     for r in rows:
         # this slice's path: the bench configuration at the shipped default
         r["launches"] = launches[True, 600][r["name"]]
         r["launches_overlap_off"] = launches[False, 600][r["name"]]
         # phase 7: the non-WAV CLI run, the web UI's pipeline and the traced call
         r["launches_surface"] = surface["launches"][r["name"]]
+        # phase 8: the sharded encoder, corpus route, K1 check, mesh steps and
+        # dry runs on virtual meshes of the card
+        r["launches_parallel"] = parallel["launches"][r["name"]]
         # the noisy-input route on the 600 s file in white noise, through
         # GTCRN, ZipEnhancer and the demixer
         r["launches_noisy"] = noisy["white", 10.0, 600]["launches"][r["name"]]
@@ -2639,7 +2930,7 @@ def main() -> int:
             "launches_options", "launches_engine", "batch",
             "batch_vad", "t_80", "batch_windowed_40", "batch_windowed_80", "a32",
             "a128", "engine_chunks_60s", "engine_chunks_600s", "engine_grid",
-            "bucketed", "training")
+            "bucketed", "training", "launches_parallel", "sharded")
     log(f"[end] engine 600 s {engine['conv', 'bench_600s']['wall']:.4f} s, bucketed "
         f"60 s {bucketed_wall:.4f} s, batch {({k: round(v, 3) for k, v in batch_walls.items()})} "
         f"s, diag {diag_wall:.3f} s, encoders 60 s "
@@ -2647,7 +2938,11 @@ def main() -> int:
         f"eres2netv2 600 s {seeded['wall600']:.4f} s, published graphs "
         f"{({k: round(v['wall'], 4) for k, v in published['runs'].items()})} s, "
         f"training steps {({k: round(v['step_ms'], 3) for k, v in training['configs'].items()})} ms, "
-        f"surface phase {surface['wall']:.1f} s; "
+        f"surface phase {surface['wall']:.1f} s; parallel phase "
+        f"{parallel['wall']:.1f} s (corpus 600 s sharded "
+        f"{parallel['corpus'][600]['wall_sharded_s']:.4f} s vs "
+        f"{parallel['corpus'][600]['wall_single_s']:.4f} s, mesh steps "
+        f"{({k: round(v['step_ms_mesh'], 3) for k, v in parallel['train'].items()})} ms); "
         f"the whole run took "
         f"{time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}

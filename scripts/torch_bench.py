@@ -24,6 +24,13 @@ milestones, on the same files and configuration:
    CUDA events (``_onchip``); its operations and bytes from
    ``utils/profiling.py::model_complexity`` (the kernels' analytic counts
    included) against the H100's peaks (``ops/cost.py``);
+4. K1 under sharding (``SDTPU_BENCH_SHARDED_ASP=0`` skips it): a mesh over
+   every local card, each dp replica running the streaming grid's chunk
+   through K1 (``encode_grid_chunk(..., backend='kernel')``) on its own
+   seeded chunk (600 windows, margins 4 s, the bf16 trunk), against the
+   single-device decomposed head on the same chunks: the minimum cosine
+   must exceed 0.9999 (the JAX bar), and K1 must run once a replica
+   (``sharded_asp_dp``, ``sharded_asp_min_cos``);
 5. opt-in (``SDTPU_BENCH_FBANK=1``): kernel K2 against the plain log-mel on
    a ``[512, 16000]`` batch (CUDA events).
 
@@ -187,6 +194,12 @@ def main() -> int:
         log(f"mfu micro-bench: {mfu}")
         extra.update(mfu)
         emit(rtf, f"{int(FULL_S)}s_full", extra)
+    # -- milestone 4: K1 under sharding -------------------------------------------
+    if os.environ.get("SDTPU_BENCH_SHARDED_ASP", "1") == "1":
+        sh = sharded_asp_check(pipe.encoder)
+        log(f"sharded K1 check: {sh}")
+        extra.update(sh)
+        emit(rtf, f"{int(FULL_S)}s_full", extra)
     # -- milestone 5 (opt-in): K2 against the plain log-mel ----------------------
     if os.environ.get("SDTPU_BENCH_FBANK", "0") == "1":
         fb = fbank_micro_bench()
@@ -303,6 +316,47 @@ def mfu_micro_bench(encoder, iters: int = 5, k: int = 16) -> dict:
     out["mfu_embed_onchip"] = round(flops / dtc / peak, 5)
     out["embed_hbm_frac_onchip"] = round(nbytes / dtc / PEAK_BYTES_S, 5)
     return out
+
+
+def sharded_asp_check(encoder, devices=None) -> dict:
+    """Milestone 4 (``bench.py::_sharded_asp_check``): K1 under a dp mesh
+    over ``devices`` (every local card by default).  Replica ``i`` of
+    ``parallel.make_sharded_encode_fn`` runs ``encode_grid_chunk`` through
+    K1 on chunk ``i`` of a seeded batch (600 windows of 2 s at a 0.1 s hop,
+    4 s margins); the single-device decomposed head runs the same chunks.
+    Raises unless the minimum cosine exceeds 0.9999 and K1 ran once a
+    replica."""
+    import torch
+
+    from speech_diarization_tpu_torch.ops import kernels
+    from speech_diarization_tpu_torch.parallel import make_mesh, make_sharded_encode_fn
+
+    win, hop, wpc = 2 * SR, SR // 10, 600
+    margin = 4 * SR
+    span = 2 * margin + (wpc - 1) * hop + win
+    mesh = make_mesh(devices=devices)
+    n = mesh.shape["dp"]
+    batch = torch.from_numpy(np.random.default_rng(7).standard_normal((n, span))
+                             .astype(np.float32))
+    sharded = make_sharded_encode_fn(encoder, None, mesh)
+    dev = next(encoder.parameters()).device
+    with torch.inference_mode():
+        before = kernels.LAUNCHES["asp_grid_stats"]
+        out_k = [sharded.call(i, "encode_grid_chunk", batch[i].to(mesh.devices[i, 0]),
+                              wpc, margin, win, hop, backend="kernel").to(dev)
+                 for i in range(n)]
+        launched = kernels.LAUNCHES["asp_grid_stats"] - before
+        out_d = [encoder.encode_grid_chunk(batch[i].to(dev), wpc, margin, win, hop,
+                                           backend="decomposed") for i in range(n)]
+        a, b = torch.cat(out_k).double(), torch.cat(out_d).double()
+        cos = (a * b).sum(-1) / (a.norm(dim=-1) * b.norm(dim=-1) + 1e-9)
+        min_cos = float(cos.min())
+    if launched != n:
+        raise RuntimeError(f"K1 ran {launched} times for {n} replicas")
+    if not min_cos > 0.9999:
+        raise RuntimeError(f"sharded K1 diverges: min cos {min_cos}")
+    return {"sharded_asp_dp": n, "sharded_asp_min_cos": round(min_cos, 7),
+            "sharded_asp_k1_launches": launched}
 
 
 def fbank_micro_bench(batch: int = 512, t: int = 16000, iters: int = 20) -> dict:

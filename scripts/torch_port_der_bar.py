@@ -88,6 +88,16 @@ printed beside the bar.  It runs 4 windows a batch, and the JAX demixer
 one chunk a forward (the rows are independent), to keep the CPU's memory
 small.  One JSON line.
 
+``--sharded``: the corpus's sharded route (``corpus_diarize`` with
+``encode_model`` / ``encode_params`` on one file, fewer files than devices)
+on the eight virtual CPU devices of ``XLA_FLAGS=
+--xla_force_host_platform_device_count=8`` (set here before JAX starts):
+the bench configuration (overlap on) with ``ecapa_robust_stream.npz`` (bf16
+trunk) as the encoder to shard and the bench's ``vad_conv_mc.npz``, on the
+60 s bench draw; the grid is the windowed one (a bare ``encode_fn``), the
+clustering the numpy path the port runs (ROADMAP F2).  The bar of
+``chip_smoke.py`` phase 8b.  One JSON line.
+
 ``--batch``: ``run_batch`` at ``Diarizer()``'s defaults (AHC, 2-6 speakers
 at cos 0.70, the default encoder in float32, the energy VAD) with each
 engine on a directory of two 60 s draws (``make_conversation(
@@ -103,6 +113,7 @@ lines and DER per file.  One JSON line, also written to
     JAX_PLATFORMS=cpu python scripts/torch_port_der_bar.py --heldout [--cli]
     JAX_PLATFORMS=cpu python scripts/torch_port_der_bar.py --corpus
     JAX_PLATFORMS=cpu python scripts/torch_port_der_bar.py --engine | --bucketed | --batch
+    JAX_PLATFORMS=cpu python scripts/torch_port_der_bar.py --sharded
 """
 from __future__ import annotations
 
@@ -145,7 +156,16 @@ def main() -> None:
                     help="run_batch at Diarizer()'s defaults, both engines")
     ap.add_argument("--published", action="store_true",
                     help="the published enhancer graphs on seeded weights")
+    ap.add_argument("--sharded", action="store_true",
+                    help="the corpus's sharded route on 8 virtual CPU devices")
     args = ap.parse_args()
+    if args.sharded:
+        import os
+
+        flags = [f for f in os.environ.get("XLA_FLAGS", "").split()
+                 if "xla_force_host_platform_device_count" not in f]
+        os.environ["XLA_FLAGS"] = " ".join(
+            flags + ["--xla_force_host_platform_device_count=8"])
 
     import jax
     import jax.numpy as jnp
@@ -178,6 +198,8 @@ def main() -> None:
         return batch_bar()
     if args.published:
         return published_bar((enc, enc_p), jax.jit(partial(vad.probs, vad_p)))
+    if args.sharded:
+        return sharded_bar((enc, enc_p), jax.jit(partial(vad.probs, vad_p)))
     if args.noisy:
         from speech_diarization_tpu.config import EnhanceConfig
         from speech_diarization_tpu.pipelines.enhance import make_enhance_fn
@@ -518,6 +540,36 @@ def corpus_bar(encoder, vad_fn) -> None:
                       "der_pct_files": [ders.get(i) for i in range(6)],
                       "der_pct_mean": round(float(np.mean(list(ders.values()))), 4),
                       "errors": report.errors,
+                      "wall_s": round(time.perf_counter() - t0, 2)}), flush=True)
+
+
+def sharded_bar(encoder, vad_fn) -> None:
+    """The JAX corpus's sharded route on one 60 s bench draw over the eight
+    virtual CPU devices."""
+    import jax
+
+    from speech_diarization_tpu.config import (
+        ClusterConfig, DiarizationConfig, EmbedConfig,
+    )
+    from speech_diarization_tpu.pipelines.corpus import corpus_diarize
+    from speech_diarization_tpu.train.synthetic import make_conversation
+
+    _numpy_spectral()
+    cfg = DiarizationConfig(cluster=ClusterConfig(method="spectral", max_speakers=8),
+                            embed=EmbedConfig(grid_backend="auto"))
+    wave, truth = make_conversation(np.random.default_rng(0), 60.0, n_speakers=3,
+                                    sr=16000)
+    t0 = time.perf_counter()
+    report = corpus_diarize([(wave, 16000)], cfg, encode_model=encoder[0],
+                            encode_params=encoder[1], keep_results=True,
+                            vad_probs_fn=vad_fn)
+    if report.errors or report.files[0]["device"] != "sharded[8]":
+        raise RuntimeError(f"not the sharded route: {report.files} {report.errors}")
+    res = report.files[0]["result"]
+    print(json.dumps({"device": jax.devices()[0].platform,
+                      "n_devices": jax.device_count(), "route": "sharded[8]",
+                      "der_pct_bench_60s": round(100.0 * _der(truth, res.segments).der, 4),
+                      "segments": len(res.segments), "speakers": res.num_speakers,
                       "wall_s": round(time.perf_counter() - t0, 2)}), flush=True)
 
 

@@ -335,7 +335,7 @@ def fused_log_mel(y: torch.Tensor, sample_rate: int = 16000, n_mels: int = 80,
         basis.data_ptr(), basis.shape[0], mel_idx.data_ptr(),
         mel_w.data_ptr(), mel_w.numel(), n_fft, hop, n_mels, float(eps),
         out.data_ptr(), n_frames,
-        torch.cuda.current_stream(y.device).cuda_stream,
+        torch.cuda.current_stream(y.device).cuda_stream, device=y.device,
         form="[T]" if y.ndim == 1 else "[B, T]",
         work=lambda: cost.fused_log_mel_work(
             n_batch * n_frames, n_mels,

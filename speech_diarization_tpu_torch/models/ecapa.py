@@ -28,6 +28,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops import cost, kernels
+from ..parallel.collective import current_group
 from .layers import batch_norm_apply, conv1d_torch, sliding_mean_time
 
 
@@ -65,8 +66,16 @@ class ConvBN(nn.Module):
 
 def batch_stats(x: torch.Tensor, dims) -> tuple[torch.Tensor, torch.Tensor]:
     """Train-mode BatchNorm statistics: float32 mean and biased variance
-    (divided by n, as ``jnp.var``) over ``dims``."""
+    (divided by n, as ``jnp.var``) over ``dims``.  Inside a shard of a mesh
+    step (``parallel/collective.py``) they are those of the whole dp
+    batch, merged from every shard's count, mean and squared deviations,
+    as the JAX jit reduces them over the sharded batch; never per
+    replica."""
     x32 = x.float()
+    shard = current_group()
+    if shard is not None:
+        group, rank = shard
+        return group.mean_var(rank, x32, dims)
     return x32.mean(dim=dims), x32.var(dim=dims, correction=0)
 
 
@@ -418,7 +427,7 @@ def asp_grid_stats(x: torch.Tensor, bw: torch.Tensor, w1x: torch.Tensor,
         bw.data_ptr(), w1x_b.data_ptr(), s_bn.data_ptr(), t_bn.data_ptr(),
         w2_b.data_ptr(), a_dim, hop_f, win_f, n_windows, n_rows,
         x_t.data_ptr(), hx.data_ptr(), out.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
+        torch.cuda.current_stream(dev).cuda_stream, device=dev,
         shape=f"A {a_dim}, CC {cc}",
         # the net's own width: fold_k1's zero padding adds all-zero w2 columns
         work=lambda: cost.asp_grid_work(cc, int((w2 != 0).any(0).sum()), hop_f,

@@ -20,7 +20,8 @@ counts the same launches by the form of the call where a wrapper names one
 the geometry the wrapper names at the point of launch (the log-mel's row
 length, row stride and mel count, K1's padded attention width and
 channels), which
-tells apart the callers that share one form.
+tells apart the callers that share one form.  The counters are bumped
+under a lock: the shards of a mesh step launch from threads.
 """
 from __future__ import annotations
 
@@ -30,6 +31,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 PKG_ROOT = Path(__file__).resolve().parents[1]
@@ -59,6 +61,7 @@ LAUNCHES: dict[str, int] = {name: 0 for name in KERNELS}
 _TALLIES: list[list] = []
 LAUNCH_FORMS: dict[str, int] = {}
 LAUNCH_SHAPES: dict[str, int] = {}
+_COUNT_LOCK = threading.Lock()
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -66,10 +69,11 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-    LAUNCH_FORMS.clear()
-    LAUNCH_SHAPES.clear()
+    with _COUNT_LOCK:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+        LAUNCH_FORMS.clear()
+        LAUNCH_SHAPES.clear()
 
 
 def _nvcc() -> str:
@@ -147,27 +151,38 @@ def tally():
         _TALLIES.remove(rec)
 
 
-def launch(name: str, *args, form: str | None = None,
+def launch(name: str, *args, device=None, form: str | None = None,
            shape: str | None = None, work=None) -> None:
     """Call a kernel's C entry point and count the launch (also under
     ``form`` and ``shape`` when given); raises if the launch was refused
-    (``cudaGetLastError()`` nonzero).  ``work``: a callable returning the
-    launch's analytic count, called only while a :func:`tally` is open."""
+    (``cudaGetLastError()`` nonzero).  ``device``: the CUDA device of the
+    launch's tensors, made the current device around the call (the C entry
+    launches on the calling thread's current device, whatever stream it is
+    handed).  ``work``: a callable returning the launch's analytic count,
+    called only while a :func:`tally` is open."""
     fn = getattr(library(name), KERNELS[name][1])
-    rc = fn(*args)
+    if device is None:
+        rc = fn(*args)
+    else:
+        import torch
+
+        with torch.cuda.device(device):
+            rc = fn(*args)
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: "
                            f"cudaError {rc}")
-    LAUNCHES[name] += 1
-    if form is not None:
-        key = f"{name}{form}"
-        LAUNCH_FORMS[key] = LAUNCH_FORMS.get(key, 0) + 1
-    if shape is not None:
-        key = f"{name} {shape}"
-        LAUNCH_SHAPES[key] = LAUNCH_SHAPES.get(key, 0) + 1
-    if work is not None and _TALLIES:
+    with _COUNT_LOCK:
+        LAUNCHES[name] += 1
+        if form is not None:
+            key = f"{name}{form}"
+            LAUNCH_FORMS[key] = LAUNCH_FORMS.get(key, 0) + 1
+        if shape is not None:
+            key = f"{name} {shape}"
+            LAUNCH_SHAPES[key] = LAUNCH_SHAPES.get(key, 0) + 1
+        tallies = list(_TALLIES)
+    if work is not None and tallies:
         w = work()
-        for rec in _TALLIES:
+        for rec in tallies:
             rec.append((name, w))
 
 

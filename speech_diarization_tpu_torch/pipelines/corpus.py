@@ -20,9 +20,12 @@ SNR probe, pack copy and event), and ``stream_finish`` restores the probe
 before the host tail reads it.  A file's segments are those of a lone call.
 
 Failures are per file: each goes into the report's error table with its
-exception, and the worker carries on with the next file.  With more cards
-than files, the JAX package shards each file's grid over all cards
-(``_corpus_diarize_sharded``); that case is not ported and raises.
+exception, and the worker carries on with the next file.  Given an
+encoder (``encode_model``), more than one device and fewer files than
+devices, file parallelism cannot fill the devices: one pipeline then
+spreads each file's window grid over a mesh of all of them
+(``parallel/inference.py``) and takes the files in order
+(``_corpus_diarize_sharded``), as the JAX package does.
 """
 from __future__ import annotations
 
@@ -69,12 +72,36 @@ def _name(src, idx: int) -> str:
     return str(src) if isinstance(src, (str, Path)) else f"array[{idx}]"
 
 
+def _file_entry(src, idx: int, result, st: dict, wall_s: float, device: str,
+                rttm_dir, keep_results: bool) -> dict:
+    """A finished file's report entry (and its RTTM, for a path source)."""
+    if rttm_dir is not None and isinstance(src, (str, Path)):
+        out = Path(rttm_dir) / (Path(src).stem + ".rttm")
+        out.parent.mkdir(parents=True, exist_ok=True)
+        write_rttm(out, result.segments, uri=Path(src).stem)
+    entry = {"source": _name(src, idx), "index": idx,
+             "segments": len(result.segments), "speakers": result.num_speakers,
+             "wall_s": round(wall_s, 4), "audio_s": round(st["t"] / st["sr"], 2),
+             "device": device}
+    if keep_results:
+        entry["result"] = result
+    return entry
+
+
+def _error_entry(src, idx: int, e: Exception) -> dict:
+    log.warning("corpus file failed: %s (%s)", _name(src, idx), e)
+    return {"source": _name(src, idx), "index": idx,
+            "error": f"{type(e).__name__}: {e}"}
+
+
 def corpus_diarize(
     sources: Sequence,
     cfg: DiarizationConfig | None = None,
     devices: Sequence | None = None,
     rttm_dir: str | Path | None = None,
     pipeline_factory=None,
+    encode_model=None,
+    encode_params=None,
     keep_results: bool = False,
     **pipeline_kwargs,
 ) -> CorpusReport:
@@ -87,6 +114,12 @@ def corpus_diarize(
     **pipeline_kwargs)``.  Every report entry carries the source's
     ``index``; ``keep_results`` also stores the full result (``"result"``)
     so callers can score it.  ``rttm_dir`` gets one RTTM per path source.
+
+    When ``encode_model`` (with ``encode_params``, a flat dict under the
+    JAX flat keys, or None for the model's own weights) is given, there is
+    more than one device and there are fewer files than devices, each
+    file's window grid is sharded over a dp mesh of all ``devices``
+    instead (entries' ``"device"``: ``"sharded[n]"``).
     """
     sources = list(sources)
     if devices is None:
@@ -94,11 +127,11 @@ def corpus_diarize(
     else:
         devices = list(devices)
         pipeline_kwargs.pop("device", None)
-    if len(devices) > 1 and len(sources) < len(devices):
-        raise NotImplementedError(
-            "fewer files than cards: sharding each file's grid over every card "
-            "(_corpus_diarize_sharded) is not ported yet (ROADMAP Queue 1 "
-            "item 7)")
+    if (encode_model is not None and len(devices) > 1
+            and len(sources) < len(devices)):
+        return _corpus_diarize_sharded(
+            sources, cfg, devices, rttm_dir, encode_model, encode_params,
+            keep_results=keep_results, **pipeline_kwargs)
     work: queue.Queue = queue.Queue()
     for i, src in enumerate(sources):
         work.put((i, src))
@@ -147,28 +180,15 @@ def corpus_diarize(
                         raise st
                     t0 = time.perf_counter()
                     result = pipe.stream_finish(st)
-                    dt = time.perf_counter() - t0
-                    dur = st["t"] / st["sr"]
-                    if rttm_dir is not None and isinstance(src, (str, Path)):
-                        out = Path(rttm_dir) / (Path(src).stem + ".rttm")
-                        out.parent.mkdir(parents=True, exist_ok=True)
-                        write_rttm(out, result.segments, uri=Path(src).stem)
-                    entry = {"source": _name(src, idx), "index": idx,
-                             "segments": len(result.segments),
-                             "speakers": result.num_speakers,
-                             "wall_s": round(dt, 4), "audio_s": round(dur, 2),
-                             "device": str(pipe.device)}
-                    if keep_results:
-                        entry["result"] = result
+                    entry = _file_entry(src, idx, result, st,
+                                        time.perf_counter() - t0, str(pipe.device),
+                                        rttm_dir, keep_results)
                     with lock:
                         report.files.append(entry)
-                        report.audio_s += dur
+                        report.audio_s += entry["audio_s"]
                 except Exception as e:  # noqa: BLE001 - the error table
                     with lock:
-                        report.errors.append({
-                            "source": _name(src, idx), "index": idx,
-                            "error": f"{type(e).__name__}: {e}"})
-                    log.warning("corpus file failed: %s (%s)", _name(src, idx), e)
+                        report.errors.append(_error_entry(src, idx, e))
                 if fut is not None:
                     n_idx, n_src, y = fut.result()
                     cur = ((n_idx, n_src, y) if isinstance(y, Exception)
@@ -199,4 +219,36 @@ def corpus_diarize(
             raise failures[0]
     report.wall_s = time.perf_counter() - t0
     log.info("corpus done: %s", report.summary())
+    return report
+
+
+def _corpus_diarize_sharded(sources: Sequence, cfg: DiarizationConfig | None,
+                            devices: Sequence, rttm_dir, encode_model,
+                            encode_params, keep_results: bool = False,
+                            **pipeline_kwargs) -> CorpusReport:
+    """Few files, many devices: one pipeline whose window grid is sharded
+    over a dp mesh spanning ``devices`` (on its first device), the files
+    one after the other, failures per file."""
+    from ..parallel.inference import make_sharded_encode_fn
+    from ..parallel.mesh import make_mesh
+
+    mesh = make_mesh(devices=devices)
+    encoder = make_sharded_encode_fn(encode_model, encode_params, mesh)
+    pipe = DiarizationPipeline(cfg, encoder=encoder, device=mesh.first,
+                               **pipeline_kwargs)
+    report = CorpusReport(n_devices=len(devices))
+    t0 = time.perf_counter()
+    for idx, src in enumerate(sources):
+        try:
+            ts = time.perf_counter()
+            st = pipe.stream_start(src)
+            result = pipe.stream_finish(st)
+            entry = _file_entry(src, idx, result, st, time.perf_counter() - ts,
+                                f"sharded[{len(devices)}]", rttm_dir, keep_results)
+            report.files.append(entry)
+            report.audio_s += entry["audio_s"]
+        except Exception as e:  # noqa: BLE001 - the error table
+            report.errors.append(_error_entry(src, idx, e))
+    report.wall_s = time.perf_counter() - t0
+    log.info("corpus (sharded single-file mode) done: %s", report.summary())
     return report

@@ -104,7 +104,9 @@ class DiarizationPipeline:
             ``CamPlusPlusModel`` (``models.registry.make_encoder_model``);
             default: the first shipped encoder of ``ENCODER_PREFERENCE``.  A
             streaming-trained ECAPA runs the streamed ingest; any other
-            encoder the windowed grid.
+            encoder the windowed grid.  An encoder spread over a mesh
+            (``parallel.make_sharded_encode_fn``) is taken as it is:
+            windowed grid, outputs on its mesh's first device.
         vad: a :class:`~..models.vad.VadModel` (conv TCN or GRU net) or
             :class:`~..models.vad.EnergyVad`; default: the energy VAD at
             ``cfg.vad``'s window and hop, as in the JAX package (the CLI and
@@ -166,7 +168,11 @@ class DiarizationPipeline:
 
             vad = EnergyVad(cfg.audio.sample_rate, cfg.vad.win_ms,
                             cfg.vad.hop_ms)
-        self.encoder = encoder.to(self.device).eval()
+        # a module moves to this device; a sharded encoder
+        # (``parallel.make_sharded_encode_fn``) keeps its replicas where its
+        # mesh put them
+        self.encoder = (encoder.to(self.device).eval()
+                        if isinstance(encoder, torch.nn.Module) else encoder)
         self.vad = vad.to(self.device).eval()
         self._programs: dict = {}
         self._last_snr_db: float | None = None

@@ -142,8 +142,30 @@ def test_one_worker_per_device(draws, lone):
 
 
 def test_fewer_files_than_cards_is_not_ported(draws):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
-        corpus_diarize(draws[:1], devices=["cpu", "cpu"])
+    """Fewer files than devices, with an encoder to shard: the sharded
+    route (ported; the name is kept from when it was refused).  One
+    pipeline with the grid over a mesh of both devices, the JAX route's
+    windowed grid (a sharded encoder is not streaming-trained): the file's
+    segments equal a lone call of that pipeline's."""
+    from speech_diarization_tpu_torch.parallel import make_mesh, make_sharded_encode_fn
+
+    enc = load_speaker_encoder(WEIGHTS / "ecapa_robust_stream.npz")
+    vad = load_vad(WEIGHTS / "vad_conv_mc.npz")
+    report = corpus_diarize(draws[:1], tc.DiarizationConfig(), devices=["cpu", "cpu"],
+                            encode_model=enc, vad=vad, keep_results=True)
+    assert report.errors == [] and report.n_devices == 2
+    (entry,) = report.files
+    assert entry["device"] == "sharded[2]" and entry["audio_s"] == 12.0
+    lone = DiarizationPipeline(
+        tc.DiarizationConfig(), device="cpu", vad=vad,
+        encoder=make_sharded_encode_fn(enc, None, make_mesh(devices=["cpu", "cpu"])))
+    res = lone(draws[0])
+    assert res.diagnostics["grid"] == "windowed"
+    _same(entry["result"].segments, res.segments)
+    # without an encoder to shard, the files go to the workers as before
+    report = corpus_diarize(draws[:1], tc.DiarizationConfig(), devices=["cpu", "cpu"],
+                            encoder=enc, vad=vad)
+    assert report.errors == [] and report.files[0]["device"] == "cpu"
 
 
 def test_corpus_matches_the_jax_corpus_worker(draws, lone):

@@ -15,7 +15,6 @@ import pytest
 import speech_diarization_tpu as jax_pkg
 
 ROOT = Path(__file__).resolve().parents[1]
-_ITEM7 = "ROADMAP item 7 (scale: parallel/, the sharded corpus) is not ported yet"
 _MODULE = "a functional JAX layer that is an nn.Module in the port"
 # JAX-only names of each subpackage, and why the port has none
 JAX_ONLY = {
@@ -29,10 +28,6 @@ JAX_ONLY = {
         "gtcrn_init_params": "GTCRN() initialises itself; train/init.py draws "
                              "the JAX inits' distributions",
     },
-    "parallel": {name: _ITEM7 for name in (
-        "make_sharded_encode_fn", "make_sharded_framewise_fn", "make_mesh",
-        "default_mesh_shape", "shard_batch", "replicate", "batch_spec",
-        "param_partition_specs")},
 }
 SUBPACKAGES = sorted(m.name for m in pkgutil.iter_modules(jax_pkg.__path__)
                      if m.ispkg)

@@ -19,7 +19,9 @@ SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
                                         ROOT / "scripts" / "torch_bench.py",
                                         ROOT / "scripts" / "torch_eval_heldout.py",
                                         ROOT / "scripts" / "torch_train_mc.py",
-                                        ROOT / "scripts" / "torch_train_grad_noise.py"]
+                                        ROOT / "scripts" / "torch_train_grad_noise.py",
+                                        ROOT / "scripts" / "torch_mesh_step_probe.py",
+                                        ROOT / "scripts" / "torch_mesh_cards.py"]
 
 
 def _imports(path: Path) -> set[str]:
