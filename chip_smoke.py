@@ -1625,6 +1625,11 @@ JAX_CPU_DER_PCT_SHARDED = 1.3439
 # the sharded encoder against the single-device one, atol and rtol
 # (tests/test_sharded_inference.py:40)
 SHARDED_TOL = 1e-4
+# phase 8d's mesh step medians (ms) before the cross-shard gradient sums
+# were made in rank order (virtual meshes of an NVIDIA H100 80GB HBM3 at
+# 700 W; host-bound: medians spread 20-40 % between runs), logged beside
+# this run's
+MESH_STEP_MS_BEFORE = {"ecapa_train_step": 78.491, "gtcrn": 107.917}
 
 
 def parallel_phase(dev, smi, enc, vad, bench_cfg, der_pct, cards=None) -> dict:
@@ -1647,10 +1652,15 @@ def parallel_phase(dev, smi, enc, vad, bench_cfg, der_pct, cards=None) -> dict:
     phase 6's width (16 x 2 s, train-mode BN, 64 classes) on dp 2 x tp 2
     and ``make_gtcrn_train_step`` (8 x 2 s) on dp 2: step 1 against the
     single-device step on the card (bars ``TRAIN_*``), the median of ten
-    steps beside the single-device median, K2 launches a step by shape;
-    (e) ``dryrun_multichip(2)`` and ``(4)``.  Returns the measurements and
-    the launches by kernel over the phase's runs."""
+    steps beside the single-device median, K2 launches a step by shape, and
+    each mesh step resumed under deterministic algorithms (``mesh_resume``:
+    the restored step 3, and step 3 repeated with its threads reassigned,
+    bitwise equal to the uninterrupted one); (e) ``dryrun_multichip(2)``
+    and ``(4)``.  Returns the measurements and the launches by kernel over
+    the phase's runs."""
     import copy
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
 
     import torch
 
@@ -1664,6 +1674,9 @@ def parallel_phase(dev, smi, enc, vad, bench_cfg, der_pct, cards=None) -> dict:
     from speech_diarization_tpu_torch.pipelines.corpus import corpus_diarize
     from speech_diarization_tpu_torch.pipelines.diarize import DiarizationPipeline
     from speech_diarization_tpu_torch.train.recipes import make_noisy_clean_batch
+    from speech_diarization_tpu_torch.train.checkpoint import (
+        restore_train_state, save_train_state,
+    )
     from speech_diarization_tpu_torch.train.steps import (
         apply_step, make_ecapa_train_step, make_gtcrn_train_step,
     )
@@ -1809,17 +1822,52 @@ def parallel_phase(dev, smi, enc, vad, bench_cfg, der_pct, cards=None) -> dict:
     def ecapa(where):
         init_fn, step_fn, shard = make_ecapa_train_step(where, EcapaTdnn(**enc_cfg), 64)
         state = shard(init_fn(params=ecapa_flat))
-        return state, lambda *b: step_fn.loss_fn(state.params, *b), True
+        return state, lambda *b: step_fn.loss_fn(state.params, *b), step_fn.replicas
 
     def gtcrn(where):
         init_fn, step_fn = make_gtcrn_train_step(where)
-        return init_fn(params=gtcrn_flat), step_fn.loss_fn, False
+        return init_fn(params=gtcrn_flat), step_fn.loss_fn, step_fn.replicas
+
+    def mesh_resume(name, build, batches, where, tmp):
+        """Under deterministic algorithms (cuDNN's default weight gradients
+        add in no fixed order): steps 1-2, saved, step 3; a fresh job
+        restored from the file takes step 3; then the first job, restored
+        in place, takes step 3 again from a new thread with its shard
+        threads reversed (ECAPA's; GTCRN's shards run in turn on the
+        calling thread).  Returns the steps' losses and the leaves that
+        differ from the uninterrupted run's, bitwise."""
+        tensors = [tuple(torch.as_tensor(a).to(dev) for a in b) for b in batches[:3]]
+        path = tmp / f"{name}_mesh.pt"
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            whole, loss_fn, reps = build(where)
+            for i in range(2):
+                apply_step(whole, loss_fn, *tensors[i])
+            save_train_state(path, whole)
+            ref = float(apply_step(whole, loss_fn, *tensors[2]))
+            want = {k: p.detach().clone() for k, p in whole.params.items()}
+            fresh, fresh_loss, _ = build(where)
+            restore_train_state(path, fresh)
+            got = {"restored": (float(apply_step(fresh, fresh_loss, *tensors[2])),
+                                fresh)}
+            del fresh, fresh_loss
+            restore_train_state(path, whole)
+            if name == "ecapa_train_step":
+                reps.workers.reassign(list(range(len(reps.devices)))[::-1])
+            with ThreadPoolExecutor(1) as other:
+                loss = other.submit(apply_step, whole, loss_fn, *tensors[2]).result()
+            got["reassigned"] = (float(loss), whole)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        return ref, len(want), {how: (loss, [k for k, v in want.items()
+                                             if not torch.equal(state.params[k].detach(), v)])
+                                for how, (loss, state) in got.items()}
 
     for name, build, batches, where in (("ecapa_train_step", ecapa, e_batches, mesh_of(4, 2)),
                                         ("gtcrn", gtcrn, g_batches, mesh_of(2))):
         res = {}
         for tag, w in (("single", dev), ("mesh", where)):
-            state, loss_fn, with_params = build(w)
+            state, loss_fn, _ = build(w)
             tensors = [tuple(torch.as_tensor(a).to(dev) for a in b) for b in batches]
             tensors += tensors[1:]
             loss = loss_fn(*tensors[0])
@@ -1860,7 +1908,9 @@ def parallel_phase(dev, smi, enc, vad, bench_cfg, der_pct, cards=None) -> dict:
             f"{l_s:.6f} (rel {loss_rel:.2e}, bar {TRAIN_LOSS_REL:g}), gradient cos "
             f"{cos:.8f} (bar {TRAIN_GRAD_COS}), max diff {grad_rel:.2e} of the largest "
             f"(bar {TRAIN_GRAD_REL.get(name, 1e-3):g}); step median "
-            f"{res['mesh']['step_ms']:.3f} ms vs {res['single']['step_ms']:.3f} ms; "
+            f"{res['mesh']['step_ms']:.3f} ms vs {res['single']['step_ms']:.3f} ms "
+            f"on one device ({MESH_STEP_MS_BEFORE[name]} ms before the rank-ordered "
+            f"sums); "
             f"K2 a step {res['mesh']['k2_shapes']}; {smi}")
         k2_want = 0 if name == "gtcrn" else dp
         if not (loss_rel <= TRAIN_LOSS_REL and cos >= TRAIN_GRAD_COS
@@ -1870,6 +1920,19 @@ def parallel_phase(dev, smi, enc, vad, bench_cfg, der_pct, cards=None) -> dict:
                 np.isfinite(res["mesh"]["losses"])):
             failed.append(f"{name}: K2 a step {res['mesh']['k2_shapes']}, expected "
                           f"{k2_want}; losses {res['mesh']['losses']}")
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            ref, n_leaves, resumed = mesh_resume(name, build, batches, where, Path(tmp))
+        out["train"][name]["resume"] = {"loss": ref, **{
+            how: {"loss": loss, "leaves_differing": len(diff)}
+            for how, (loss, diff) in resumed.items()}}
+        log(f"[8d] {name} on dp{dp}xtp{tp}, resumed under deterministic algorithms "
+            f"({time.perf_counter() - t0:.1f} s): step 3 loss {ref!r} uninterrupted; "
+            + "; ".join(f"{how} {loss!r}, leaves differing {len(diff)} of {n_leaves} "
+                        f"{diff[:5]}" for how, (loss, diff) in resumed.items())
+            + f"; {smi}")
+        if any(loss != ref or diff for loss, diff in resumed.values()):
+            failed.append(f"{name}: the mesh step 3 is not reproduced bitwise: {resumed}")
     y_tr = torch.as_tensor(e_batches[0][0]).to(dev)[:8]
     out["k2"]["train_dp2"] = k2_measure(y_tr, y_tr.numel())
 

@@ -1,18 +1,23 @@
-"""Phase 8 of ``chip_smoke.py`` (``parallel_phase``) on real cards: the
-meshes over the machine's first cards instead of the first card repeated,
-so a shard's blocks, replica and kernel launches live on their own card
-and the gathers and gradients cross cards.  The dry run stays on a virtual
-mesh of the first card, as in ``chip_smoke.py``.
+"""Phase 8 of ``chip_smoke.py`` (``parallel_phase``) on its own: on real
+cards, the meshes over the machine's first cards instead of the first card
+repeated, so a shard's blocks, replica and kernel launches live on their
+own card and the gathers and gradients cross cards; with ``--virtual``, on
+virtual meshes of the first card, as ``chip_smoke.py`` runs it (a quick way
+to time the mesh steps of two trees in one call).  The dry run stays on a
+virtual mesh of the first card.
 
-    python3 scripts/torch_mesh_cards.py     # needs 4 CUDA cards
+    python3 scripts/torch_mesh_cards.py             # needs 4 CUDA cards
+    python3 scripts/torch_mesh_cards.py --virtual   # needs 1
 
 Builds the kernels, loads the bf16 ``ecapa_robust_stream.npz`` and
 ``vad_conv_mc.npz`` on the first card, runs the phase's checks (any failure
-exits nonzero) and prints its measurements with each card's name and power
+exits nonzero; the mesh steps' resume under deterministic algorithms
+among them) and prints its measurements with each card's name and power
 limit.
 """
 from __future__ import annotations
 
+import argparse
 import subprocess
 import sys
 from pathlib import Path
@@ -22,10 +27,15 @@ sys.path.insert(0, str(ROOT))
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--virtual", action="store_true",
+                    help="virtual meshes of the first card (needs one card)")
+    args = ap.parse_args()
     import torch
 
-    if torch.cuda.device_count() < 4:
-        print("needs 4 CUDA cards", file=sys.stderr)
+    if torch.cuda.device_count() < (1 if args.virtual else 4):
+        print("needs a CUDA card" if args.virtual else "needs 4 CUDA cards",
+              file=sys.stderr)
         return 2
     import chip_smoke as cs
     from speech_diarization_tpu_torch.config import (
@@ -57,9 +67,12 @@ def main() -> int:
     def der_pct(truth, segs):
         return 100.0 * diarization_error_rate(SegmentArray(*truth), segs).der
 
-    out = cs.parallel_phase(dev, smi, enc, vad, bench_cfg, der_pct,
-                            cards=[torch.device("cuda", i) for i in range(4)])
+    cards = None if args.virtual else [torch.device("cuda", i) for i in range(4)]
+    out = cs.parallel_phase(dev, smi, enc, vad, bench_cfg, der_pct, cards=cards)
     print(f"encode: { {k: (v if k == 'single_ms' else v['ms']) for k, v in out['encode'].items()} }")
+    print("train: " + "; ".join(
+        f"{k} {v['mesh']} {v['step_ms_mesh']:.3f} ms vs {v['step_ms_single']:.3f} ms"
+        for k, v in out["train"].items()))
     print(f"launches: {out['launches']}; phase {out['wall']:.1f} s")
     return 0
 

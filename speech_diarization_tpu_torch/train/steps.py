@@ -3,15 +3,20 @@
 Given a device, a step runs there, and ``shard_state`` moves the state onto
 it.  Given a :class:`~..parallel.mesh.Mesh` (the JAX steps jit over one),
 the batch is cut into row blocks along 'dp'; each dp row runs a replica of
-the net on its first device with copies of ONE set of leaves (``Tensor.to``,
-differentiable, so every gradient reaches those leaves and one optimizer
-steps them); the leaves named by ``ECAPA_TP_PATTERNS`` are stored split
-along their first dim over the tp devices of the mesh's first row
-(:class:`~..parallel.sharding.SplitLeaf`) and gathered where used; the loss
-is the mean over the whole batch.  Train-mode BatchNorm in a mesh step takes
-the statistics of the whole batch (``models/ecapa.py::batch_stats``), as
-the JAX jit reduces them over the sharded batch: the ECAPA shards run in
-threads that meet at each statistic.
+the net on its first device with its copies of ONE set of leaves, made
+before the shards start by ``parallel/collective.py::broadcast`` (its
+backward sums the ranks' gradients in rank order, so every gradient
+reaches those leaves as one sum and one optimizer steps them); the leaves
+named by ``ECAPA_TP_PATTERNS`` are stored split along their first dim over
+the tp devices of the mesh's first row
+(:class:`~..parallel.sharding.SplitLeaf`), gathered once on the first
+device and broadcast; the loss is the mean over the whole batch.
+Train-mode BatchNorm in a mesh step takes the statistics of the whole batch
+(``models/ecapa.py::batch_stats``), as the JAX jit reduces them over the
+sharded batch: the ECAPA shards run in threads that meet at each
+statistic.  A mesh step is bitwise reproducible on the CPU, and on the card
+under ``torch.use_deterministic_algorithms``, whichever thread runs which
+shard.
 
 A :class:`TrainState` holds the trained leaves by their JAX flat keys (the
 net's parameters, BatchNorm statistics included, and extras such as the
@@ -178,20 +183,29 @@ class MeshReplicas:
         self.replicas = [copy.deepcopy(self.net).to(d).requires_grad_(False)
                          for d in self.devices]
 
-    @contextlib.contextmanager
-    def bound(self, rank: int, params: dict | None = None):
-        """Replica ``rank`` with the leaves (``params``, default those
-        attached) as copies on its device: yields (replica, the extra
-        leaves by flat key, e.g. the classifier)."""
+    def broadcast(self, params: dict | None = None) -> list[dict[str, torch.Tensor]]:
+        """Each rank's copies of the leaves (``params``, default those
+        attached) by flat key, made on the calling thread by
+        :func:`~..parallel.collective.broadcast` (a split leaf gathered on
+        the first device first): each leaf's or piece's gradient is one sum
+        over the ranks in rank order."""
         params = self.params if params is None else params
-        dev = self.devices[rank]
+        first = self.mesh.first
+        copies = collective.broadcast(
+            [p.gather(first) if isinstance(p, SplitLeaf) else p for p in params.values()],
+            self.devices)
+        return [dict(zip(params, rank)) for rank in copies]
+
+    @contextlib.contextmanager
+    def bound(self, rank: int, leaves: dict[str, torch.Tensor]):
+        """Replica ``rank`` computing with ``leaves`` (rank ``rank``'s part
+        of :meth:`broadcast`): yields (replica, the extra leaves by flat
+        key, e.g. the classifier)."""
         dotted = isinstance(self.net, DOTTED_NETS)
         keys = {flat_key(k, dotted): k for k, _ in self.net.named_parameters()}
-        copies = {k: (p.gather(dev) if isinstance(p, SplitLeaf) else p.to(dev))
-                  for k, p in params.items()}
-        extra = {k: v for k, v in copies.items() if k not in keys}
-        with collective.bind(self.replicas[rank], {keys[k]: v for k, v in copies.items()
-                                        if k in keys}) as rep:
+        extra = {k: v for k, v in leaves.items() if k not in keys}
+        with collective.bind(self.replicas[rank], {keys[k]: v for k, v in leaves.items()
+                                                   if k in keys}) as rep:
             yield rep, extra
 
 
@@ -208,7 +222,9 @@ def make_ecapa_train_step(mesh_or_device, net: EcapaTdnn, n_classes: int,
     (``train/init.py``) and the classifier ``0.05 N(0, 1)``, or ``params``
     (a flat dict with a ``classifier``) -> :class:`TrainState`.
     ``step_fn(state, wavs [B, T], labels [B]) -> (state, loss)``; its
-    ``loss_fn(params, wavs, labels)`` is the loss alone.
+    ``loss_fn(params, wavs, labels)`` is the loss alone, its ``replicas``
+    the :class:`MeshReplicas` on a mesh (``workers``: the shard threads),
+    else None.
     ``shard_state(state)`` moves the state onto the device, or places it
     on the mesh (``ECAPA_TP_PATTERNS`` split over 'tp'); on a mesh, B must
     be a multiple of dp."""
@@ -246,11 +262,12 @@ def make_ecapa_train_step(mesh_or_device, net: EcapaTdnn, n_classes: int,
             launch), replica and AAM loss in its own thread, BatchNorm
             statistics over every shard."""
             w_blk, l_blk = shard_batch(mesh, wavs), shard_batch(mesh, labels)
+            leaves = reps.broadcast(params)
 
             def shard(r: int) -> torch.Tensor:
                 feats = fbank_batch(w_blk[r], sample_rate=sample_rate,
                                     n_mels=net.n_mels)
-                with reps.bound(r, params) as (rep, extra):
+                with reps.bound(r, leaves[r]) as (rep, extra):
                     emb = rep.embed_utterances(feats, train=True)
                     return (aam_softmax_loss(emb, extra["classifier"], l_blk[r])
                             * w_blk[r].shape[0])
@@ -267,6 +284,7 @@ def make_ecapa_train_step(mesh_or_device, net: EcapaTdnn, n_classes: int,
         return state, apply_step(state, loss_fn, state.params, wavs, labels)
 
     step_fn.loss_fn = loss_fn
+    step_fn.replicas = None if mesh is None else reps
     return init_fn, step_fn, shard_state
 
 
@@ -278,7 +296,9 @@ def make_gtcrn_train_step(mesh_or_device, optimizer: Callable | None = None,
     device, or the mesh's first device with a replica a dp row) and its
     :class:`TrainState`; the net is ``state.net``.  On a mesh the pairs go
     along 'dp' (B a multiple of dp), each shard through its replica in
-    turn: GTCRN's rows are independent."""
+    turn: GTCRN's rows are independent.  ``step_fn.loss_fn`` is the loss
+    alone, ``step_fn.replicas`` the :class:`MeshReplicas` (None on a
+    device)."""
     from ..dsp.stft import istft_ri, stft_ri
     from ..models.gtcrn import GTCRN
 
@@ -310,10 +330,11 @@ def make_gtcrn_train_step(mesh_or_device, optimizer: Callable | None = None,
             return si_snr(net, noisy, clean)
     else:
         def loss_fn(noisy, clean):
-            parts = []
+            parts, leaves = [], reps.broadcast()
             for r, (nb, cb) in enumerate(zip(shard_batch(mesh, noisy),
                                              shard_batch(mesh, clean))):
-                with collective.on_device(reps.devices[r]), reps.bound(r) as (rep, _):
+                with collective.on_device(reps.devices[r]), \
+                        reps.bound(r, leaves[r]) as (rep, _):
                     parts.append(si_snr(rep, nb, cb) * nb.shape[0])
             return sum(x.to(mesh.first) for x in parts) / noisy.shape[0]
 
@@ -323,7 +344,7 @@ def make_gtcrn_train_step(mesh_or_device, optimizer: Callable | None = None,
         return state, apply_step(state, loss_fn, noisy, clean)
 
     step_fn.loss_fn = loss_fn
-
+    step_fn.replicas = reps
     return init_fn, step_fn
 
 

@@ -17,6 +17,11 @@ own single-device steps, on the CPU.
 * Whole-batch BN statistics: ``batch_stats`` on uneven shards in their
   threads equals it on the whole batch, values and gradients.
 * ``make_gtcrn_train_step`` on dp 2 against the JAX step on ``make_mesh(2)``.
+* Reproducibility: a mesh step taken twice from one state, the shard
+  threads' histories made to differ the second time, gives bitwise-equal
+  leaves and optimizer moments (ECAPA dp 4 x tp 2, GTCRN dp 2); the
+  broadcast of leaves and the BN exchange against autograd of the
+  unsharded computation, and their backward's sums in rank order.
 * ``dryrun_multichip(2)`` and ``(8)`` on the CPU.
 """
 from __future__ import annotations
@@ -36,10 +41,11 @@ from speech_diarization_tpu.train import steps as jsteps
 from speech_diarization_tpu_torch.models.ecapa import EcapaTdnn as TEcapa
 from speech_diarization_tpu_torch.models.ecapa import batch_stats
 from speech_diarization_tpu_torch.parallel import make_mesh
+from speech_diarization_tpu_torch.parallel import collective
 from speech_diarization_tpu_torch.parallel.collective import run_shards
 from speech_diarization_tpu_torch.parallel.sharding import SplitLeaf
 from speech_diarization_tpu_torch.train.steps import (
-    make_ecapa_train_step, make_gtcrn_train_step,
+    leaf_list, make_ecapa_train_step, make_gtcrn_train_step,
 )
 
 torch.set_num_threads(2)
@@ -253,6 +259,145 @@ def test_gtcrn_mesh_step_matches_jax():
         jstate, jl = jstep(jstate, noisy, clean)
         state, tl = step_fn(state, noisy, clean)
         np.testing.assert_allclose(tl.item(), float(jl), rtol=1e-4)
+
+
+def _autograd_nodes(n: int) -> None:
+    """``n`` autograd nodes made on the calling thread: its count of nodes,
+    which orders autograd's ready queue, moves ahead of other threads'."""
+    x = torch.ones(1, requires_grad=True)
+    for _ in range(n):
+        x = x * 1.0
+
+
+def _assert_same_state(a, b) -> None:
+    """Every leaf and every optimizer moment bitwise equal."""
+    for pa, pb in zip(leaf_list(a.params), leaf_list(b.params), strict=True):
+        assert torch.equal(pa, pb)
+        sa, sb = a.optimizer.state[pa], b.optimizer.state[pb]
+        assert sa.keys() == sb.keys()
+        for key in sa:
+            assert torch.equal(sa[key], sb[key]), key
+
+
+@pytest.mark.parametrize("how", ["history", "reassigned"])
+def test_ecapa_mesh_step_is_reproducible_across_thread_histories(draw, how):
+    """dp 4 x tp 2: step 2 taken twice from one state; the second time rank
+    1's thread has run extra autograd work first, or the ranks run on one
+    another's threads.  Every cross-shard gradient sum is made in rank
+    order, so nothing may differ."""
+    flat, wavs, labels = draw
+    mesh = make_mesh(devices=["cpu"] * 8, tp=2)
+    runs = []
+    for perturb in (False, True):
+        init_fn, step_fn, shard_state = make_ecapa_train_step(
+            mesh, TEcapa(**SMALL), N_CLASSES)
+        state = shard_state(init_fn(params=flat))
+        state, _ = step_fn(state, wavs, labels)
+        workers = step_fn.replicas.workers
+        if perturb and how == "history":
+            workers.run(lambda r: _autograd_nodes(997) if r == 1 else None)
+        elif perturb:
+            workers.reassign([3, 2, 1, 0])
+        state, loss = step_fn(state, wavs[::-1].copy(), labels[::-1].copy())
+        runs.append((state, loss.item()))
+    (a, loss_a), (b, loss_b) = runs
+    assert loss_a == loss_b
+    _assert_same_state(a, b)
+
+
+def test_gtcrn_mesh_step_is_reproducible_across_thread_histories():
+    """dp 2: the shards run in turn on the calling thread through the
+    broadcast leaves; step 2 after extra autograd work on that thread
+    equals step 2 without."""
+    from speech_diarization_tpu_torch.models.gtcrn import GTCRN
+    from speech_diarization_tpu_torch.models.port import flat_params
+    from speech_diarization_tpu_torch.train.init import init_like_jax
+
+    flat = flat_params(init_like_jax(GTCRN(), 2))
+    noisy, clean = jrec.make_noisy_clean_batch(np.random.default_rng(5), 2, 1.0)
+    runs = []
+    for perturb in (False, True):
+        init_fn, step_fn = make_gtcrn_train_step(make_mesh(devices=["cpu"] * 2))
+        state = init_fn(params=flat)
+        state, _ = step_fn(state, noisy, clean)
+        if perturb:
+            _autograd_nodes(997)
+        state, loss = step_fn(state, clean, noisy)
+        runs.append((state, loss.item()))
+    (a, loss_a), (b, loss_b) = runs
+    assert loss_a == loss_b
+    _assert_same_state(a, b)
+
+
+def test_broadcast_gradient_is_the_rank_ordered_sum():
+    """Copies and gradients against autograd of the leaves used by every
+    rank (float64; a leaf no rank reaches keeps no gradient); then a
+    float32 leaf's gradient is the rank-ordered sum of constructed ones."""
+    cpu = [torch.device("cpu")] * 3
+    ts = [torch.randn(5, 7, dtype=torch.float64).requires_grad_(True),
+          torch.randn(3, dtype=torch.float64).requires_grad_(True),
+          torch.randn(2, dtype=torch.float64).requires_grad_(True)]
+    copies = collective.broadcast(ts, cpu)
+    assert len({c.data_ptr() for rank in copies for c in rank}) == 9
+    for rank in copies:
+        for c, t in zip(rank, ts, strict=True):
+            assert torch.equal(c, t)
+    w = [[torch.randn(t.shape, dtype=torch.float64) for t in ts[:2]] for _ in cpu]
+    g = torch.autograd.grad(
+        sum((c * wc).sum() for rank, wr in zip(copies, w) for c, wc in zip(rank, wr)),
+        ts, allow_unused=True)
+    g_whole = torch.autograd.grad(
+        sum((t * wc).sum() for wr in w for t, wc in zip(ts, wr)), ts[:2])
+    for got, want in zip(g, g_whole, strict=False):
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
+    assert g[2] is None
+    # 1 + 2^-24 rounds back to 1 in float32; 2^-24 + 2^-24 does not
+    tiny = 2.0 ** -24
+    grads = [torch.full((5, 7), v) for v in (1.0, tiny, tiny)]
+    t = ts[0].detach().float().requires_grad_(True)
+    copies = collective.broadcast([t], cpu)
+    (g,) = torch.autograd.grad([rank[0] for rank in copies], t, grad_outputs=grads)
+    assert torch.equal(g, (grads[0] + grads[1]) + grads[2])
+    assert not torch.equal(g, (grads[2] + grads[1]) + grads[0])
+
+
+def test_bn_exchange_matches_the_whole_batch_and_sums_in_rank_order():
+    """The exchange's statistics and gradients against autograd of the
+    whole batch's (float64, an empty shard among them); then its backward
+    with constructed output gradients: each part's gradient is formed from
+    the rank-ordered sums."""
+    x = torch.randn(16, 12, 50, dtype=torch.float64).requires_grad_(True)
+    sizes = [5, 0, 7, 4]
+    blocks = x.split(sizes)
+
+    def shard(r):
+        group, rank = collective.current_group()
+        return group.mean_var(rank, blocks[r], (0, 2))
+
+    out = run_shards([torch.device("cpu")] * len(sizes), shard)
+    mean, var = x.mean((0, 2)), x.var((0, 2), correction=0)
+    for m, v in out:
+        torch.testing.assert_close(m, mean, rtol=1e-6, atol=0)
+        torch.testing.assert_close(v, var, rtol=1e-6, atol=0)
+    w = torch.randn(2, 12, dtype=torch.float64)
+    (g_whole,) = torch.autograd.grad((mean * w[0]).sum() + (var * w[1]).sum(), x)
+    shard_sum = sum(((m * w[0]).sum() + (v * w[1]).sum()) * n / 16
+                    for (m, v), n in zip(out, sizes))
+    (g_shard,) = torch.autograd.grad(shard_sum, x)
+    torch.testing.assert_close(g_shard, g_whole, rtol=1e-6, atol=1e-12)
+
+    counts = [2, 4, 2]             # 8 rows: dividing by them is exact
+    cpu = [torch.device("cpu")] * 3
+    mus = [torch.randn(1, 3, 1).requires_grad_(True) for _ in counts]
+    m2s = [torch.rand(1, 3, 1).requires_grad_(True) for _ in counts]
+    stats = collective._MergeStats.apply(counts, cpu, *mus, *m2s)
+    tiny = 2.0 ** -24
+    g_var = [torch.full((1, 3, 1), v) for v in (1.0, tiny, tiny)]
+    grads = [g for gv in g_var for g in (torch.zeros(1, 3, 1), gv)]
+    g_m2 = torch.autograd.grad(stats, m2s, grad_outputs=grads)
+    for g in g_m2:
+        assert torch.equal(g, ((g_var[0] + g_var[1]) + g_var[2]) / 8)
+        assert not torch.equal(g, ((g_var[2] + g_var[1]) + g_var[0]) / 8)
 
 
 @pytest.mark.parametrize("n", [2, 8])
