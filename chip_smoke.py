@@ -190,6 +190,18 @@ Phases (any failure exits nonzero and prints no result line):
      tp 2 and the GTCRN step on dp 2 against one device (bars ``TRAIN_*``,
      step medians); ``dryrun_multichip(2)`` and ``(4)``.  K1 and K2
      launches over the phase (``launches_parallel``).
+  9. The evaluation and calibration tools (``tools_phase``): K2 on the
+     probe's default batch ``[96, 32000]`` (80 mels) and K1 at its grid
+     (A 128, ``win_f`` 101, ``hop_f`` 50) against their plain versions; then
+     each ``scripts/torch_*.py`` tool's function at a small size on the card
+     and with ``device='cpu'``: the RTTM selftest on one 60 s pair, the
+     synthetic table on one tone file, the tail on seeds 2000-2001, the
+     calibration on one 60 s file each of 2 and 3 speakers, the VAD and the
+     detector on one 60 s file in two domains, the segmentation frame eval
+     on one batch of 8 and its pipeline eval on one 30 s file, the probe at
+     its defaults, GTCRN's SI-SNR on a batch of 4 and the grid backends on
+     one 60 s file.  Each card result within ``TOOL_BARS`` of the CPU's;
+     walls, launches by kernel and by shape (``launches_tools``).
 Then a line with the walls of this slice's routes and of the whole run,
 one JSON line listing the kernels, the card's nvidia-smi line, and the
 result line ``{"ok": true, "device": {...}}``.
@@ -1952,6 +1964,206 @@ def parallel_phase(dev, smi, enc, vad, bench_cfg, der_pct, cards=None) -> dict:
     return out
 
 
+# phase 9: each evaluation tool's result on the card against the same
+# function with device='cpu' in the same call: DER / JER within one point
+# (the port's DER bars), VAD miss / false-alarm rates within half a point,
+# detector precision / recall / F1 within 0.02, probe cosines within 1e-3
+# and EER / purity within 0.02, SI-SNR within 0.05 dB, the calibration's
+# sub-centroid and within-cluster cosines within 2e-3 (merged flags equal)
+TOOL_BARS = {"der_pts": 1.0, "vad_pts": 0.5, "det": 0.02, "cos": 1e-3,
+             "eer": 0.02, "si_snr_db": 0.05, "sub_cos": 2e-3,
+             "frame_acc": 0.02}
+# the kernels each tool's card run must launch (the synthetic table's probe
+# encoder is numpy; its K2 launches come from the overlap detector's 5 s
+# windows, which the whole-file path scores)
+TOOL_KERNELS = {
+    "rttm": ("asp_grid_stats", "fused_log_mel"),
+    "synthetic": ("fused_log_mel",),
+    "tail": ("asp_grid_stats", "fused_log_mel"),
+    "calibrate": ("asp_grid_stats", "fused_log_mel"),
+    "vad": ("fused_log_mel",),
+    "overlap_det": ("fused_log_mel",),
+    "segmentation": ("asp_grid_stats", "fused_log_mel"),
+    "probe": ("asp_grid_stats", "fused_log_mel"),
+    "enhancer": (),
+    "grid_backends": ("asp_grid_stats", "fused_log_mel"),
+}
+# the probe's geometry at its defaults: 96 utterances of 2 s at 80 mels
+# (ecapa_synthetic_full_stream.npz), 1 s windows at a 0.5 s hop
+K2_PROBE = "fused_log_mel [B, T] rows of 32000 at a stride of 32000, 80 mels"
+K1_PROBE = "asp_grid_stats A 128, CC 1536, win_f 101, hop_f 50"
+
+
+def tools_phase(dev) -> dict:
+    """Phase 9: the evaluation and calibration tools (``scripts/torch_*.py``)
+    at small sizes, each on the card and then with ``device='cpu'``; the
+    card's result held against the CPU's at :data:`TOOL_BARS`.  The K2
+    batch and the K1 grid of the probe's default geometry against their
+    plain versions (not counted).  Returns each tool's walls, launches by
+    kernel and by shape, and the two kernel measurements."""
+    import tempfile
+
+    import torch
+
+    from speech_diarization_tpu_torch.dsp.mel import _log_mel_1d
+    from speech_diarization_tpu_torch.models.layers import sliding_mean_time
+    from speech_diarization_tpu_torch.models.port import load_speaker_encoder
+    from speech_diarization_tpu_torch.ops import kernels
+
+    sys.path.insert(0, str(HERE / "scripts"))
+    import torch_calibrate_bisect
+    import torch_eval_enhancer
+    import torch_eval_grid_backends
+    import torch_eval_overlap_det
+    import torch_eval_rttm
+    import torch_eval_segmentation
+    import torch_eval_synthetic
+    import torch_eval_tail
+    import torch_eval_vad
+    import torch_probe_encoder
+
+    t_phase = time.perf_counter()
+    wdir = HERE / "weights"
+    out = {"tools": {}, "launches": {k: 0 for k in kernels.LAUNCHES}, "shapes": {}}
+
+    # (a) the probe's default geometry against the plain versions
+    wavs, _ = torch_probe_encoder.render(12, 8, 2.0, 123, "mixed", "off")
+    full = load_speaker_encoder(wdir / "ecapa_synthetic_full_stream.npz").to(dev).eval()
+    with torch.inference_mode():
+        y = torch.from_numpy(wavs).to(dev)                       # [96, 32000]
+        out["k2"] = k2_measure(y, y.numel(), n_mels=80)
+        f = _log_mel_1d(y[0], n_mels=80)[None]
+        f = f - sliding_mean_time(f.transpose(1, 2), 101).transpose(1, 2)
+        x = full.net.trunk(f, se_win=101)[0]                     # [1536, 201]
+        out["k1"] = k1_measure(full.net, x, 3, 0, hop_f=50, win_f=101)
+    for tag, m in (("fused_log_mel [96, 32000] 80 mels", out["k2"]),
+                   ("asp_grid_stats A 128 win_f 101 hop_f 50", out["k1"])):
+        log(f"[9a] {tag}: max_abs_err {m['max_abs_err']:.3e} (tol {m['tol']:.3e}), "
+            f"{m['ms']:.4f} ms (plain {m['plain_ms']:.4f}, bound {m['bound_ms']:.4f} "
+            f"by {m['bound_by']}, library {m['library_ms']})")
+        if not m["max_abs_err"] <= m["tol"]:
+            raise AssertionError(f"[9a] {tag} disagrees with its plain version")
+
+    # (b) each tool on the card, then on the CPU
+    tmp = Path(tempfile.mkdtemp(prefix="sdtpu_tools_"))
+    pairs = torch_eval_rttm.selftest_pairs(tmp, 1)
+    seg_w = wdir / "segmentation_synthetic.npz"
+    vad_w = str(wdir / "vad_conv_mc.npz")
+    full_w = str(wdir / "ecapa_synthetic_full_stream.npz")
+    tools = {
+        "rttm": lambda d: torch_eval_rttm.run(
+            pairs, device=d, vad_weights=str(wdir / "vad_synthetic.npz"))["aggregate"],
+        "synthetic": lambda d: torch_eval_synthetic.evaluate(1, device=d),
+        "tail": lambda d: torch_eval_tail.evaluate(seeds=(2000, 2001), device=d)[0],
+        "calibrate": lambda d: torch_calibrate_bisect.calibrate(
+            full_w, vad_w, dur=60.0, files=1, device=d, n_speakers=(2, 3))[0],
+        "vad": lambda d: torch_eval_vad.score_weights(
+            Path(vad_w), ["indomain", "heldout-white10"], 1, 60.0, 3, device=d),
+        "overlap_det": lambda d: torch_eval_overlap_det.evaluate(
+            None, ["heldout-overlap", "heldout-dry"], 60.0, 1, 3, device=d)[1],
+        "segmentation": lambda d: {
+            "frame": torch_eval_segmentation.frame_eval(seg_w, 1, 8, 0, d),
+            "pipeline": torch_eval_segmentation.pipeline_eval(
+                seg_w, 1, 30.0, 3, 0.3, 0, device=d, bf16=True)},
+        "probe": lambda d: torch_probe_encoder.probe(full_w, device=d),
+        "enhancer": lambda d: torch_eval_enhancer.evaluate(
+            "gtcrn", [str(wdir / "gtcrn_mc.npz")], 4, 2.0, 1, d)["gtcrn_mc.npz"],
+        "grid_backends": lambda d: torch_eval_grid_backends.evaluate(1, device=d),
+    }
+    failed = []
+    for name, fn in tools.items():
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        card = fn(None)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, shapes = dict(kernels.LAUNCHES), dict(kernels.LAUNCH_SHAPES)
+        t0 = time.perf_counter()
+        cpu = fn("cpu")
+        wall_cpu = time.perf_counter() - t0
+        for k, v in launches.items():
+            out["launches"][k] += v
+        for k, v in shapes.items():
+            out["shapes"][k] = out["shapes"].get(k, 0) + v
+        diffs = tool_diffs(name, card, cpu)
+        off = {k: v for k, v in diffs.items() if not v[0] <= v[1]}
+        missing = [k for k in TOOL_KERNELS[name] if not launches[k]]
+        out["tools"][name] = {"wall_s": wall, "wall_cpu_s": wall_cpu,
+                              "launches": launches, "shapes": shapes,
+                              "card": card, "diffs": diffs}
+        log(f"[9b] {name}: card {wall:.3f} s, CPU {wall_cpu:.3f} s; launches "
+            f"{launches}; largest differences "
+            f"{({k: (round(v[0], 6), v[1]) for k, v in diffs.items()})}")
+        if off or missing:
+            failed.append(f"{name}: off {off}, not launched {missing}")
+    out["wall"] = time.perf_counter() - t_phase
+    log(f"[9] tools phase took {out['wall']:.1f} s; launches {out['launches']}; "
+        f"by shape {out['shapes']}")
+    if failed:
+        raise AssertionError("[9] " + "; ".join(failed))
+    if not all(out["launches"].values()):
+        raise AssertionError(f"[9] a kernel was not launched: {out['launches']}")
+    return out
+
+
+def tool_diffs(name: str, card, cpu) -> dict:
+    """{quantity: (|card - CPU|, bar)} of one tool's results."""
+    b = TOOL_BARS
+    d = {}
+
+    def put(key, x, y, bar):
+        d[key] = (abs(float(x) - float(y)), bar)
+
+    if name == "rttm":
+        for k in ("der", "miss", "fa", "conf", "jer"):
+            put(k, 100 * card[k], 100 * cpu[k], b["der_pts"])
+    elif name == "synthetic":
+        for m in card:
+            for k in ("der", "jer"):
+                put(f"{m} {k}", card[m][k], cpu[m][k], b["der_pts"])
+    elif name == "tail":
+        for r, s in zip(card, cpu):
+            put(f"seed {r['seed']} der", r["der_pct"], s["der_pct"], b["der_pts"])
+            put(f"seed {r['seed']} speakers", r["spk"], s["spk"], 0)
+    elif name == "calibrate":
+        put("clusters", len(card), len(cpu), 0)
+        for r, s in zip(card, cpu):
+            tag = f"{r['n_spk']} spk cluster {r['cluster']}"
+            put(f"{tag} sub_cos", r["sub_cos"], s["sub_cos"], b["sub_cos"])
+            put(f"{tag} within_cos", r["within_cos"], s["within_cos"], b["sub_cos"])
+            put(f"{tag} merged", r["merged"], s["merged"], 0)
+    elif name == "vad":
+        for dom in card:
+            for k in ("miss_pct", "fa_pct"):
+                put(f"{dom} {k}", card[dom][k], cpu[dom][k], b["vad_pts"])
+    elif name == "overlap_det":
+        for dom in card:
+            for k in ("precision", "recall", "f1"):
+                put(f"{dom} {k}", card[dom][k], cpu[dom][k], b["det"])
+    elif name == "segmentation":
+        for fam in card["frame"]:
+            put(f"frame {fam}", card["frame"][fam]["best_perm_acc"],
+                cpu["frame"][fam]["best_perm_acc"], b["frame_acc"])
+        for eng in card["pipeline"]:
+            put(f"{eng} der", card["pipeline"][eng]["der_pct"],
+                cpu["pipeline"][eng]["der_pct"], b["der_pts"])
+    elif name == "probe":
+        for k in ("within_mean", "within_p10", "across_mean", "across_p90",
+                  "separation"):
+            put(k, card[k], cpu[k], b["cos"])
+        for k in ("eer", "purity_at_true_k"):
+            put(k, card[k], cpu[k], b["eer"])
+    elif name == "enhancer":
+        for fam in card:
+            put(f"{fam} noisy", card[fam][0], cpu[fam][0], b["si_snr_db"])
+            put(f"{fam} enhanced", card[fam][1], cpu[fam][1], b["si_snr_db"])
+    elif name == "grid_backends":
+        for be in card:
+            put(f"{be} der", card[be]["der_pct"], cpu[be]["der_pct"], b["der_pts"])
+            put(f"{be} speakers", sum(card[be]["spk"]), sum(cpu[be]["spk"]), 0)
+    return d
+
+
 def main() -> int:
     import torch
 
@@ -2444,7 +2656,8 @@ def main() -> int:
     wave, truth = make_conversation(np.random.default_rng(0), 60.0,
                                     n_speakers=3, sr=SR)
     gru = load_vad(wdir / "vad_synthetic.npz")
-    k1_a128, k1_a64_384 = "asp_grid_stats A 128, CC 1536", "asp_grid_stats A 64, CC 384"
+    k1_a128 = "asp_grid_stats A 128, CC 1536, win_f 201, hop_f 10"
+    k1_a64_384 = "asp_grid_stats A 64, CC 384, win_f 201, hop_f 10"
     k2_t80, k2_t40 = "fused_log_mel [T] 80 mels", "fused_log_mel [T] 40 mels"
     k2_w40 = "fused_log_mel [B, T] rows of 32000 at a stride of 1600, 40 mels"
     k2_w80 = "fused_log_mel [B, T] rows of 32000 at a stride of 1600, 80 mels"
@@ -2930,6 +3143,11 @@ def main() -> int:
         k: v["k2_shapes"] for k, v in parallel["encode"].items() if k != "single_ms"}}
     rows[1]["sharded"] = {"asp_check": parallel["asp"]}
 
+    # ---------------------------------------------------------- phase 9 ----
+    tools = tools_phase(dev)
+    rows[0]["probe_batch"] = {**tools["k2"], "launches": tools["shapes"].get(K2_PROBE, 0)}
+    rows[1]["probe_grid"] = {**tools["k1"], "launches": tools["shapes"].get(K1_PROBE, 0)}
+
     for r in rows:
         # this slice's path: the bench configuration at the shipped default
         r["launches"] = launches[True, 600][r["name"]]
@@ -2939,6 +3157,8 @@ def main() -> int:
         # phase 8: the sharded encoder, corpus route, K1 check, mesh steps and
         # dry runs on virtual meshes of the card
         r["launches_parallel"] = parallel["launches"][r["name"]]
+        # phase 9: the evaluation tools' card runs
+        r["launches_tools"] = tools["launches"][r["name"]]
         # the noisy-input route on the 600 s file in white noise, through
         # GTCRN, ZipEnhancer and the demixer
         r["launches_noisy"] = noisy["white", 10.0, 600]["launches"][r["name"]]
@@ -2993,7 +3213,8 @@ def main() -> int:
             "launches_options", "launches_engine", "batch",
             "batch_vad", "t_80", "batch_windowed_40", "batch_windowed_80", "a32",
             "a128", "engine_chunks_60s", "engine_chunks_600s", "engine_grid",
-            "bucketed", "training", "launches_parallel", "sharded")
+            "bucketed", "training", "launches_parallel", "sharded",
+            "launches_tools", "probe_batch", "probe_grid")
     log(f"[end] engine 600 s {engine['conv', 'bench_600s']['wall']:.4f} s, bucketed "
         f"60 s {bucketed_wall:.4f} s, batch {({k: round(v, 3) for k, v in batch_walls.items()})} "
         f"s, diag {diag_wall:.3f} s, encoders 60 s "
@@ -3006,6 +3227,8 @@ def main() -> int:
         f"{parallel['corpus'][600]['wall_sharded_s']:.4f} s vs "
         f"{parallel['corpus'][600]['wall_single_s']:.4f} s, mesh steps "
         f"{({k: round(v['step_ms_mesh'], 3) for k, v in parallel['train'].items()})} ms); "
+        f"tools phase {tools['wall']:.1f} s (card / CPU walls "
+        f"{({k: (round(v['wall_s'], 3), round(v['wall_cpu_s'], 3)) for k, v in tools['tools'].items()})} s); "
         f"the whole run took "
         f"{time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}

@@ -9,18 +9,24 @@ at 15 and 5 dB, in white noise at 10 dB, and with 30 % overlapping turns),
 with a 0.25 s collar: DER (miss / false alarm / confusion), JER and
 speaker-count accuracy per domain.
 
-Configuration: spectral clustering (max 8 speakers), ``vad_conv_mc.npz``,
-``ecapa_robust_stream.npz`` with a bf16 trunk (as ``bench.py`` loads it), the
-overlap rescue and the enhancement front-end at the config's defaults.
-``SDTPU_EVAL_OVERLAP=1|0`` overrides the rescue; ``SDTPU_EVAL_ENHANCE=off``
-disables the front-end, ``=gtcrn|zipenhancer|demix-dialog`` picks it;
-``SDTPU_EVAL_ENHANCE_SCOPE`` sets its scope.  The bar is the JAX pipeline
-in the same configuration on the CPU on the same draws
+Configuration: spectral clustering (max 8 speakers), the first shipped
+VAD of ``vad_conv_mc.npz``, ``vad_conv_synthetic.npz``, ``vad_synthetic.npz``
+(none: the energy VAD) or ``--vad-weights``, the first shipped encoder of
+``ENCODER_PREFERENCE`` (``ecapa_robust_stream.npz``) or ``--enc-weights``
+with a bf16 trunk (as ``bench.py`` loads it), the overlap rescue and the
+enhancement front-end at the config's defaults.  ``SDTPU_EVAL_REFINE=0``
+turns the window-driven refine splitting off; ``SDTPU_EVAL_OVERLAP=1|0``
+overrides the rescue and ``SDTPU_EVAL_OVERLAP_WEIGHTS`` names its detector;
+``SDTPU_EVAL_ENHANCE=off`` disables the front-end,
+``=gtcrn|zipenhancer|demix-dialog`` picks it, ``SDTPU_EVAL_ENHANCE_SCOPE``
+sets its scope and ``SDTPU_EVAL_ENHANCE_WEIGHTS`` its checkpoint.  The bar
+is the JAX pipeline in the same configuration on the CPU on the same draws
 (``scripts/torch_port_der_bar.py --heldout``): the default table (3 files
-of 60 s, 3 speakers, no override) exits nonzero when a domain's DER is more
-than one point from it, either way.
+of 60 s, 3 speakers, the shipped weights, no override) exits nonzero when
+a domain's DER is more than one point from it, either way.
 
-    python3 scripts/torch_eval_heldout.py [--cpu] [--n-files 3] [--dur 60]
+    python3 scripts/torch_eval_heldout.py [--cpu] [--n-files 3] [--dur 60] \
+        [--enc-weights X.npz] [--vad-weights V.npz]
 
 Runs on the card unless ``--cpu`` is given.  One table row per domain on
 standard output, then the card's nvidia-smi line and a JSON summary line;
@@ -31,7 +37,6 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -58,7 +63,16 @@ JAX_CPU_HELDOUT_DER_PCT = {
 DER_SLACK_PCT = 1.0
 
 
-def build_pipeline(device):
+ENV_OVERRIDES = ("SDTPU_EVAL_REFINE", "SDTPU_EVAL_OVERLAP",
+                 "SDTPU_EVAL_OVERLAP_WEIGHTS", "SDTPU_EVAL_ENHANCE",
+                 "SDTPU_EVAL_ENHANCE_SCOPE", "SDTPU_EVAL_ENHANCE_WEIGHTS")
+
+
+def build_pipeline(device, enc_weights: str | None = None,
+                   vad_weights: str | None = None):
+    """-> (pipeline, encoder file name, VAD file name or None) of
+    ``eval_heldout.py``'s configuration, the variables of
+    :data:`ENV_OVERRIDES` applied."""
     import torch
 
     from speech_diarization_tpu_torch.config import (
@@ -68,21 +82,31 @@ def build_pipeline(device):
         load_speaker_encoder, load_vad,
     )
     from speech_diarization_tpu_torch.pipelines.diarize import DiarizationPipeline
+    from speech_diarization_tpu_torch.utils.weights import (
+        ENCODER_PREFERENCE, VAD_PREFERENCE, prefer_weights,
+    )
 
-    w = ROOT / "weights"
-    enh = os.environ.get("SDTPU_EVAL_ENHANCE")
-    ov = os.environ.get("SDTPU_EVAL_OVERLAP")
+    enc_w = Path(enc_weights) if enc_weights else prefer_weights(ENCODER_PREFERENCE)
+    if enc_w is None:
+        raise SystemExit("no shipped encoder weights under weights/")
+    vad_w = Path(vad_weights) if vad_weights else prefer_weights(VAD_PREFERENCE)
+    env = os.environ.get
+    enh = env("SDTPU_EVAL_ENHANCE")
+    ov = env("SDTPU_EVAL_OVERLAP")
     cfg = DiarizationConfig(
-        cluster=ClusterConfig(method="spectral", max_speakers=8),
-        overlap=OverlapConfig(**({} if ov is None else {"enabled": ov == "1"})),
+        cluster=ClusterConfig(method="spectral", max_speakers=8,
+                              refine_splits=env("SDTPU_EVAL_REFINE", "1") == "1"),
+        overlap=OverlapConfig(**({} if ov is None else {"enabled": ov == "1"}),
+                              weights=env("SDTPU_EVAL_OVERLAP_WEIGHTS")),
         enhance=EnhanceConfig(
             enabled=enh != "off",
             backend=enh if enh not in (None, "off") else "gtcrn",
-            scope=os.environ.get("SDTPU_EVAL_ENHANCE_SCOPE", "auto")))
-    return DiarizationPipeline(
-        cfg, encoder=load_speaker_encoder(w / "ecapa_robust_stream.npz",
-                                          dtype=torch.bfloat16),
-        vad=load_vad(w / "vad_conv_mc.npz"), device=device)
+            scope=env("SDTPU_EVAL_ENHANCE_SCOPE", "auto"),
+            weights=env("SDTPU_EVAL_ENHANCE_WEIGHTS")))
+    pipe = DiarizationPipeline(
+        cfg, encoder=load_speaker_encoder(enc_w, dtype=torch.bfloat16),
+        vad=None if vad_w is None else load_vad(vad_w), device=device)
+    return pipe, enc_w.name, None if vad_w is None else vad_w.name
 
 
 def main() -> int:
@@ -94,9 +118,9 @@ def main() -> int:
                     help="comma-separated subset of the eight domains")
     ap.add_argument("--cpu", action="store_true",
                     help="run on the CPU instead of the card")
+    ap.add_argument("--enc-weights", type=str, default=None)
+    ap.add_argument("--vad-weights", type=str, default=None)
     args = ap.parse_args()
-
-    import torch
 
     from speech_diarization_tpu_torch.metrics.der import (
         diarization_error_rate, jaccard_error_rate,
@@ -105,14 +129,17 @@ def main() -> int:
         HELDOUT_DOMAINS, make_domain_file,
     )
     from speech_diarization_tpu_torch.types import SegmentArray
+    from speech_diarization_tpu_torch.utils.device import eval_device
 
-    if not args.cpu and not torch.cuda.is_available():
+    dv = eval_device(args.cpu)
+    if dv is None:
         print("needs a CUDA card (or --cpu)", file=sys.stderr)
         return 2
-    card = "cpu" if args.cpu else subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    pipe = build_pipeline("cpu" if args.cpu else None)
+    device, card = dv
+    pipe, enc_name, vad_name = build_pipeline(device, args.enc_weights,
+                                              args.vad_weights)
+    print(f"pipeline: encoder={enc_name} vad={vad_name} cluster=spectral",
+          file=sys.stderr)
     domains = args.domains.split(",") if args.domains else list(HELDOUT_DOMAINS)
     print(f"{'domain':<18} {'DER%':>7} {'miss%':>7} {'fa%':>7} {'conf%':>7} "
           f"{'JER%':>7} {'spk_acc':>8}")
@@ -149,9 +176,8 @@ def main() -> int:
     print(json.dumps({"metric": "heldout_der", "device": card,
                       "domains": summary}))
     default_table = (args.n_files == 3 and args.dur == 60.0 and args.speakers == 3
-                     and not any(os.environ.get(k) for k in (
-                         "SDTPU_EVAL_OVERLAP", "SDTPU_EVAL_ENHANCE",
-                         "SDTPU_EVAL_ENHANCE_SCOPE")))
+                     and not args.enc_weights and not args.vad_weights
+                     and not any(os.environ.get(k) for k in ENV_OVERRIDES))
     off = {d: v["der_pct"] for d, v in summary.items()
            if abs(v["der_pct"] - JAX_CPU_HELDOUT_DER_PCT[d]) > DER_SLACK_PCT}
     if default_table and off:

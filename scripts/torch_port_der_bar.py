@@ -114,6 +114,16 @@ lines and DER per file.  One JSON line, also written to
     JAX_PLATFORMS=cpu python scripts/torch_port_der_bar.py --corpus
     JAX_PLATFORMS=cpu python scripts/torch_port_der_bar.py --engine | --bucketed | --batch
     JAX_PLATFORMS=cpu python scripts/torch_port_der_bar.py --sharded
+    JAX_PLATFORMS=cpu python scripts/torch_port_der_bar.py --tools
+
+``--tools``: the JAX CPU bars of the evaluation and calibration tools: each
+JAX script of :data:`TOOL_COMMANDS` at its default table (the weights a
+script requires: the shipped conv VAD for ``eval_vad.py``, the shipped
+GTCRN and ZipEnhancer for ``eval_enhancer.py``; ``calibrate_bisect.py`` also
+with the conv VAD), each in its own process on the CPU.  The port's
+``scripts/torch_<name>.py`` on the card with the same arguments is held to
+it.  One JSON line per run (its argv, seconds, and its standard output's
+last lines).
 """
 from __future__ import annotations
 
@@ -128,6 +138,45 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
+
+
+# the JAX scripts' default tables (``--tools``); the port's scripts take the
+# same arguments
+TOOL_COMMANDS = {
+    "eval_rttm": ("eval_rttm", []),
+    "eval_synthetic": ("eval_synthetic", []),
+    "eval_tail": ("eval_tail", []),
+    "calibrate_bisect": ("calibrate_bisect", []),
+    "calibrate_bisect_conv_vad": ("calibrate_bisect",
+                                  ["--vad", "weights/vad_conv_mc.npz"]),
+    "eval_vad": ("eval_vad", ["--weights", "weights/vad_conv_mc.npz"]),
+    "eval_overlap_det": ("eval_overlap_det", []),
+    "eval_segmentation": ("eval_segmentation", []),
+    "probe_encoder": ("probe_encoder", []),
+    "eval_enhancer_gtcrn": ("eval_enhancer", ["--backend", "gtcrn", "--weights",
+                                              "weights/gtcrn_mc.npz"]),
+    "eval_enhancer_zipenhancer": ("eval_enhancer",
+                                  ["--weights", "weights/zipenhancer_mc.npz"]),
+    "eval_grid_backends": ("eval_grid_backends", []),
+}
+
+
+def tools_bar() -> None:
+    """Each JAX tool at its default table on the CPU, in its own process."""
+    import os
+    import subprocess
+
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    for name, (script, extra) in TOOL_COMMANDS.items():
+        # eval_grid_backends.py has no --cpu: the variable keeps it there
+        argv = [sys.executable, f"scripts/{script}.py", *extra] + (
+            [] if script == "eval_grid_backends" else ["--cpu"])
+        t0 = time.perf_counter()
+        run = subprocess.run(argv, cwd=ROOT, env=env, capture_output=True, text=True)
+        print(json.dumps({"tool": name, "argv": argv[1:], "rc": run.returncode,
+                          "seconds": round(time.perf_counter() - t0, 1),
+                          "stdout": run.stdout.strip().splitlines()[-30:]}),
+              flush=True)
 
 
 def main() -> None:
@@ -158,7 +207,11 @@ def main() -> None:
                     help="the published enhancer graphs on seeded weights")
     ap.add_argument("--sharded", action="store_true",
                     help="the corpus's sharded route on 8 virtual CPU devices")
+    ap.add_argument("--tools", action="store_true",
+                    help="the JAX evaluation tools at their default tables")
     args = ap.parse_args()
+    if args.tools:
+        return tools_bar()
     if args.sharded:
         import os
 

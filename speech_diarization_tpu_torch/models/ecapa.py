@@ -428,7 +428,7 @@ def asp_grid_stats(x: torch.Tensor, bw: torch.Tensor, w1x: torch.Tensor,
         w2_b.data_ptr(), a_dim, hop_f, win_f, n_windows, n_rows,
         x_t.data_ptr(), hx.data_ptr(), out.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream, device=dev,
-        shape=f"A {a_dim}, CC {cc}",
+        shape=f"A {a_dim}, CC {cc}, win_f {win_f}, hop_f {hop_f}",
         # the net's own width: fold_k1's zero padding adds all-zero w2 columns
         work=lambda: cost.asp_grid_work(cc, int((w2 != 0).any(0).sum()), hop_f,
                                         win_f, n_windows))
@@ -470,16 +470,18 @@ class EcapaModel(nn.Module):
         pools trunk frames from ``(margin + i*hop) / mel_hop``.
 
         ``backend`` (the JAX argument): 'kernel' pools through K1, which
-        has no backward; 'decomposed' through the plain differentiable
-        head, which training must name; None or 'auto' is the kernel on a
-        CUDA tensor and the plain head on the CPU."""
+        has no backward and takes one chunk; 'decomposed' through the plain
+        differentiable head, which training must name; None or 'auto' is
+        the kernel on a CUDA tensor (a batch: one K1 launch a row, after the
+        one trunk pass) and the plain head on the CPU."""
+        per_row = backend in (None, "auto") and feats.ndim == 3
         if backend in (None, "auto"):
             backend = "kernel" if feats.device.type == "cuda" else "decomposed"
         if backend not in ("kernel", "decomposed"):
             raise ValueError(f"unknown ASP backend {backend!r}")
-        if backend == "kernel" and feats.ndim != 2:
+        if backend == "kernel" and feats.ndim != 2 and not per_row:
             raise ValueError("the K1 head pools one chunk; a batch of chunks "
-                             "takes backend='decomposed'")
+                             "takes backend='decomposed' or 'auto'")
         mel_hop = int(self.sample_rate * 10 // 1000)
         if margin % hop or hop % mel_hop or win % mel_hop:
             raise ValueError("grid geometry must align to the 10 ms mel hop")
@@ -493,8 +495,9 @@ class EcapaModel(nn.Module):
         if x.shape[-1] < need_f:
             x = F.pad(x, (0, need_f - x.shape[-1]))
         if backend == "kernel":
-            return self.net.asp_head_grid_kernel(x[0], first, hop_f, win_f,
-                                                 n_windows)
+            out = [self.net.asp_head_grid_kernel(xb, first, hop_f, win_f,
+                                                 n_windows) for xb in x]
+            return out[0] if feats.ndim == 2 else torch.stack(out)
         out = self.net.asp_head_grid(x, first, hop_f, win_f, n_windows)
         return out[0] if feats.ndim == 2 else out
 

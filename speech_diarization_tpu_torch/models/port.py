@@ -101,10 +101,18 @@ def flat_params(net: torch.nn.Module) -> dict[str, np.ndarray]:
 
 
 def save_params_npz(params: dict, path: str | Path,
-                    meta: dict | None = None) -> None:
+                    meta: dict | None = None, store_dtype=None) -> None:
     """The JAX package's checkpoint format: flat npz, the architecture (any
-    JSON-able dict) under the reserved ``__meta__`` key as UTF-8 bytes."""
-    arrays = {k: np.asarray(v) for k, v in params.items()}
+    JSON-able dict) under the reserved ``__meta__`` key as UTF-8 bytes.
+    ``store_dtype`` (e.g. ``np.float16``, half the size of shipped weights)
+    is the stored type of every floating array; :func:`load_params_npz`
+    upcasts float16 back to float32."""
+    arrays = {}
+    for k, v in params.items():
+        a = np.asarray(v)
+        if store_dtype is not None and np.issubdtype(a.dtype, np.floating):
+            a = a.astype(store_dtype)
+        arrays[k] = a
     if meta is not None:
         arrays["__meta__"] = np.frombuffer(json.dumps(meta).encode(),
                                            dtype=np.uint8)

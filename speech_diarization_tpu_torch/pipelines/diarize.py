@@ -99,6 +99,21 @@ class DiarizationPipeline:
         cfg: unified config.  ``overlap.enabled`` (the default) runs the
             segmentation model inside the per-chunk program and the overlap
             rescue on the host; ``reseg.enabled`` runs frame reassignment.
+        encode_fn: a callable ``[B, T] -> [B, D]`` (the JAX package's
+            keyword): it gets a float32 tensor on this pipeline's device and
+            may return a tensor or an array, which is moved there.  It
+            computes the windowed grid and is :meth:`encode_fn` for the
+            bucketed mode and the segmentation engine.  Without ``encoder``
+            no shipped encoder is loaded (the windowed grid, as in the JAX
+            package); with one, the encoder keeps the streaming grid.
+        vad_probs_fn: a callable ``[B, T] -> [B, F]`` frame probabilities
+            (the JAX package's keyword), in place of ``vad``: it runs in
+            the per-chunk program and over the whole-file path's 15 s
+            chunks; what it returns is moved to this pipeline's device.
+        enhance_fn: a callable wave -> wave in place of the enhancer of
+            ``cfg.enhance`` (taken even when ``enhance.enabled`` is off, as
+            in the JAX package); what it returns is moved to this
+            pipeline's device.
         encoder: a module with ``encode_batch`` ([B, T] waveforms -> [B, D]):
             an :class:`~..models.ecapa.EcapaModel`, ``ERes2NetV2Model`` or
             ``CamPlusPlusModel`` (``models.registry.make_encoder_model``);
@@ -125,19 +140,23 @@ class DiarizationPipeline:
     _PAD_BUCKET_S = 60.0   # chunk length of the streamed ingest
     _SNR_FRAME = 800       # 50 ms @ 16 kHz energy frames of the SNR probe
 
-    def __init__(self, cfg: DiarizationConfig | None = None, encoder=None,
-                 vad=None, device: str | torch.device | None = None):
+    def __init__(self, cfg: DiarizationConfig | None = None, encode_fn=None,
+                 vad_probs_fn=None, enhance_fn=None, encoder=None, vad=None,
+                 device: str | torch.device | None = None):
         self.cfg = cfg = cfg or DiarizationConfig()
         if cfg.embed.mode not in ("grid", "bucketed"):
             raise ValueError(f"unknown embed mode {cfg.embed.mode!r}")
         if cfg.cluster.method not in _CLUSTER_METHODS:
             raise ValueError(f"unknown cluster method {cfg.cluster.method!r}")
+        if vad is not None and vad_probs_fn is not None:
+            raise ValueError("pass vad or vad_probs_fn, not both")
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             disable_tf32()
-        self.enhance_fn = None
+        self._encode = None if encode_fn is None else self._on_device(encode_fn)
+        self.enhance_fn = None if enhance_fn is None else self._on_device(enhance_fn)
         e = cfg.enhance
-        if e.enabled:
+        if enhance_fn is None and e.enabled:
             from .enhance import default_weights_path, make_enhance_fn
 
             if e.weights is None and default_weights_path(e.backend) is None:
@@ -155,7 +174,7 @@ class DiarizationPipeline:
                               "batch_size": e.batch_size}
                 self.enhance_fn = make_enhance_fn(
                     e.backend, weights=e.weights, device=self.device, **kwargs)
-        if encoder is None:
+        if encoder is None and encode_fn is None:
             from ..models.port import load_speaker_encoder
             from ..utils.weights import ENCODER_PREFERENCE, prefer_weights
 
@@ -163,7 +182,7 @@ class DiarizationPipeline:
             if path is None:
                 raise FileNotFoundError("no shipped speaker encoder")
             encoder = load_speaker_encoder(path)
-        if vad is None:
+        if vad is None and vad_probs_fn is None:
             from ..models.vad import EnergyVad
 
             vad = EnergyVad(cfg.audio.sample_rate, cfg.vad.win_ms,
@@ -173,21 +192,38 @@ class DiarizationPipeline:
         # mesh put them
         self.encoder = (encoder.to(self.device).eval()
                         if isinstance(encoder, torch.nn.Module) else encoder)
-        self.vad = vad.to(self.device).eval()
+        self.vad = None if vad is None else vad.to(self.device).eval()
+        self.vad_probs_fn = (self.vad.probs if vad_probs_fn is None
+                             else self._on_device(vad_probs_fn))
         self._programs: dict = {}
         self._last_snr_db: float | None = None
         self._last_floor_hf_frac = 1.0
         self._demix_fe = None
         self._demix_checked = False
 
+    def _on_device(self, fn):
+        """``fn`` with its result, a tensor or an array, as a float32
+        tensor on this pipeline's device."""
+        dev = self.device
+
+        def call(x):
+            out = fn(x)
+            if not isinstance(out, torch.Tensor):
+                out = torch.from_numpy(np.asarray(out))
+            return out.to(dev, torch.float32)
+
+        return call
+
     def encode_fn(self, wavs) -> torch.Tensor:
         """The per-utterance encoder: [B, T] waveforms (array or tensor) ->
-        [B, D] float32 embeddings on this pipeline's device (the
-        encoder's ``encode_batch``: one log-mel launch for the batch on the
-        card)."""
+        [B, D] float32 embeddings on this pipeline's device: the
+        constructor's ``encode_fn`` when given, else the encoder's
+        ``encode_batch`` (one log-mel launch for the batch on the card)."""
         with torch.inference_mode():
-            return self.encoder.encode_batch(
-                torch.as_tensor(wavs, dtype=torch.float32).to(self.device))
+            wavs = torch.as_tensor(wavs, dtype=torch.float32).to(self.device)
+            if self._encode is not None:
+                return self._encode(wavs)
+            return self.encoder.encode_batch(wavs)
 
     # ------------------------------------------------------------------ io --
     @staticmethod
@@ -247,9 +283,9 @@ class DiarizationPipeline:
         f0, f1 = m_l // hop_v, m_l // hop_v + u // hop_v
         want_energy = cfg.vad.energy_floor_db is not None
         vad, enc = self.vad, self.encoder
-        # a neural VAD reads a log-mel; the energy VAD the waveform.  The VAD
-        # and the ECAPA read the same log-mel when the mels, 25 ms / 10 ms
-        # and the rate agree: computed once per chunk then
+        # a neural VAD reads a log-mel; the energy VAD and a vad_probs_fn the
+        # waveform.  The VAD and the ECAPA read the same log-mel when the
+        # mels, 25 ms / 10 ms and the rate agree: computed once per chunk then
         neural = hasattr(vad, "probs_from_feats")
         shared = neural and (vad.net.n_mels == enc.net.n_mels
                              and vad.win_ms == 25.0 and vad.hop_ms == 10.0
@@ -288,8 +324,10 @@ class DiarizationPipeline:
                 probs = vad.probs_from_feats(fused_log_mel(
                     y3, sample_rate=sr, n_mels=vad.net.n_mels,
                     win_ms=vad.win_ms, hop_ms=vad.hop_ms))
-            else:
+            elif vad is not None:
                 probs = vad.probs(y3)
+            else:
+                probs = self.vad_probs_fn(y3[None])[0]
             probs = probs[f0:f1 + 1]
             energy = (frame_energy_db_chunk(y3, hop=hop_v, n_extra=1)[f0:f1 + 1]
                       if want_energy else None)
@@ -737,7 +775,7 @@ class DiarizationPipeline:
     def vad_probs(self, y: torch.Tensor, sr: int) -> torch.Tensor:
         """VAD probabilities of a whole waveform over 15 s chunks."""
         hop = int(round(self.cfg.vad.hop_ms / 1000.0 * sr))
-        return chunked_framewise(self.vad.probs, y, sr, frame_hop=hop)
+        return chunked_framewise(self.vad_probs_fn, y, sr, frame_hop=hop)
 
     def vad_frame_energy(self, y: torch.Tensor, sr: int) -> torch.Tensor:
         """Frame energy (dB) on the VAD's grid, chunked as the probs are."""
@@ -768,7 +806,7 @@ class DiarizationPipeline:
                     grid = embed_windows_streaming(self.encoder, y, sr,
                                                    cfg.reseg.win_s, cfg.reseg.hop_s)
                 else:
-                    grid = embed_windows(self.encoder.encode_batch, y, sr,
+                    grid = embed_windows(self.encode_fn, y, sr,
                                          cfg.reseg.win_s, cfg.reseg.hop_s,
                                          batch=cfg.embed.batch_size)
                 parts.append(grid.reshape(-1).float())
@@ -962,5 +1000,6 @@ class DiarizationPipeline:
 def diarize(source, cfg: DiarizationConfig | None = None, **kwargs) -> list[Segment]:
     """One-call functional API mirroring ``anti_stick_diarize.diarize``:
     labeled segments of a path or an (array, sr) input; ``kwargs`` go to
-    :class:`DiarizationPipeline` (``encoder``, ``vad``, ``device``)."""
+    :class:`DiarizationPipeline` (``encode_fn``, ``vad_probs_fn``,
+    ``enhance_fn``, ``encoder``, ``vad``, ``device``)."""
     return DiarizationPipeline(cfg, **kwargs)(source).to_segments()

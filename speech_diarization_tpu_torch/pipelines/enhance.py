@@ -99,9 +99,11 @@ def windowed_enhance(model_fn, y: torch.Tensor, sample_rate: int = 16000,
 
 
 def enhance_batch(root, backend: str = "gtcrn", weights=None, device=None,
+                  suffix: str = "-enhanced", target_sr: int = 16000,
                   **kwargs) -> list:
     """Enhance every audio file under ``root`` into a sibling
-    ``<root>-enhanced`` tree of 16 kHz mono WAVs, skipping files whose
+    ``<root><suffix>`` tree of mono WAVs at ``target_sr`` (the rate the
+    files are read at and handed to the enhancer), skipping files whose
     output exists (resume).  The enhancer is :func:`make_enhance_fn`'s."""
     from pathlib import Path
 
@@ -109,7 +111,7 @@ def enhance_batch(root, backend: str = "gtcrn", weights=None, device=None,
     from ..io.walk import expand_audios
 
     audios, proot = expand_audios(root)
-    troot = proot.with_name(f"{proot.stem}-enhanced")
+    troot = proot.with_name(f"{proot.stem}{suffix}")
     fn = make_enhance_fn(backend, weights=weights, device=device, **kwargs)
     written = []
     for apath in audios:
@@ -117,7 +119,7 @@ def enhance_batch(root, backend: str = "gtcrn", weights=None, device=None,
         tpath = (troot / rel).with_suffix(".wav")
         if tpath.exists():
             continue
-        y, sr = read_audio(apath, target_sr=16000, mono=True)
+        y, sr = read_audio(apath, target_sr=target_sr, mono=True)
         write_wav(tpath, fn(torch.from_numpy(y)).cpu().numpy(), sr)
         written.append(tpath)
         log.info("enhanced %s -> %s", apath, tpath)

@@ -32,3 +32,20 @@ def disable_tf32() -> None:
     matrix products and convolutions."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+def eval_device(cpu: bool) -> tuple[str | None, str] | None:
+    """The device and the device line of an evaluation script:
+    ``("cpu", "cpu")`` under ``--cpu``; on the card ``(None, its name and
+    power limit as nvidia-smi gives them)``; None when no card is present
+    (the script then refuses to run)."""
+    import subprocess
+
+    if cpu:
+        return "cpu", "cpu"
+    if not torch.cuda.is_available():
+        return None
+    line = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    return None, line

@@ -21,7 +21,11 @@ SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
                                         ROOT / "scripts" / "torch_train_mc.py",
                                         ROOT / "scripts" / "torch_train_grad_noise.py",
                                         ROOT / "scripts" / "torch_mesh_step_probe.py",
-                                        ROOT / "scripts" / "torch_mesh_cards.py"]
+                                        ROOT / "scripts" / "torch_mesh_cards.py"] + [
+    ROOT / "scripts" / f"torch_{name}.py" for name in (
+        "eval_rttm", "eval_synthetic", "eval_tail", "calibrate_bisect",
+        "eval_vad", "eval_overlap_det", "eval_segmentation", "probe_encoder",
+        "eval_enhancer", "eval_grid_backends")]
 
 
 def _imports(path: Path) -> set[str]:
