@@ -178,8 +178,13 @@ Phases (any failure exits nonzero and prints no result line):
      milestones 3.5 (the embed chunk's roofline) and 5 (K2 against the
      plain log-mel at ``[512, 16000]``); the web UI's slider config on the
      tone conversation, card vs CPU segments; ``Profiler.trace`` around a
-     60 s call naming both kernels.  Each run's K1 and K2 launches are
-     counted (``launches_surface``).
+     60 s call naming both kernels; the JAX call forms of ROADMAP F27 card
+     vs CPU on the 60 s bench draw (``call_forms_step``): the uncentred
+     log-mel, the conv VAD through ``chunked_framewise(chunk_s=10.0,
+     overlap_s=0.5, group=2)`` (K2 at ``[2, 160000]`` rows 152,000 apart,
+     first against its plain version) and the streaming grid at
+     ``margin_s=2.0``.  Each run's K1 and K2 launches are counted
+     (``launches_surface``).
   8. Scale (``parallel_phase``), on virtual meshes of the one card: the
      sharded encoder at dp 2, dp 4 and dp 2 x tp 2 against one device on
      the windowed grid's 512 windows (one K2 launch a shard); the corpus's
@@ -1440,6 +1445,100 @@ TRUNK_TOL_REL = 1e-4
 UI_SLIDERS = (0.5, 0.35, 250, 100, 30, 1.5, "ahc", 6, 0.5, 30.0, 0.8, True)
 
 
+# phase 7g's bars, card against the CPU: the reference's log-mel bar
+# (tests/test_pallas_fbank.py:21), and phase 5's VAD-probability and grid
+# bars (the whole-file path's grid, at the 4 s margin there)
+CALL_FORM_LOGMEL_ATOL = 2e-3
+CALL_FORM_VAD_ATOL = 1e-3
+CALL_FORM_GRID_COS = 0.9999
+# phase 7g's chunking of the conv VAD: 10 s chunks 0.5 s apart, two a call
+CALL_FORM_CHUNKING = dict(chunk_s=10.0, overlap_s=0.5, group=2)
+
+
+def call_forms_step(dev, wave, enc_dev, enc_cpu, vad_dev, vad_cpu) -> dict:
+    """Phase 7g: the JAX call forms that the port takes since ROADMAP F27,
+    on the card against the CPU, on ``wave`` (the bench 60 s draw): the
+    uncentred log-mel; the conv VAD through ``chunked_framewise`` at
+    :data:`CALL_FORM_CHUNKING`, whose ``[2, 160000]`` rows at a stride of
+    152,000 are a K2 ``[B, T]`` geometry no other phase runs (held against
+    the plain version first, not counted); the streaming grid at a 2 s
+    margin (K1 and K2 ``[T]`` at the shorter chunk).  Returns the
+    differences with their bars, the K2 measurement, and the launches of
+    the VAD and grid runs by kernel and by shape."""
+    import torch
+    import torch.nn.functional as F
+
+    from speech_diarization_tpu_torch.config import ResegConfig
+    from speech_diarization_tpu_torch.dsp.mel import log_mel_spectrogram
+    from speech_diarization_tpu_torch.ops import kernels
+    from speech_diarization_tpu_torch.pipelines.chunking import chunked_framewise
+    from speech_diarization_tpu_torch.segment import embed_windows_streaming
+
+    out = {}
+    reseg = ResegConfig()
+    y_cpu = torch.from_numpy(np.ascontiguousarray(wave, np.float32))
+    y_dev = y_cpu.to(dev)
+    chunk = int(CALL_FORM_CHUNKING["chunk_s"] * SR)
+    stride = chunk - int(CALL_FORM_CHUNKING["overlap_s"] * SR)
+    group = CALL_FORM_CHUNKING["group"]
+    n_chunks = -(-(len(wave) - chunk) // stride) + 1
+    k2_key = (f"fused_log_mel [B, T] rows of {chunk} at a stride of {stride}, "
+              f"{vad_dev.net.n_mels} mels")
+    with torch.inference_mode():
+        lm = [log_mel_spectrogram(y, n_mels=40, center=False).cpu()
+              for y in (y_dev, y_cpu)]
+        rows = F.pad(y_dev, (0, (n_chunks - 1) * stride + chunk - len(wave))
+                     ).unfold(0, chunk, stride)[:group]
+        out["k2"] = k2_measure(rows, (group - 1) * stride + chunk,
+                               n_mels=vad_dev.net.n_mels)
+    diffs = {"log-mel center=False": ((lm[0] - lm[1]).abs().max().item(),
+                                      CALL_FORM_LOGMEL_ATOL)}
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        p_dev = chunked_framewise(vad_dev.probs, y_dev, SR, 160, **CALL_FORM_CHUNKING)
+        g_dev = embed_windows_streaming(enc_dev, y_dev, SR, reseg.win_s,
+                                        reseg.hop_s, margin_s=2.0)
+        p_dev, g_dev = p_dev.cpu(), g_dev.float().cpu()
+    out["wall_card_s"] = time.perf_counter() - t0
+    out["launches"] = dict(kernels.LAUNCHES)
+    out["shapes"] = dict(kernels.LAUNCH_SHAPES)
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        p_cpu = chunked_framewise(vad_cpu.probs, y_cpu, SR, 160, **CALL_FORM_CHUNKING)
+        g_cpu = embed_windows_streaming(enc_cpu, y_cpu, SR, reseg.win_s,
+                                        reseg.hop_s, margin_s=2.0).float()
+    out["wall_cpu_s"] = time.perf_counter() - t0
+    diffs["VAD probs through chunked_framewise"] = (
+        (p_dev - p_cpu).abs().max().item(), CALL_FORM_VAD_ATOL)
+    cos = torch.nn.functional.cosine_similarity(g_dev, g_cpu, dim=1).min().item()
+    out["diffs"], out["grid_min_cos"] = diffs, cos
+    out["k2"]["launches"] = out["shapes"].get(k2_key, 0)
+    want_k2 = -(-n_chunks // group)
+    m = out["k2"]
+    log(f"[7g] K2 {k2_key}: max_abs_err {m['max_abs_err']:.3e} (tol {m['tol']:.3e}), "
+        f"{m['ms']:.4f} ms (plain {m['plain_ms']:.4f}, bound {m['bound_ms']:.4f} by "
+        f"{m['bound_by']}, torch.stft {m['library_ms']:.4f}); {m['launches']} "
+        f"launches in the VAD run (want {want_k2})")
+    for k, (d, bar) in diffs.items():
+        log(f"[7g] {k}, card vs CPU: max difference {d:.3e} (bar {bar:.1e})")
+    log(f"[7g] grid at margin_s=2.0: {tuple(g_dev.shape)}, min cos card vs CPU "
+        f"{cos:.6f} (bar {CALL_FORM_GRID_COS}); card {out['wall_card_s']:.3f} s, "
+        f"CPU {out['wall_cpu_s']:.3f} s; launches {out['launches']} {out['shapes']}")
+    if not (np.isfinite(lm[0].numpy()).all() and np.isfinite(p_dev.numpy()).all()
+            and np.isfinite(g_dev.numpy()).all()
+            and g_dev.shape == g_cpu.shape and p_dev.shape == (len(wave) // 160 + 1,)):
+        raise AssertionError("[7g] an output is not finite or has another shape")
+    if not m["max_abs_err"] <= m["tol"]:
+        raise AssertionError(f"[7g] K2 at {k2_key} disagrees with its plain version")
+    if not all(d <= bar for d, bar in diffs.values()) or not cos > CALL_FORM_GRID_COS:
+        raise AssertionError("[7g] a call form on the card disagrees with the CPU")
+    if m["launches"] != want_k2 or not all(out["launches"].values()):
+        raise AssertionError(f"[7g] launches {out['launches']} {out['shapes']}: "
+                             f"want {want_k2} of {k2_key} and K1")
+    return out
+
+
 def surface_phase(dev, enc) -> dict:
     """Phase 7: the single-card public surface.  (a) every name of every
     subpackage's ``__all__`` imports; (b) the CLI's ``diarize`` on a
@@ -1454,8 +1553,10 @@ def surface_phase(dev, enc) -> dict:
     milestones 3.5 and 5 through ``scripts/torch_bench.py``'s functions;
     (e) the web UI's slider config on ``make_tone_conversation(0)``, the
     pipeline on the card against the CPU; (f) ``Profiler.trace`` around a
-    60 s pipeline call, its trace naming both kernels.  Returns the
-    launches by kernel over (b), (e) and (f) and the measurements."""
+    60 s pipeline call, its trace naming both kernels; (g) the JAX call
+    forms of ROADMAP F27 on the card against the CPU
+    (:func:`call_forms_step`).  Returns the launches by kernel over (b),
+    (e), (f) and (g) and the measurements."""
     import importlib
     import importlib.util
     import os
@@ -1470,7 +1571,7 @@ def surface_phase(dev, enc) -> dict:
     from speech_diarization_tpu_torch.dsp.mel import fused_log_mel
     from speech_diarization_tpu_torch.io.audio import read_wav, write_wav
     from speech_diarization_tpu_torch.models.layers import sliding_mean_time
-    from speech_diarization_tpu_torch.models.port import load_speaker_encoder
+    from speech_diarization_tpu_torch.models.port import load_speaker_encoder, load_vad
     from speech_diarization_tpu_torch.ops import kernels
     from speech_diarization_tpu_torch.pipelines.diarize import DiarizationPipeline
     from speech_diarization_tpu_torch.train.synthetic import (
@@ -1624,6 +1725,15 @@ def surface_phase(dev, enc) -> dict:
         f"s under the profiler): {kb} KiB, kernels named {named}")
     if not all(named.values()):
         raise AssertionError("[7f] the trace does not name both kernels")
+
+    # (g) the JAX call forms of ROADMAP F27 on the card against the CPU
+    out["call_forms"] = call_forms_step(
+        dev, wave60, enc32.to(dev).eval(),
+        load_speaker_encoder(HERE / "weights" / "ecapa_robust_stream.npz"),
+        load_vad(HERE / "weights" / "vad_conv_mc.npz").to(dev).eval(),
+        load_vad(HERE / "weights" / "vad_conv_mc.npz").eval())
+    for k, v in out["call_forms"]["launches"].items():
+        out["launches"][k] += v
     out["wall"] = time.perf_counter() - t_phase
     log(f"[7] surface phase took {out['wall']:.1f} s; launches {out['launches']}")
     return out
@@ -3136,6 +3246,7 @@ def main() -> int:
 
     # ---------------------------------------------------------- phase 7 ----
     surface = surface_phase(dev, enc)
+    rows[0]["chunked_vad"] = surface["call_forms"]["k2"]
 
     # ---------------------------------------------------------- phase 8 ----
     parallel = parallel_phase(dev, smi, enc, vad, bench_cfg, der_pct)
@@ -3214,7 +3325,7 @@ def main() -> int:
             "batch_vad", "t_80", "batch_windowed_40", "batch_windowed_80", "a32",
             "a128", "engine_chunks_60s", "engine_chunks_600s", "engine_grid",
             "bucketed", "training", "launches_parallel", "sharded",
-            "launches_tools", "probe_batch", "probe_grid")
+            "launches_tools", "probe_batch", "probe_grid", "chunked_vad")
     log(f"[end] engine 600 s {engine['conv', 'bench_600s']['wall']:.4f} s, bucketed "
         f"60 s {bucketed_wall:.4f} s, batch {({k: round(v, 3) for k, v in batch_walls.items()})} "
         f"s, diag {diag_wall:.3f} s, encoders 60 s "

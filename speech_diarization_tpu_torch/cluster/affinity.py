@@ -12,8 +12,14 @@ from __future__ import annotations
 import torch
 
 
-def l2_normalize(x: torch.Tensor, eps: float = 1e-8, dim: int = -1) -> torch.Tensor:
-    return x / (torch.linalg.norm(x, dim=dim, keepdim=True) + eps)
+def l2_normalize(x: torch.Tensor, eps: float = 1e-8, axis: int | None = None,
+                 *, dim: int | None = None) -> torch.Tensor:
+    """``x`` over its norm along ``axis`` (or torch's ``dim``; the last when
+    neither is given) plus ``eps``."""
+    if axis is not None and dim is not None:
+        raise TypeError("l2_normalize takes axis= or dim=, not both")
+    d = axis if axis is not None else (dim if dim is not None else -1)
+    return x / (torch.linalg.norm(x, dim=d, keepdim=True) + eps)
 
 
 def cosine_affinity(embs: torch.Tensor) -> torch.Tensor:

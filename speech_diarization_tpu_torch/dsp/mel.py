@@ -147,18 +147,24 @@ def _log_mel_1d(y: torch.Tensor, sample_rate: int = 16000, n_mels: int = 80,
 def _log_mel_batched(y: torch.Tensor, sample_rate: int = 16000,
                      n_mels: int = 80, win_ms: float = 25.0,
                      hop_ms: float = 10.0, f_min: float = 20.0,
-                     f_max: float | None = None, eps: float = 1e-6
-                     ) -> torch.Tensor:
+                     f_max: float | None = None, eps: float = 1e-6,
+                     center: bool = True) -> torch.Tensor:
     """Plain version of K2 for a batch: [B, T] float32 ->
     [B, T//hop + 1, n_mels] log-mel.  Every row is reflect-padded by
     ``n_fft // 2`` on its own, framed, and contracted against the windowed
-    DFT basis (the window folds into the contraction axis)."""
+    DFT basis (the window folds into the contraction axis).  With
+    ``center=False`` the rows are framed unpadded: [B, (T - n_fft)//hop + 1,
+    n_mels], no frame past the end."""
     n_fft, hop, f_max = _frame_params(sample_rate, win_ms, hop_ms, f_max)
-    _check_length(y.shape[-1], n_fft)
     y = y.float()
-    pad = n_fft // 2
-    yp = torch.cat([y[:, 1:pad + 1].flip(1), y, y[:, -pad - 1:-1].flip(1)], 1)
-    frames = yp.unfold(-1, n_fft, hop)                     # [B, n, n_fft]
+    if center:
+        _check_length(y.shape[-1], n_fft)
+        pad = n_fft // 2
+        y = torch.cat([y[:, 1:pad + 1].flip(1), y, y[:, -pad - 1:-1].flip(1)], 1)
+    elif y.shape[-1] < n_fft:
+        raise ValueError(f"log-mel with center=False needs at least n_fft = "
+                         f"{n_fft} samples, got {y.shape[-1]}")
+    frames = y.unfold(-1, n_fft, hop)                      # [B, n, n_fft]
     cw, sw = (torch.from_numpy(a).to(y.device) for a in _windowed_dft(n_fft))
     real = frames @ cw
     imag = frames @ sw
@@ -172,17 +178,18 @@ def _log_mel_batched(y: torch.Tensor, sample_rate: int = 16000,
 def log_mel_spectrogram(y: torch.Tensor, sample_rate: int = 16000,
                         n_mels: int = 80, win_ms: float = 25.0,
                         hop_ms: float = 10.0, f_min: float = 20.0,
-                        f_max: float | None = None, eps: float = 1e-6
-                        ) -> torch.Tensor:
+                        f_max: float | None = None, eps: float = 1e-6,
+                        center: bool = True) -> torch.Tensor:
     """[T] or [B, T] waveforms -> [B, n_frames, n_mels] log-mel in plain
-    PyTorch, center=True: the blocked form for one waveform, the framed form
-    for a batch (the choice the JAX function makes)."""
+    PyTorch.  With ``center`` (reflect padding of ``n_fft // 2`` a side):
+    the blocked form for one waveform, the framed form for a batch (the
+    choice the JAX function makes); without it, the framed form unpadded."""
     if y.ndim == 1:
         y = y[None]
     args = (sample_rate, n_mels, win_ms, hop_ms, f_min, f_max, eps)
-    if y.shape[0] == 1:
+    if y.shape[0] == 1 and center:
         return _log_mel_1d(y[0], *args)[None]
-    return _log_mel_batched(y, *args)
+    return _log_mel_batched(y, *args, center=center)
 
 
 # geometry of the kernel's B operand (csrc/fused_fbank.cu): 8-tap slices;

@@ -29,9 +29,11 @@ def overlap_add(frames: torch.Tensor, hop: int) -> torch.Tensor:
     return out[0] if squeeze else out
 
 
-def ola_normalization(n: int, hop: int, window: torch.Tensor) -> torch.Tensor:
-    """``n`` copies of ``window`` folded at stride ``hop``: the denominator
-    of a weighted overlap-add, [(n-1)*hop + len(window)], clamped to at
-    least 1e-8."""
-    den = overlap_add(window.expand(1, n, window.shape[-1]), hop)[0]
+def ola_normalization(n: int, win: int, hop: int,
+                      window: torch.Tensor | None = None) -> torch.Tensor:
+    """``n`` copies of ``window`` (ones of length ``win`` when None) folded
+    at stride ``hop``: the denominator of a weighted overlap-add,
+    [(n-1)*hop + win], clamped to at least 1e-8."""
+    w = torch.ones(win) if window is None else window
+    den = overlap_add(w.expand(1, n, win), hop)[0]
     return torch.clamp(den, min=1e-8)

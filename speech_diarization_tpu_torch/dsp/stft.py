@@ -31,26 +31,29 @@ from .ola import overlap_add
 _CONSTS: dict = {}
 
 
-def hann_window(n: int, periodic: bool = True, device=None) -> torch.Tensor:
-    """``torch.hann_window`` values, computed in float64 and stored float32;
-    made once per length and device (the enhancer's chunk window has 5.76 M
-    points) and shared, so callers must not write to it."""
-    key = ("hann", n, periodic, str(device))
+def hann_window(n: int, periodic: bool = True, dtype: torch.dtype = torch.float32,
+                device=None) -> torch.Tensor:
+    """``torch.hann_window`` values, computed in float64 and stored as
+    ``dtype``; made once per length, dtype and device (the enhancer's chunk
+    window has 5.76 M points) and shared, so callers must not write to it."""
+    key = ("hann", n, periodic, dtype, str(device))
     if key not in _CONSTS:
         m = n if periodic else n - 1
         w = 0.5 - 0.5 * np.cos(2.0 * np.pi * np.arange(n) / max(m, 1))
         with torch.inference_mode(False):
-            _CONSTS[key] = torch.tensor(w, dtype=torch.float32, device=device)
+            _CONSTS[key] = torch.tensor(w, dtype=dtype, device=device)
     return _CONSTS[key]
 
 
-def sqrt_hann_window(n: int, periodic: bool = True, device=None) -> torch.Tensor:
-    """sqrt(Hann): the GTCRN runner's analysis and synthesis window."""
-    key = ("sqrt_hann", n, periodic, str(device))
+def sqrt_hann_window(n: int, periodic: bool = True, dtype: torch.dtype = torch.float32,
+                     device=None) -> torch.Tensor:
+    """sqrt(Hann) taken in ``dtype``: the GTCRN runner's analysis and
+    synthesis window."""
+    key = ("sqrt_hann", n, periodic, dtype, str(device))
     if key not in _CONSTS:
         with torch.inference_mode(False):
             _CONSTS[key] = torch.sqrt(torch.clamp(
-                hann_window(n, periodic, device), min=0.0))
+                hann_window(n, periodic, dtype, device), min=0.0))
     return _CONSTS[key]
 
 

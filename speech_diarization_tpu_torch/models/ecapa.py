@@ -234,11 +234,17 @@ class EcapaTdnn(nn.Module):
         return mu_g, sd_g, starts
 
     def asp_head_grid(self, x: torch.Tensor, first_f: int, hop_f: int,
-                      win_f: int, n_windows: int) -> torch.Tensor:
+                      win_f: int, n_windows: int, train: bool = False) -> torch.Tensor:
         """Decomposed sliding-grid ASP in the net's dtype: x [CC, T_f] ->
         [W, emb_dim], or a batch of rows [B, CC, T_f] -> [B, W, emb_dim]
         (the JAX ``vmap`` of it).  The JAX package's ``asp_head_grid``:
-        plain PyTorch, differentiable, which is what training runs."""
+        plain PyTorch, differentiable, which is what training runs.
+        ``train``: the attention and post BatchNorms on the statistics of
+        each row's windows (of a row at a time, as under the JAX ``vmap``)."""
+        if train and x.ndim == 3:
+            return torch.stack([self.asp_head_grid(r, first_f, hop_f, win_f,
+                                                   n_windows, train=True)
+                                for r in x])
         eps = 1e-12
         cc = x.shape[-2]
         dt = self.dtype
@@ -254,7 +260,8 @@ class EcapaTdnn(nn.Module):
         a = F.relu(hx[..., idx].movedim(-3, -2) + bw[..., None])
         a = a.reshape(-1, *a.shape[-2:])
         ab = self.att_bn
-        a = torch.tanh(batch_norm_apply(a, ab.mean, ab.var, ab.gamma, ab.beta))
+        mean_var = batch_stats(a, (0, 2)) if train else (ab.mean, ab.var)
+        a = torch.tanh(batch_norm_apply(a, *mean_var, ab.gamma, ab.beta))
         # logits with float32 accumulation and output (operands in dt)
         w2 = self.att_w2[..., 0].to(dt).float()
         e = torch.einsum("ca,wat->wct", w2, a.float())
@@ -264,7 +271,7 @@ class EcapaTdnn(nn.Module):
         mu = (p * xw).sum(-1)
         m2 = (p * xw * xw).sum(-1)
         sd = torch.sqrt(torch.clamp(m2 - mu * mu, min=eps))
-        emb = self._stats_to_emb(torch.cat([mu, sd], dim=1))
+        emb = self._stats_to_emb(torch.cat([mu, sd], dim=1), train=train)
         return emb.reshape(*x.shape[:-2], n_windows, emb.shape[-1])
 
     def fold_k1(self) -> None:

@@ -82,14 +82,15 @@ class ERB(nn.Module):
                          dim=-1)
 
 
-def sfe(x: torch.Tensor) -> torch.Tensor:
-    """Subband feature extraction: [B, C, T, F] -> [B, 3C, T, F], each bin's
-    three frequency neighbours stacked with the channel varying slowest
-    (torch ``Unfold`` order)."""
+def sfe(x: torch.Tensor, kernel: int = 3) -> torch.Tensor:
+    """Subband feature extraction: [B, C, T, F] -> [B, kernel*C, T, F], each
+    bin's ``kernel`` frequency neighbours stacked with the channel varying
+    slowest (torch ``Unfold`` order)."""
     b, c, t, f = x.shape
-    xp = F.pad(x, (1, 1))
-    return torch.stack([xp[..., i:i + f] for i in range(3)], dim=2
-                       ).reshape(b, c * 3, t, f)
+    half = (kernel - 1) // 2
+    xp = F.pad(x, (half, half))
+    return torch.stack([xp[..., i:i + f] for i in range(kernel)], dim=2
+                       ).reshape(b, c * kernel, t, f)
 
 
 class TRA(nn.Module):
@@ -229,8 +230,12 @@ class GTCRN(nn.Module):
     shape: a complex ratio mask from the encoder, two DPGRNNs and the
     decoder with additive skips."""
 
-    def __init__(self):
+    def __init__(self, low_bins: int = 65):
+        if low_bins != _LOW_BINS:
+            raise ValueError(f"GTCRN's encoder is {_LOW_BINS} + 64 bins wide: "
+                             f"low_bins must be {_LOW_BINS}, got {low_bins}")
         super().__init__()
+        self.low_bins = low_bins
         self.erb = ERB()
         self.encoder = Encoder()
         self.dpgrnn1 = DPGRNN()

@@ -50,6 +50,12 @@ class VadConvNet(nn.Module):
             setattr(self, f"block{i}_w2", _param(c, c, 1))
             setattr(self, f"block{i}_b2", _param(c))
 
+    @property
+    def receptive_field(self) -> int:
+        """Frames a probability sees: the dilated blocks' reach plus the
+        stem's kernel of 5."""
+        return 1 + (self.kernel - 1) * sum(self.dilations) + 4
+
     def forward(self, feats: torch.Tensor) -> torch.Tensor:
         """feats [B, T, M] -> probs [B, T]; strictly causal (left pad only)."""
         x = feats.transpose(1, 2)

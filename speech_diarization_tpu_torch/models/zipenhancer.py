@@ -96,9 +96,11 @@ class ZipEnhancerModel(nn.Module):
     """Enhancer: noisy wav [B, L] -> enhanced wav [B, L] at 16 kHz."""
 
     def __init__(self, n_fft: int = 400, hop: int = 100, channels: int = 64,
-                 blocks: int = 4, heads: int = 4, compress: float = 0.3):
+                 blocks: int = 4, heads: int = 4, compress: float = 0.3,
+                 sample_rate: int = 16000):
         super().__init__()
         self.n_fft, self.hop = n_fft, hop
+        self.sample_rate = sample_rate
         self.n_blocks = blocks
         self.compress = compress
         self.n_bins = n_fft // 2 + 1

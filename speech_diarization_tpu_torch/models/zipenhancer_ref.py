@@ -465,6 +465,12 @@ class ZipEnhancerRef(nn.Module):
         """state_dict key -> shape (the checkpoint contract)."""
         return {k: tuple(v.shape) for k, v in self.state_dict().items()}
 
+    def param_count(self, p: dict | None = None) -> int:
+        """Weights in the state dict ``p`` (arrays or tensors), or in the
+        module's own state dict when ``p`` is None."""
+        p = self.state_dict() if p is None else p
+        return int(sum(np.prod(tuple(v.shape)) for v in p.values()))
+
     def apply_spec(self, mag: torch.Tensor, pha: torch.Tensor
                    ) -> tuple[torch.Tensor, torch.Tensor]:
         """Compressed magnitude and phase [B, T, F] -> (denoised magnitude,

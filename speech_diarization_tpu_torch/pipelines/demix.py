@@ -150,7 +150,7 @@ class EnsembleDemixer:
         window = hann_window(chunk, periodic=False, device=x.device) + 1e-3
         # every stem channel of every chunk in one overlap-add
         frames = (sep * window).permute(1, 2, 0, 3).reshape(n_src * n_ch, n, chunk)
-        out = overlap_add(frames, hop) / ola_normalization(n, hop, window)
+        out = overlap_add(frames, hop) / ola_normalization(n, chunk, hop, window)
         return out.reshape(n_src, n_ch, -1)[:, :, :t]
 
 

@@ -37,27 +37,33 @@ from ..utils.logging import get_logger
 log = get_logger("enhance")
 
 class GtcrnEnhancer:
-    """GTCRN wav -> wav enhancement at 16 kHz with long-audio chunked OLA.
-    Runs on the device of ``net``; inputs are moved there."""
+    """GTCRN wav -> wav enhancement with long-audio chunked OLA.  Runs on
+    the device of ``net``; inputs are moved there.  ``batch_chunks`` chunks
+    go through one forward (it bounds the memory of long files and changes
+    no result)."""
 
-    SAMPLE_RATE = 16000
-    BATCH_CHUNKS = 4      # chunks a forward: bounds the memory of long files
-
-    def __init__(self, net: GTCRN, chunk_s: float = 360.0, overlap_s: float = 1.0):
+    def __init__(self, net: GTCRN, n_fft: int = 512, hop: int = 256,
+                 chunk_s: float = 360.0, overlap_s: float = 1.0,
+                 sample_rate: int = 16000, batch_chunks: int = 4):
         self.net = net.eval()
+        self.n_fft = n_fft
+        self.hop = hop
         self.chunk_s = chunk_s
         self.overlap_s = overlap_s
+        self.sample_rate = sample_rate
+        self.batch_chunks = batch_chunks
 
     def forward(self, wavs: torch.Tensor) -> torch.Tensor:
         """[B, T] -> [B, T]: STFT -> GTCRN -> iSTFT."""
-        return istft_ri(self.net(stft_ri(wavs)), length=wavs.shape[-1])
+        spec = stft_ri(wavs, self.n_fft, self.hop)
+        return istft_ri(self.net(spec), self.n_fft, self.hop, length=wavs.shape[-1])
 
     def __call__(self, y: torch.Tensor) -> torch.Tensor:
         """Enhance a [T] float32 waveform of any length."""
         dev = next(self.net.parameters()).device
         y = y.to(dev, torch.float32)
         t = y.shape[-1]
-        sr = self.SAMPLE_RATE
+        sr = self.sample_rate
         chunk = int(self.chunk_s * sr)
         with torch.inference_mode():
             if t <= chunk:
@@ -66,12 +72,12 @@ class GtcrnEnhancer:
             n = num_frames(t, chunk, stride, pad_tail=True)
             ypad = F.pad(y, (0, (n - 1) * stride + chunk - t))
             chunks = ypad.unfold(0, chunk, stride)                 # [n, chunk]
-            bc = self.BATCH_CHUNKS
+            bc = self.batch_chunks
             enh = torch.cat([self.forward(chunks[i:i + bc])
                              for i in range(0, n, bc)])
             window = hann_window(chunk, periodic=False, device=dev)
             num = overlap_add(enh * window, stride)
-            den = ola_normalization(n, stride, window)
+            den = ola_normalization(n, chunk, stride, window)
             return (num / den)[:t]
 
 
@@ -93,7 +99,7 @@ def windowed_enhance(model_fn, y: torch.Tensor, sample_rate: int = 16000,
     enh = torch.cat([model_fn(patches[i:i + batch_size])
                      for i in range(0, n, batch_size)])
     w = sqrt_hann_window(l, periodic=False, device=y.device)
-    out = (overlap_add(enh * w, hop) / ola_normalization(n, hop, w))[:t]
+    out = (overlap_add(enh * w, hop) / ola_normalization(n, l, hop, w))[:t]
     peak = out.abs().max()
     return torch.where(peak > 1.0, out * (peak_limit / peak), out)
 

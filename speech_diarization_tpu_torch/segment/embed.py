@@ -12,6 +12,8 @@ this module is host numpy.
 """
 from __future__ import annotations
 
+from typing import Callable
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -19,6 +21,8 @@ import torch.nn.functional as F
 from ..dsp.framing import num_frames
 from ..types import SegmentArray
 
+# a per-utterance encoder: [B, T] waveforms -> [B, D] embeddings
+EncodeFn = Callable[[torch.Tensor], torch.Tensor]
 
 def window_starts(n_samples: int, sr: int, win_s: float, hop_s: float) -> np.ndarray:
     """Start sample index of each grid window (host ints)."""
@@ -28,7 +32,7 @@ def window_starts(n_samples: int, sr: int, win_s: float, hop_s: float) -> np.nda
     return np.arange(n) * hop
 
 
-def embed_windows(encode_fn, y: torch.Tensor, sr: int, win_s: float,
+def embed_windows(encode_fn: EncodeFn, y: torch.Tensor, sr: int, win_s: float,
                   hop_s: float, batch: int = 512) -> torch.Tensor:
     """The whole-file window grid of a per-utterance encoder: [T] -> [W, D]
     on ``y``'s device, every window (the tail zero-padded) through
@@ -50,25 +54,24 @@ def embed_windows(encode_fn, y: torch.Tensor, sr: int, win_s: float,
     return torch.cat([encode_fn(frames[i:i + batch]) for i in range(0, w, batch)])
 
 
-GRID_MARGIN_S = 4.0   # real context each side of a grid chunk: > the trunk's reach
-
-
 def embed_windows_streaming(model, y: torch.Tensor, sr: int, win_s: float,
-                            hop_s: float, windows_per_chunk: int = 600) -> torch.Tensor:
+                            hop_s: float, windows_per_chunk: int = 600,
+                            margin_s: float = 4.0) -> torch.Tensor:
     """The whole-file window grid of a streaming encoder: [T] -> [W, D] on
     ``y``'s device.  The trunk runs once per chunk of ``wpc`` windows
     (``EcapaModel.encode_grid_chunk``: one log-mel and one pooling launch a
-    chunk), each chunk carrying ``GRID_MARGIN_S`` (rounded up to whole hops)
-    of real context on both sides; ``wpc`` is ``windows_per_chunk`` or, for a
-    short file, the next power of two (at least 64) above its window
-    count."""
+    chunk), each chunk carrying ``margin_s`` (rounded up to whole hops) of
+    real context on both sides (the default 4 s is more than the trunk's
+    reach, so core windows equal a whole-file pass); ``wpc`` is
+    ``windows_per_chunk`` or, for a short file, the next power of two (at
+    least 64) above its window count."""
     win = int(round(win_s * sr))
     hop = int(round(hop_s * sr))
     w = num_frames(y.shape[-1], win, hop, pad_tail=True)
     if w == 0:
         return y.new_zeros((0, 1))
     wpc = min(windows_per_chunk, 1 << max(6, (w - 1).bit_length()))
-    margin = -(-int(round(GRID_MARGIN_S * sr)) // hop) * hop
+    margin = -(-int(round(margin_s * sr)) // hop) * hop
     span = 2 * margin + (wpc - 1) * hop + win
     n_chunks = -(-w // wpc)
     needed = margin + ((n_chunks - 1) * wpc + wpc - 1) * hop + win + margin

@@ -53,7 +53,7 @@ def make_seg_hard_fn(model):
 def detect_overlap_regions(
     y: np.ndarray | torch.Tensor,
     sr: int,
-    hard_fn,
+    seg_fn,
     chunk_s: float = 5.0,
     chunk_hop_s: float = 2.5,
     hop_ms: float = 10.0,
@@ -63,7 +63,7 @@ def detect_overlap_regions(
 ) -> SegmentArray:
     """Frames where the segmentation model decodes >= 2 active speakers.
 
-    ``hard_fn`` maps a ``[n, chunk]`` tensor on ``device`` to ``[n, F, K]``
+    ``seg_fn`` maps a ``[n, chunk]`` tensor on ``device`` to ``[n, F, K]``
     hard decisions (:func:`make_seg_hard_fn`; any callable returning a
     tensor or an array does).  Chunks tile the file with centre-trim.  The
     waveform is uploaded once (not at all when it is a tensor on
@@ -83,7 +83,7 @@ def detect_overlap_regions(
     for b in range(n_batches):
         start = b * GATHER_BATCH * stride
         wins = yp[start:start + span].unfold(0, chunk, stride)
-        out = hard_fn(wins)
+        out = seg_fn(wins)
         parts.append(out.cpu().numpy() if isinstance(out, torch.Tensor)
                      else np.asarray(out))
     acts = np.concatenate(parts, axis=0)[:n_chunks]

@@ -31,6 +31,10 @@ import torch
 import torch.nn as nn
 
 from ..models.ecapa import EcapaModel, EcapaTdnn
+# the JAX module's loaders, as models/port.py defines them: each returns
+# the loaded module where the JAX one returns (model, params)
+from ..models.port import (  # noqa: F401
+    load_demixer, load_segmentation, load_speaker_encoder, load_vad)
 from ..models.vad import VadConvNet, VadModel, VadNet
 from ..utils.device import disable_tf32, resolve_device
 from ..utils.logging import get_logger

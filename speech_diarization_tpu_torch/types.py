@@ -8,8 +8,8 @@ on-device) instead of per-segment Python loops.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Sequence
+from dataclasses import dataclass, replace
+from typing import Iterable, Sequence
 
 import numpy as np
 
@@ -32,6 +32,9 @@ class Segment:
     def duration(self) -> float:
         return self.end - self.start
 
+    def with_spk(self, spk: int) -> "Segment":
+        return replace(self, spk=spk)
+
 
 class SegmentArray:
     """Struct-of-arrays view over a list of segments (vectorized algebra).
@@ -51,6 +54,16 @@ class SegmentArray:
             raise ValueError("starts/ends/spks must have identical shapes")
 
     # -- constructors -------------------------------------------------------
+    @classmethod
+    def from_segments(cls, segs: Iterable[Segment]) -> "SegmentArray":
+        segs = list(segs)
+        starts = np.array([s.start for s in segs], dtype=np.float64)
+        ends = np.array([s.end for s in segs], dtype=np.float64)
+        spks = np.array(
+            [(-1 if s.spk is None else int(s.spk)) for s in segs], dtype=np.int32
+        )
+        return cls(starts, ends, spks)
+
     @classmethod
     def from_pairs(cls, pairs: Sequence[tuple[float, float]]) -> "SegmentArray":
         if len(pairs) == 0:

@@ -90,6 +90,25 @@ def test_grid_head_matches_jax_decomposed(first_f, hop_f, win_f, n_windows):
 
 
 @pytest.mark.parametrize("first_f,hop_f,win_f,n_windows", CASES)
+def test_grid_head_train_mode_matches_jax(first_f, hop_f, win_f, n_windows):
+    """``train=True``: both BatchNorms on the batch's statistics, per row of
+    a batch as under the JAX ``vmap``."""
+    net, params, pnet = _tiny_net()
+    x = np.stack([_x(net.cat_channels, first_f, hop_f, win_f, n_windows, seed=s)
+                  for s in (1, 2)])
+    ref = np.asarray(jax.vmap(lambda xi: net.asp_head_grid(
+        params, xi, first_f, hop_f, win_f, n_windows, train=True))(jnp.asarray(x)))
+    out = pnet.asp_head_grid(torch.from_numpy(x), first_f, hop_f, win_f,
+                             n_windows, train=True).numpy()
+    one = pnet.asp_head_grid(torch.from_numpy(x[0]), first_f, hop_f, win_f,
+                             n_windows, train=True).numpy()
+    assert out.shape == ref.shape == (2, n_windows, net.emb_dim)
+    for o, r in ((out[0], ref[0]), (out[1], ref[1]), (one, ref[0])):
+        _, rel = _cos_rel(r, o)
+        assert rel < 1e-5, rel
+
+
+@pytest.mark.parametrize("first_f,hop_f,win_f,n_windows", CASES)
 def test_kernel_path_matches_pallas_interpret(first_f, hop_f, win_f, n_windows):
     net, params, pnet = _tiny_net()
     x = _x(net.cat_channels, first_f, hop_f, win_f, n_windows)

@@ -120,6 +120,30 @@ def test_enhancer_single_chunk_matches(noisy, jparams, net):
     assert _rel_err(out, ref) <= BAR, _rel_err(out, ref)
 
 
+def test_enhancer_takes_the_jax_constructor_parameters(noisy, jparams, net):
+    """``hop``, ``sample_rate`` and ``batch_chunks`` away from their
+    defaults (``n_fft`` is GTCRN's 512): 10 s read as 8 kHz audio, 2 s
+    chunks at a 1.5 s stride, thirteen chunks in forwards of two rows at a
+    hop of 128."""
+    kw = dict(n_fft=512, hop=128, chunk_s=2.0, overlap_s=0.5, sample_rate=8000,
+              batch_chunks=2)
+    ref = JEnhancer(jparams, **kw)(noisy)
+    enh = GtcrnEnhancer(net, **kw)
+    assert (enh.n_fft, enh.hop, enh.sample_rate, enh.batch_chunks) == (512, 128, 8000, 2)
+    out = enh(torch.from_numpy(noisy)).numpy()
+    assert out.shape == ref.shape == (10 * SR,)
+    assert _rel_err(out, ref) <= BAR, _rel_err(out, ref)
+
+
+def test_enhancer_batch_chunks_changes_no_result(noisy, net):
+    """Seven 2 s chunks in forwards of one row, or of four and three (the
+    default): the rows are independent, within 1e-6 of the peak."""
+    y = torch.from_numpy(noisy)
+    one = GtcrnEnhancer(net, chunk_s=2.0, overlap_s=0.5, batch_chunks=1)(y)
+    four = GtcrnEnhancer(net, chunk_s=2.0, overlap_s=0.5)(y)
+    assert (one - four).abs().max() <= 1e-6 * four.abs().max()
+
+
 @pytest.mark.parametrize("chunk_s,overlap_s", [(4.0, 1.0), (2.0, 0.5)])
 def test_enhancer_chunked_ola_matches(noisy, jparams, net, chunk_s, overlap_s):
     """Chunks over 10 s merged by the Hann overlap-add: three 4 s chunks at

@@ -177,6 +177,23 @@ def test_embed_windows_streaming_stitches_chunks(models, forty_s):
     assert cos.min() > 0.9999, cos.min()
 
 
+@pytest.mark.parametrize("margin_s", [2.0, 1.25])
+def test_embed_windows_streaming_takes_margin_s(models, forty_s, margin_s):
+    """A shorter context margin (1.25 s rounds up to 13 hops of 0.1 s), the
+    same 20 s and 64 windows a chunk: the JAX grid at the same margin."""
+    y = forty_s[:20 * SR]
+    jm, jpp = models["jenc"]
+    ref = jembed_streaming(jm, jpp, jnp.asarray(y), SR, 2.0, 0.1,
+                           windows_per_chunk=64, margin_s=margin_s)
+    with torch.inference_mode():
+        out = embed_windows_streaming(models["enc"], torch.from_numpy(y), SR,
+                                      2.0, 0.1, windows_per_chunk=64,
+                                      margin_s=margin_s).numpy()
+    assert out.shape == ref.shape == (181, 128)
+    cos = (out * ref).sum(1) / np.linalg.norm(out, axis=1) / np.linalg.norm(ref, axis=1)
+    assert cos.min() > 0.9999, cos.min()
+
+
 def test_whole_file_loudness_matches(forty_s):
     y = np.pad(forty_s[:25 * SR], (0, 35 * SR))
     out = loudness_normalize(torch.from_numpy(y), SR).numpy()

@@ -110,7 +110,7 @@ def test_overlap_add_matches(shape, hop):
                                                 (3, 50, 60, False)])
 def test_ola_normalization_matches(n, win, hop, windowed):
     """A Hann window, or ones (the JAX function's default)."""
-    w = hann_window(win, periodic=False) if windowed else torch.ones(win)
+    w = hann_window(win, periodic=False) if windowed else None
     jw = jhann(win, periodic=False) if windowed else None
-    np.testing.assert_allclose(ola_normalization(n, hop, w).numpy(),
+    np.testing.assert_allclose(ola_normalization(n, win, hop, w).numpy(),
                                np.asarray(jola_norm(n, win, hop, jw)), atol=1e-7)
