@@ -18,6 +18,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils.logging import count, get_logger, stage_timer
+
+log = get_logger("chunking")
+
 GROUP_BUCKETS = (4, 8, 16, 32, 64)
 
 
@@ -77,4 +81,8 @@ def chunked_framewise(fn: Callable[[torch.Tensor], torch.Tensor],
         outs = torch.cat([outs, outs[:, -1:].expand(-1, fpc - outs.shape[1])], 1)
     idx = stitch_index(n_chunks, fpc, hop_samples // frame_hop, n_total,
                        edge_margin_frames)
-    return outs.reshape(-1)[torch.from_numpy(idx).to(y.device)]
+    # from pageable host memory: on the card the host waits for the queue
+    with stage_timer(log, "chunking.index-upload", wait=True):
+        idx_dev = torch.from_numpy(idx).to(y.device)
+        count("h2d_bytes", idx.nbytes)
+    return outs.reshape(-1)[idx_dev]

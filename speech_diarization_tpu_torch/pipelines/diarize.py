@@ -41,6 +41,7 @@ ensemble of ``.th`` checkpoints when any is present.
 """
 from __future__ import annotations
 
+import itertools
 from dataclasses import dataclass, field
 from typing import Any
 
@@ -73,7 +74,7 @@ from ..segment import (
 )
 from ..types import Segment, SegmentArray
 from ..utils.device import disable_tf32, resolve_device
-from ..utils.logging import get_logger, stage_timer
+from ..utils.logging import count, current_file, file_scope, get_logger, stage_timer
 from .chunking import chunked_framewise
 
 log = get_logger("diarize")
@@ -151,7 +152,8 @@ class DiarizationPipeline:
         if vad is not None and vad_probs_fn is not None:
             raise ValueError("pass vad or vad_probs_fn, not both")
         self.device = resolve_device(device)
-        if self.device.type == "cuda":
+        self._on_card = self.device.type == "cuda"
+        if self._on_card:
             disable_tf32()
         self._encode = None if encode_fn is None else self._on_device(encode_fn)
         self.enhance_fn = None if enhance_fn is None else self._on_device(enhance_fn)
@@ -196,6 +198,7 @@ class DiarizationPipeline:
         self.vad_probs_fn = (self.vad.probs if vad_probs_fn is None
                              else self._on_device(vad_probs_fn))
         self._programs: dict = {}
+        self._file_ids = itertools.count()   # the id of each file's stages
         self._last_snr_db: float | None = None
         self._last_floor_hf_frac = 1.0
         self._demix_fe = None
@@ -270,6 +273,7 @@ class DiarizationPipeline:
         key = (sr, u, m_l, m_r, ov)
         if key in self._programs:
             return self._programs[key]
+        count("program_builds")
         cfg = self.cfg
         acfg = cfg.audio
         seg = self._overlap_seg() if ov else None
@@ -287,6 +291,7 @@ class DiarizationPipeline:
         # waveform.  The VAD and the ECAPA read the same log-mel when the
         # mels, 25 ms / 10 ms and the rate agree: computed once per chunk then
         neural = hasattr(vad, "probs_from_feats")
+        on_card = self._on_card
         shared = neural and (vad.net.n_mels == enc.net.n_mels
                              and vad.win_ms == 25.0 and vad.hop_ms == 10.0
                              and vad.sample_rate == enc.sample_rate)
@@ -331,7 +336,8 @@ class DiarizationPipeline:
             probs = probs[f0:f1 + 1]
             energy = (frame_energy_db_chunk(y3, hop=hop_v, n_extra=1)[f0:f1 + 1]
                       if want_energy else None)
-            grid = enc.encode_grid_feats(feats_e, wpc, m_l, grid_win, grid_hop)
+            with stage_timer(log, "encoder", device=on_card):
+                grid = enc.encode_grid_feats(feats_e, wpc, m_l, grid_win, grid_hop)
             return probs, energy, grid, hard
 
         self._programs[key] = program
@@ -416,18 +422,22 @@ class DiarizationPipeline:
         hop_v = int(round(cfg.vad.hop_ms / 1000.0 * sr))
         t = int(y.shape[-1])
         n_chunks = max(1, -(-t // u))
-        q, scale = self._quantize_host(np.asarray(y, np.float32), n_chunks * u)
-        q_host = torch.from_numpy(q)
-        if dev.type == "cuda":
-            q_host = q_host.pin_memory()
-        chunks = [q_host[i * u:(i + 1) * u].to(dev, non_blocking=True)
-                  for i in range(n_chunks)]
-        zero = torch.zeros(u, dtype=torch.int16, device=dev)
+        with stage_timer(log, "ingest.quantize"):
+            q, scale = self._quantize_host(np.asarray(y, np.float32), n_chunks * u)
+        with stage_timer(log, "ingest.upload"):
+            q_host = torch.from_numpy(q)
+            if dev.type == "cuda":
+                q_host = q_host.pin_memory()
+            chunks = [q_host[i * u:(i + 1) * u].to(dev, non_blocking=True)
+                      for i in range(n_chunks)]
+            zero = torch.zeros(u, dtype=torch.int16, device=dev)
+            count("h2d_bytes", q.nbytes)
 
         # host probe under the uploads: gates the enhancement front-end and
         # the noise-sensitive refine splitting
-        x = q[:t].astype(np.float32) * (scale / 32767.0)
-        self._last_snr_db = self._host_snr_db(x)
+        with stage_timer(log, "ingest.probe"):
+            x = q[:t].astype(np.float32) * (scale / 32767.0)
+            self._last_snr_db = self._host_snr_db(x)
         if (self.enhance_fn is not None
                 and self._last_snr_db < cfg.enhance.auto_snr_db):
             # enhancement engaged: the whole-file path goes on from the
@@ -443,46 +453,50 @@ class DiarizationPipeline:
         win5 = int(round(ocfg.chunk_s * sr))
         stride5 = max(1, int(round(ocfg.chunk_hop_s * sr)))
         snr = self._last_snr_db
-        ov = bool(ocfg.enabled
-                  and (ocfg.min_snr_db is None or snr is None
-                       or snr >= ocfg.min_snr_db)
-                  and u % stride5 == 0 and win5 - stride5 <= m_r
-                  and self._overlap_seg() is not None)
-
-        program = self._chunk_program(sr, u, m_l, m_r, ov)
+        with stage_timer(log, "ingest.program"):
+            ov = bool(ocfg.enabled
+                      and (ocfg.min_snr_db is None or snr is None
+                           or snr >= ocfg.min_snr_db)
+                      and u % stride5 == 0 and win5 - stride5 <= m_r
+                      and self._overlap_seg() is not None)
+            program = self._chunk_program(sr, u, m_l, m_r, ov)
         want_energy = cfg.vad.energy_floor_db is not None
         probs, energy, grids, hards = [], [], [], []
         with torch.inference_mode():
-            for i in range(n_chunks):
-                prev = chunks[i - 1] if i > 0 else zero
-                nxt = chunks[i + 1] if i + 1 < n_chunks else zero
-                p, e, g, h = program(prev, chunks[i], nxt, scale,
-                                     float(min(u, t - i * u)))
-                last = i + 1 == n_chunks
-                probs.append(p if last else p[:-1])
-                if want_energy:
-                    energy.append(e if last else e[:-1])
-                grids.append(g)
-                if ov:
-                    hards.append(h)
+            with stage_timer(log, "ingest.launch"):
+                for i in range(n_chunks):
+                    prev = chunks[i - 1] if i > 0 else zero
+                    nxt = chunks[i + 1] if i + 1 < n_chunks else zero
+                    p, e, g, h = program(prev, chunks[i], nxt, scale,
+                                         float(min(u, t - i * u)))
+                    last = i + 1 == n_chunks
+                    probs.append(p if last else p[:-1])
+                    if want_energy:
+                        energy.append(e if last else e[:-1])
+                    grids.append(g)
+                    if ov:
+                        hards.append(h)
+                count("chunks", n_chunks)
             # ONE device-side pack + ONE device-to-host copy
-            parts = [torch.cat(probs)]
-            if want_energy:
-                parts.append(torch.cat(energy))
-            grid = torch.cat(grids)
-            parts.append(grid.reshape(-1).float())
-            if ov:
-                hard = torch.cat(hards)                     # [windows, F, K]
-                parts.append(hard.reshape(-1).float())
-            flat_dev = torch.cat(parts)
-        if dev.type == "cuda":
-            flat = torch.empty(flat_dev.shape, dtype=flat_dev.dtype,
-                               pin_memory=True)
-            flat.copy_(flat_dev, non_blocking=True)
-            done = torch.cuda.Event()
-            done.record()
-        else:
-            flat, done = flat_dev, None
+            with stage_timer(log, "ingest.pack"):
+                parts = [torch.cat(probs)]
+                if want_energy:
+                    parts.append(torch.cat(energy))
+                grid = torch.cat(grids)
+                parts.append(grid.reshape(-1).float())
+                if ov:
+                    hard = torch.cat(hards)                     # [windows, F, K]
+                    parts.append(hard.reshape(-1).float())
+                flat_dev = torch.cat(parts)
+                if dev.type == "cuda":
+                    flat = torch.empty(flat_dev.shape, dtype=flat_dev.dtype,
+                                       pin_memory=True)
+                    flat.copy_(flat_dev, non_blocking=True)
+                    done = torch.cuda.Event()
+                    done.record()
+                else:
+                    flat, done = flat_dev, None
+                count("d2h_bytes", flat_dev.nbytes)
         emb_dim = grid.shape[-1]
         st = {
             "flat": flat, "done": done, "q_host": q_host,
@@ -506,23 +520,26 @@ class DiarizationPipeline:
         return st
 
     def _streamed_collect(self, st: dict):
-        """Pull phase: wait for the one packed copy, then host slicing."""
-        if st["done"] is not None:
-            st["done"].synchronize()
-        flat = st["flat"].numpy()
-        self._last_snr_db = st["snr_db"]
-        n_frames, n_probs = st["n_frames"], st["n_probs"]
-        probs = flat[:n_probs][:n_frames]
-        off = n_probs
-        energy = None
-        if st["want_energy"]:
-            energy = flat[off:off + n_probs][:n_frames]
-            off += n_probs
-        grid = (flat[off:off + st["grid_len"]]
-                .reshape(-1, st["emb_dim"])[:st["w_total"]])
-        if st["ov"]:
-            off += st["grid_len"]
-            st["ov_acts"] = (flat[off:].reshape(st["ov_shape"])[:st["ov_n"]])
+        """Pull phase: wait for the one packed copy (on the CPU there is
+        none to wait for), then host slicing."""
+        with stage_timer(log, "collect"):
+            with stage_timer(log, "collect.wait", wait=True):
+                if st["done"] is not None:
+                    st["done"].synchronize()
+            flat = st["flat"].numpy()
+            self._last_snr_db = st["snr_db"]
+            n_frames, n_probs = st["n_frames"], st["n_probs"]
+            probs = flat[:n_probs][:n_frames]
+            off = n_probs
+            energy = None
+            if st["want_energy"]:
+                energy = flat[off:off + n_probs][:n_frames]
+                off += n_probs
+            grid = (flat[off:off + st["grid_len"]]
+                    .reshape(-1, st["emb_dim"])[:st["w_total"]])
+            if st["ov"]:
+                off += st["grid_len"]
+                st["ov_acts"] = (flat[off:].reshape(st["ov_shape"])[:st["ov_n"]])
         return probs, energy, grid, st["starts_s"], st["t"] / st["sr"]
 
     # ---------------------------------------------------------------- main --
@@ -580,42 +597,48 @@ class DiarizationPipeline:
         finish it with :meth:`stream_finish`.  A file that takes the
         whole-file path carries its waveform as ``legacy_source`` (or its
         prefetched upload as ``quantized``) and runs in
-        :meth:`stream_finish`."""
+        :meth:`stream_finish`.  Each call starts a new file of this
+        pipeline: its stages carry the file's id (``st["file_id"]``)."""
         self._last_snr_db = None
-        if self._prefetched(source):
-            _, quantized, t = self._whole_file_args(source)
-            return {"legacy_source": None, "quantized": quantized, "t": t,
-                    "sr": self.cfg.audio.sample_rate}
-        y = np.asarray(self._host_array(source), np.float32)
-        st = self._streamed_start(y, self.cfg.audio.sample_rate)
+        sr = self.cfg.audio.sample_rate
+        fid = next(self._file_ids)
+        with file_scope(fid), stage_timer(log, "ingest"):
+            if self._prefetched(source):
+                _, quantized, t = self._whole_file_args(source)
+                return {"legacy_source": None, "quantized": quantized, "t": t,
+                        "sr": sr, "file_id": fid}
+            y = np.asarray(self._host_array(source), np.float32)
+            st = self._streamed_start(y, sr)
         if st is None:
-            return {"legacy_source": y, "t": int(y.shape[-1]),
-                    "sr": self.cfg.audio.sample_rate}
+            return {"legacy_source": y, "t": int(y.shape[-1]), "sr": sr,
+                    "file_id": fid}
+        st["file_id"] = fid
         if st["legacy_source"] is None:
             st["y_host"] = y    # for the standalone detect, when the fused
         return st               # detector could not arm
 
     def stream_finish(self, st: dict) -> DiarizationResult:
         """One packed pull + VAD post + clustering/segments."""
-        if st.get("legacy_source") is not None or "flat" not in st:
-            return self._legacy_call(st["legacy_source"], st.get("quantized"),
-                                     t=st["t"])
-        cfg = self.cfg
-        probs, energy_db, win_embs, starts_s, total_s = self._streamed_collect(st)
-        with stage_timer(log, "vad-post"):
-            speech = vad_segments_from_probs(probs, cfg.vad,
-                                             frame_energy_db=energy_db)
-        if len(speech) == 0:
-            empty = SegmentArray.from_pairs([])
-            return DiarizationResult(empty, empty, 0)
-        overlap_regions = None
-        if st.get("ov_acts") is not None:
-            overlap_regions = regions_from_hard_acts(
-                st["ov_acts"], total_s, chunk_hop_s=cfg.overlap.chunk_hop_s,
-                min_on_s=cfg.overlap.min_on_s, min_gap_s=cfg.overlap.min_gap_s)
-        res = self._segments_from_grid(
-            speech, probs, win_embs, starts_s, total_s, y=st.get("y_host"),
-            sr=st["sr"], overlap_regions=overlap_regions)
+        with file_scope(st.get("file_id")):
+            if st.get("legacy_source") is not None or "flat" not in st:
+                return self._legacy_call(st["legacy_source"], st.get("quantized"),
+                                         t=st["t"])
+            cfg = self.cfg
+            probs, energy_db, win_embs, starts_s, total_s = self._streamed_collect(st)
+            with stage_timer(log, "vad-post"):
+                speech = vad_segments_from_probs(probs, cfg.vad,
+                                                 frame_energy_db=energy_db)
+            if len(speech) == 0:
+                empty = SegmentArray.from_pairs([])
+                return DiarizationResult(empty, empty, 0)
+            overlap_regions = None
+            if st.get("ov_acts") is not None:
+                overlap_regions = regions_from_hard_acts(
+                    st["ov_acts"], total_s, chunk_hop_s=cfg.overlap.chunk_hop_s,
+                    min_on_s=cfg.overlap.min_on_s, min_gap_s=cfg.overlap.min_gap_s)
+            res = self._segments_from_grid(
+                speech, probs, win_embs, starts_s, total_s, y=st.get("y_host"),
+                sr=st["sr"], overlap_regions=overlap_regions)
         if st.get("ov_acts") is not None:
             res.diagnostics["overlap_hard"] = st["ov_acts"]
             res.diagnostics["overlap_regions"] = overlap_regions
@@ -632,9 +655,7 @@ class DiarizationPipeline:
         if collect_diagnostics:
             y_host, quantized, t = self._whole_file_args(source)
             return self._legacy_call(y_host, quantized, t=t, collect=True)
-        with stage_timer(log, "streamed-ingest"):
-            st = self.stream_start(source)
-        return self.stream_finish(st)
+        return self.stream_finish(self.stream_start(source))
 
     # ------------------------------------------------------ whole-file path --
     def _floor_hf_frac(self, q: np.ndarray, t: int) -> float:
@@ -722,7 +743,9 @@ class DiarizationPipeline:
         if y_host is not None:
             t = int(y_host.shape[-1])
         if quantized is None:
-            q, q_dev, scale = self._quantize_upload(y_host)
+            with stage_timer(log, "load.quantize"):
+                q, q_dev, scale = self._quantize_upload(y_host)
+                count("h2d_bytes", q.nbytes)
             snr = None
         else:
             q, q_dev, scale, snr = quantized
@@ -736,11 +759,13 @@ class DiarizationPipeline:
             engage = True
             if ecfg.scope == "auto":
                 if q is None:                   # a prefetched upload
-                    q = q_dev.cpu().numpy()
+                    with stage_timer(log, "load.host-copy", wait=True):
+                        q = q_dev.cpu().numpy()
                 if snr is None:
                     snr = self._host_snr_db(
                         q[:t].astype(np.float32) * (scale / 32767.0))
-                hf = self._floor_hf_frac(q, t)
+                with stage_timer(log, "load.floor-probe"):
+                    hf = self._floor_hf_frac(q, t)
                 self._last_snr_db, self._last_floor_hf_frac = snr, hf
                 engage = snr < ecfg.auto_snr_db
                 info.update(snr_db=snr, floor_hf_frac=hf)
@@ -763,13 +788,14 @@ class DiarizationPipeline:
                         fe = None
                         info["enhancer"] = "demix-dialog"
                 if fe is not None:
-                    with stage_timer(log, "enhance"):
+                    with stage_timer(log, "enhance", device=self._on_card):
                         y_enh = fe(y)
                     info["enhancer"] = ecfg.backend
                     if ecfg.scope == "full":
                         y, y_enh = y_enh, None
-        y = self._preprocess(y, t, sr)[:t]
-        y_vad = y if y_enh is None else self._preprocess(y_enh, t, sr)[:t]
+        with stage_timer(log, "load.preprocess"):
+            y = self._preprocess(y, t, sr)[:t]
+            y_vad = y if y_enh is None else self._preprocess(y_enh, t, sr)[:t]
         return y, y_vad, info
 
     def vad_probs(self, y: torch.Tensor, sr: int) -> torch.Tensor:
@@ -789,7 +815,15 @@ class DiarizationPipeline:
         """The whole-file path: preprocess (and denoise), VAD and the
         streaming grid over the whole waveform, one copy to the host, then
         the host tail.  ``quantized`` and ``t``: as :meth:`_load_waves`
-        takes them; ``collect``: the diagnostics of ``collect_diagnostics``."""
+        takes them; ``collect``: the diagnostics of ``collect_diagnostics``.
+        Its stages carry the file id of the ``stream_start`` it came from,
+        else a new one."""
+        fid = current_file()
+        with file_scope(next(self._file_ids) if fid is None else fid):
+            return self._whole_file(y_host, quantized, t, collect)
+
+    def _whole_file(self, y_host, quantized, t, collect) -> DiarizationResult:
+        """:meth:`_legacy_call`'s body, inside the file's scope."""
         cfg = self.cfg
         sr = cfg.audio.sample_rate
         streaming = self._grid_is_streaming(sr)
@@ -798,19 +832,25 @@ class DiarizationPipeline:
             with stage_timer(log, "load+preprocess"):
                 y, y_vad, info = self._load_waves(y_host, quantized, t)
             with stage_timer(log, "dispatch"):
-                probs = self.vad_probs(y_vad, sr)
-                parts = [probs]
-                if want_energy:
-                    parts.append(self.vad_frame_energy(y_vad, sr))
-                if streaming:
-                    grid = embed_windows_streaming(self.encoder, y, sr,
-                                                   cfg.reseg.win_s, cfg.reseg.hop_s)
-                else:
-                    grid = embed_windows(self.encode_fn, y, sr,
-                                         cfg.reseg.win_s, cfg.reseg.hop_s,
-                                         batch=cfg.embed.batch_size)
+                with stage_timer(log, "dispatch.vad"):
+                    probs = self.vad_probs(y_vad, sr)
+                    parts = [probs]
+                    if want_energy:
+                        parts.append(self.vad_frame_energy(y_vad, sr))
+                with (stage_timer(log, "dispatch.grid"),
+                      stage_timer(log, "encoder", device=self._on_card)):
+                    if streaming:
+                        grid = embed_windows_streaming(self.encoder, y, sr,
+                                                       cfg.reseg.win_s, cfg.reseg.hop_s)
+                    else:
+                        grid = embed_windows(self.encode_fn, y, sr,
+                                             cfg.reseg.win_s, cfg.reseg.hop_s,
+                                             batch=cfg.embed.batch_size)
                 parts.append(grid.reshape(-1).float())
-                flat = torch.cat(parts).cpu().numpy()    # one copy to the host
+                flat_dev = torch.cat(parts)
+                with stage_timer(log, "dispatch.copy", wait=True):
+                    flat = flat_dev.cpu().numpy()    # one copy to the host
+                    count("d2h_bytes", flat.nbytes)
         # the energy VAD has a few frames fewer than the frame energy
         n_p = probs.shape[0]
         n_e = parts[1].shape[0] if want_energy else 0
@@ -866,7 +906,8 @@ class DiarizationPipeline:
             if cfg.embed.whiten and len(speech2) > 4:
                 seg_embs = cluster_mod.whiten(torch.from_numpy(seg_embs)).numpy()
         with stage_timer(log, "cluster"):
-            labels = self._cluster(seg_embs)
+            with stage_timer(log, f"cluster.{cfg.cluster.method}"):
+                labels = self._cluster(seg_embs)
             refine_thr = cfg.cluster.refine_sub_cos
             if refine_thr is None:
                 refine_thr = getattr(self.encoder, "refine_sub_cos", None)
@@ -882,10 +923,11 @@ class DiarizationPipeline:
             if (cfg.cluster.refine_splits and refine_thr > 0
                     and len(speech2) > 1 and snr_ok
                     and cfg.cluster.method == "spectral"):
-                labels = cluster_mod.refine_labels_by_windows(
-                    labels, speech2, win_embs, starts_s, grid_win_s,
-                    cfg.cluster.max_speakers, sub_cos_thr=refine_thr,
-                    seg_embs=seg_embs)
+                with stage_timer(log, "cluster.refine"):
+                    labels = cluster_mod.refine_labels_by_windows(
+                        labels, speech2, win_embs, starts_s, grid_win_s,
+                        cfg.cluster.max_speakers, sub_cos_thr=refine_thr,
+                        seg_embs=seg_embs)
         speech2 = SegmentArray(speech2.starts, speech2.ends, labels)
         with stage_timer(log, "merge"):
             speech3, embs3 = conservative_merge(

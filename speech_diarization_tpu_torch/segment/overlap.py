@@ -29,7 +29,7 @@ import torch
 
 from ..types import SegmentArray
 from ..utils.device import resolve_device
-from ..utils.logging import get_logger
+from ..utils.logging import count, get_logger, stage_timer
 
 log = get_logger("overlap")
 
@@ -84,8 +84,11 @@ def detect_overlap_regions(
         start = b * GATHER_BATCH * stride
         wins = yp[start:start + span].unfold(0, chunk, stride)
         out = seg_fn(wins)
-        parts.append(out.cpu().numpy() if isinstance(out, torch.Tensor)
-                     else np.asarray(out))
+        if isinstance(out, torch.Tensor):
+            with stage_timer(log, "overlap.copy", wait=True):
+                out = out.cpu().numpy()
+                count("d2h_bytes", out.nbytes)
+        parts.append(np.asarray(out))
     acts = np.concatenate(parts, axis=0)[:n_chunks]
     return regions_from_hard_acts(acts, t / sr, chunk_hop_s=chunk_hop_s,
                                   hop_ms=hop_ms, min_on_s=min_on_s,

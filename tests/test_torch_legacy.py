@@ -351,10 +351,10 @@ def test_a_forced_scope_leaves_the_streamed_start_before_any_work(pipes, runs,
     try:
         tpipe.cfg = dataclasses.replace(
             tcfg, enhance=dataclasses.replace(tcfg.enhance, scope=scope))
-        # no quantized file, no uploads, no probe: the waveform and its
-        # length only
+        # no quantized file, no uploads, no probe: the waveform, its
+        # length and the file's id only
         assert set(tpipe.stream_start(runs["white10"]["w"])) == {
-            "legacy_source", "t", "sr"}
+            "legacy_source", "t", "sr", "file_id"}
         assert tpipe._last_snr_db is None
     finally:
         tpipe.cfg = tcfg
