@@ -12,10 +12,12 @@ recorder on, every synchronising operation named by its innermost frame in
 the port and the stages open around it, and marked whether a ``wait=True``
 stage holds it; one pass with the recorder alone, giving each stage's self
 time (its wall less its children's) and counters per file, each device
-stage's CUDA-event time, and the waits per file.  ``--overhead S`` then
-runs the cell's benchmark window (``perfbench/harness/runner.run_cell``, S
-seconds, no profiler) with the recorder off and on in turns (off, on, on,
-off), ``--pairs`` times: the recorder's cost on ``rtf`` and ``file_p95_s``.
+stage's CUDA-event time, the waits per file, and the BLAS threads each
+``cluster`` span counted (``blas_threads``: 1 under the host tail's
+guard).  ``--overhead S`` then runs the cell's benchmark window
+(``perfbench/harness/runner.run_cell``, S seconds, no profiler) with the
+recorder off and on in turns (off, on, on, off), ``--pairs`` times: the
+recorder's cost on ``rtf`` and ``file_p95_s``.
 Also checks, once, where ``torch.profiler`` puts the stages'
 ``record_function`` ranges.  Needs a CUDA card; prints one JSON line a
 part and writes them all to ``--out``.
@@ -137,8 +139,11 @@ def timed_pass(pipe, pool, lg) -> dict:
                     "counts": {c: x / n for c, x in v["counts"].items()}}
                 for k, v in out.items()}
     audio_s = sum(d.seconds for d in pool)
+    # the BLAS pool each file's host tail ran on: {threads: cluster spans}
+    blas = Counter(str((s.counts or {}).get("blas_threads")) for s in rec.spans
+                   if s.name == "cluster")
     return {"files": n, "audio_s": audio_s, "wall_s": wall, "per_file": per_file,
-            "waits": _waits_per_file(rec)}
+            "waits": _waits_per_file(rec), "blas_threads": dict(blas)}
 
 
 def profiler_probe(lg) -> dict:
@@ -230,7 +235,8 @@ def main(argv=None) -> int:
         if args.overhead > 0:
             row["overhead"] = overhead(cell, args.seed, args.overhead, args.pairs, lg)
         report[name] = row
-        print(json.dumps({"cell": name, "sync": row["sync"]}), flush=True)
+        print(json.dumps({"cell": name, "sync": row["sync"],
+                          "blas_threads": row["timed"]["blas_threads"]}), flush=True)
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(report, indent=1))

@@ -73,6 +73,7 @@ from ..segment import (
     window_starts,
 )
 from ..types import Segment, SegmentArray
+from ..utils.blas import blas_threads, single_blas_thread
 from ..utils.device import disable_tf32, resolve_device
 from ..utils.logging import count, current_file, file_scope, get_logger, stage_timer
 from .chunking import chunked_framewise
@@ -625,20 +626,21 @@ class DiarizationPipeline:
                                          t=st["t"])
             cfg = self.cfg
             probs, energy_db, win_embs, starts_s, total_s = self._streamed_collect(st)
-            with stage_timer(log, "vad-post"):
-                speech = vad_segments_from_probs(probs, cfg.vad,
-                                                 frame_energy_db=energy_db)
-            if len(speech) == 0:
-                empty = SegmentArray.from_pairs([])
-                return DiarizationResult(empty, empty, 0)
-            overlap_regions = None
-            if st.get("ov_acts") is not None:
-                overlap_regions = regions_from_hard_acts(
-                    st["ov_acts"], total_s, chunk_hop_s=cfg.overlap.chunk_hop_s,
-                    min_on_s=cfg.overlap.min_on_s, min_gap_s=cfg.overlap.min_gap_s)
-            res = self._segments_from_grid(
-                speech, probs, win_embs, starts_s, total_s, y=st.get("y_host"),
-                sr=st["sr"], overlap_regions=overlap_regions)
+            with single_blas_thread():
+                with stage_timer(log, "vad-post"):
+                    speech = vad_segments_from_probs(probs, cfg.vad,
+                                                     frame_energy_db=energy_db)
+                if len(speech) == 0:
+                    empty = SegmentArray.from_pairs([])
+                    return DiarizationResult(empty, empty, 0)
+                overlap_regions = None
+                if st.get("ov_acts") is not None:
+                    overlap_regions = regions_from_hard_acts(
+                        st["ov_acts"], total_s, chunk_hop_s=cfg.overlap.chunk_hop_s,
+                        min_on_s=cfg.overlap.min_on_s, min_gap_s=cfg.overlap.min_gap_s)
+                res = self._segments_from_grid(
+                    speech, probs, win_embs, starts_s, total_s, y=st.get("y_host"),
+                    sr=st["sr"], overlap_regions=overlap_regions)
         if st.get("ov_acts") is not None:
             res.diagnostics["overlap_hard"] = st["ov_acts"]
             res.diagnostics["overlap_regions"] = overlap_regions
@@ -858,15 +860,17 @@ class DiarizationPipeline:
         energy_h = flat[n_p:n_p + n_e] if want_energy else None
         grid_h = flat[n_p + n_e:].reshape(-1, grid.shape[-1])
         t = y.shape[-1]
-        with stage_timer(log, "vad-post"):
-            speech = vad_segments_from_probs(probs_h, cfg.vad,
-                                             frame_energy_db=energy_h)
-        if len(speech) == 0:
-            empty = SegmentArray.from_pairs([])
-            return DiarizationResult(empty, empty, 0, {**info, "vad_probs": probs_h})
-        starts_s = window_starts(t, sr, cfg.reseg.win_s, cfg.reseg.hop_s) / sr
-        res = self._segments_from_grid(speech, probs_h, grid_h, starts_s, t / sr,
-                                       y=y, sr=sr, collect=collect)
+        with single_blas_thread():
+            with stage_timer(log, "vad-post"):
+                speech = vad_segments_from_probs(probs_h, cfg.vad,
+                                                 frame_energy_db=energy_h)
+            if len(speech) == 0:
+                empty = SegmentArray.from_pairs([])
+                return DiarizationResult(empty, empty, 0,
+                                         {**info, "vad_probs": probs_h})
+            starts_s = window_starts(t, sr, cfg.reseg.win_s, cfg.reseg.hop_s) / sr
+            res = self._segments_from_grid(speech, probs_h, grid_h, starts_s, t / sr,
+                                           y=y, sr=sr, collect=collect)
         res.diagnostics.update(info)
         res.diagnostics["grid"] = "streaming" if streaming else "windowed"
         return res
@@ -906,6 +910,7 @@ class DiarizationPipeline:
             if cfg.embed.whiten and len(speech2) > 4:
                 seg_embs = cluster_mod.whiten(torch.from_numpy(seg_embs)).numpy()
         with stage_timer(log, "cluster"):
+            count("blas_threads", blas_threads())
             with stage_timer(log, f"cluster.{cfg.cluster.method}"):
                 labels = self._cluster(seg_embs)
             refine_thr = cfg.cluster.refine_sub_cos

@@ -191,6 +191,15 @@ def test_host_tail_stages_never_nest(recorded):
             p = by_id[p].parent
 
 
+def test_cluster_spans_count_one_blas_thread(recorded):
+    """Both routes run the host tail on one BLAS thread: each ``cluster``
+    span carries ``blas_threads`` 1."""
+    _, streamed, whole, *_ = recorded
+    for spans in (streamed, whole):
+        cl = [s for s in spans if s.name == "cluster"]
+        assert cl and all(s.counts == {"blas_threads": 1} for s in cl)
+
+
 def test_the_stitch_index_upload_is_a_wait():
     y = torch.randn(20 * SR)
     with lg.recording() as rec:
@@ -219,6 +228,7 @@ def test_corpus_overlap_keeps_each_files_id(pipe, waves):
         names = {s.name for s in rec.spans if s.file == fid}
         assert {"ingest", "vad-post", "cluster"} <= names
     assert all(s.file in (first, second) for s in rec.spans)
+    assert all(s.counts == {"blas_threads": 1} for s in rec.spans if s.name == "cluster")
 
 
 def test_two_threads_keep_separate_stacks():
