@@ -1,10 +1,11 @@
 """Resolve a cell of ``BENCHMARK.json`` to its files, by name alone.
 
 A cell names a configuration and a traffic mix; each is a JSON file of its
-own (``configs/<config>.json``, ``traffic/<traffic>.json``), and each
-per-layer metric a reader of its own (``metrics/<metric>.py``).  Adding a
-configuration, a mix, a metric or a cell is adding files and entries: no
-file here changes.
+own (``configs/<config>.json``, ``traffic/<traffic>.json``), each
+per-layer metric a reader of its own (``metrics/<metric>.py``), and each
+model kind a configuration's block names a builder of its own
+(``kinds/<kind>.py``).  Adding a configuration, a mix, a metric, a model kind
+or a cell is adding files and entries: no file here changes.
 """
 from __future__ import annotations
 
@@ -76,6 +77,25 @@ def load_reader(name: str, root: Path = ROOT):
     path = metric_path(name, root)
     spec = importlib.util.spec_from_file_location(
         f"perfbench.metrics.{name.replace('.', '_')}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def kind_path(name: str, root: Path = ROOT) -> Path:
+    return root / "perfbench" / "kinds" / f"{name}.py"
+
+
+def load_kind(name: str, root: Path = ROOT):
+    """The module of a model kind, named by a configuration block's
+    ``kind``: ``build(block, side)``, ``rates(block, probe)`` and
+    ``terms(rates, geo)`` (``perfbench/README.md``, "Model kinds").  Raises
+    ``FileNotFoundError`` naming the path it looked for."""
+    path = kind_path(name, root)
+    if not path.is_file():
+        raise FileNotFoundError(f"no model kind {name!r}: {path} does not exist")
+    spec = importlib.util.spec_from_file_location(
+        f"perfbench.kinds.{name.replace('.', '_')}", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod

@@ -47,3 +47,17 @@ def test_spread_is_the_quartile_distance_over_the_median():
     v = [100.0, 101.0, 102.0, 103.0, 104.0, 105.0]
     q1, _, q3 = statistics.quantiles(v, n=4)
     assert spread(v) == pytest.approx((q3 - q1) / statistics.median(v))
+
+
+def test_traced_file_p95_reads_the_traced_files():
+    from types import SimpleNamespace
+
+    from perfbench.harness import spec
+
+    mod = spec.load_reader("traced_file_p95_s")
+    files = [SimpleNamespace(t_submit=float(i), t_done=i + (0.1 if i < 19 else 0.9))
+             for i in range(20)]
+    # nearest rank ceil(0.95 * 20) = 19: the one slow file lies beyond it
+    assert mod.read(SimpleNamespace(files=files)) == pytest.approx(0.1)
+    assert mod.read(SimpleNamespace(files=files + files[-1:])) == pytest.approx(0.9)
+    assert mod.read(SimpleNamespace(files=[])) is None
