@@ -14,7 +14,9 @@ stage holds it; one pass with the recorder alone, giving each stage's self
 time (its wall less its children's) and counters per file, each device
 stage's CUDA-event time, the waits per file, and the BLAS threads each
 ``cluster`` span counted (``blas_threads``: 1 under the host tail's
-guard).  ``--overhead S`` then runs the cell's benchmark window
+guard), and, in a cell whose front-end is the demix-dialog separator, each
+``demix.*`` stage's row (parent, calls, wall, self and device time,
+counters) per file.  ``--overhead S`` then runs the cell's benchmark window
 (``perfbench/harness/runner.run_cell``, S seconds, no profiler) with the
 recorder off and on in turns (off, on, on, off), ``--pairs`` times: the
 recorder's cost on ``rtf`` and ``file_p95_s``.
@@ -235,8 +237,10 @@ def main(argv=None) -> int:
         if args.overhead > 0:
             row["overhead"] = overhead(cell, args.seed, args.overhead, args.pairs, lg)
         report[name] = row
+        demix = {k: v for k, v in row["timed"]["per_file"].items() if k.startswith("demix.")}
         print(json.dumps({"cell": name, "sync": row["sync"],
-                          "blas_threads": row["timed"]["blas_threads"]}), flush=True)
+                          "blas_threads": row["timed"]["blas_threads"],
+                          **({"demix_per_file": demix} if demix else {})}), flush=True)
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(report, indent=1))

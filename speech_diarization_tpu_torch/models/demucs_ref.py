@@ -23,7 +23,12 @@ every norm and in the input normalization, exact (erf) GELU, and the JAX
 graph's encoder rewrite without padding.  The attention is
 ``F.scaled_dot_product_attention``: the spectral bottleneck of a 10 s chunk
 has 3,448 tokens, and its float32 scores would take 380 MB a chunk and
-head group.
+head group.  A forward is three spans (``utils/logging.py::stage_timer``):
+``demix.encode`` (the STFT, the normalizations, both encoders and the
+upsampling to the bottleneck's width), ``demix.transformer`` (the
+cross-domain transformer; counters ``spec_tokens`` and ``time_tokens`` over
+the batch) and ``demix.decode`` (the downsampling, both decoders, the
+inverse STFT and the sum).
 """
 from __future__ import annotations
 
@@ -35,6 +40,9 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..dsp.ola import overlap_add
+from ..utils.logging import count, get_logger, stage_timer
+
+log = get_logger("demix")
 
 
 # ---------------------------------------------------------------------------
@@ -401,49 +409,55 @@ class HTDemucsRef(nn.Module):
         return sum(int(np.prod(s)) for s in self.manifest().values())
 
     def forward(self, mix: torch.Tensor) -> torch.Tensor:
-        b, ac, length = mix.shape
-        n_src = len(self.sources)
-        z = _spec(mix, self.nfft, self.hop)                    # [B, AC, F, T]
-        fq, tf = z.shape[-2:]
-        # complex as channels: (c0.re, c0.im, c1.re, c1.im)
-        mag = torch.view_as_real(z).permute(0, 1, 4, 2, 3).reshape(b, ac * 2, fq, tf)
-        mean = mag.mean(dim=(1, 2, 3), keepdim=True)
-        std = mag.std(dim=(1, 2, 3), keepdim=True, correction=0)
-        x = (mag - mean) / (1e-5 + std)
-        meant = mix.mean(dim=(1, 2), keepdim=True)
-        stdt = mix.std(dim=(1, 2), keepdim=True, correction=0)
-        xt = (mix - meant) / (1e-5 + stdt)
+        on_card = mix.is_cuda
+        with stage_timer(log, "demix.encode", device=on_card):
+            b, ac, length = mix.shape
+            n_src = len(self.sources)
+            z = _spec(mix, self.nfft, self.hop)                    # [B, AC, F, T]
+            fq, tf = z.shape[-2:]
+            # complex as channels: (c0.re, c0.im, c1.re, c1.im)
+            mag = torch.view_as_real(z).permute(0, 1, 4, 2, 3).reshape(b, ac * 2, fq, tf)
+            mean = mag.mean(dim=(1, 2, 3), keepdim=True)
+            std = mag.std(dim=(1, 2, 3), keepdim=True, correction=0)
+            x = (mag - mean) / (1e-5 + std)
+            meant = mix.mean(dim=(1, 2), keepdim=True)
+            stdt = mix.std(dim=(1, 2), keepdim=True, correction=0)
+            xt = (mix - meant) / (1e-5 + stdt)
 
-        saved, saved_t, lengths_t = [], [], []
-        for i in range(self.depth):
-            lengths_t.append(xt.shape[-1])
-            xt = self.tencoder[i](xt)
-            saved_t.append(xt)
-            x = self.encoder[i](x)
-            if i == 0:
-                emb = self.freq_emb.embedding.weight[:x.shape[-2]] * 10.0
-                x = x + self.freq_emb_scale * emb.T[None, :, :, None]
-            saved.append(x)
+            saved, saved_t, lengths_t = [], [], []
+            for i in range(self.depth):
+                lengths_t.append(xt.shape[-1])
+                xt = self.tencoder[i](xt)
+                saved_t.append(xt)
+                x = self.encoder[i](x)
+                if i == 0:
+                    emb = self.freq_emb.embedding.weight[:x.shape[-2]] * 10.0
+                    x = x + self.freq_emb_scale * emb.T[None, :, :, None]
+                saved.append(x)
 
-        if self.bottom:
-            bb, cc, ff, tt = x.shape
-            x = self.channel_upsampler(x.reshape(bb, cc, ff * tt)).reshape(
-                bb, self.bottom, ff, tt)
-            xt = self.channel_upsampler_t(xt)
-        x, xt = self.crosstransformer(x, xt)
-        if self.bottom:
-            bb, cc, ff, tt = x.shape
-            x = self.channel_downsampler(x.reshape(bb, cc, ff * tt)).reshape(
-                bb, -1, ff, tt)
-            xt = self.channel_downsampler_t(xt)
+            if self.bottom:
+                bb, cc, ff, tt = x.shape
+                x = self.channel_upsampler(x.reshape(bb, cc, ff * tt)).reshape(
+                    bb, self.bottom, ff, tt)
+                xt = self.channel_upsampler_t(xt)
+        with stage_timer(log, "demix.transformer", device=on_card):
+            count("spec_tokens", x.shape[0] * x.shape[2] * x.shape[3])
+            count("time_tokens", xt.shape[0] * xt.shape[2])
+            x, xt = self.crosstransformer(x, xt)
+        with stage_timer(log, "demix.decode", device=on_card):
+            if self.bottom:
+                bb, cc, ff, tt = x.shape
+                x = self.channel_downsampler(x.reshape(bb, cc, ff * tt)).reshape(
+                    bb, -1, ff, tt)
+                xt = self.channel_downsampler_t(xt)
 
-        for j in range(self.depth):
-            x = self.decoder[j](x, saved.pop(-1), 0)
-            xt = self.tdecoder[j](xt, saved_t.pop(-1), lengths_t.pop(-1))
+            for j in range(self.depth):
+                x = self.decoder[j](x, saved.pop(-1), 0)
+                xt = self.tdecoder[j](xt, saved_t.pop(-1), lengths_t.pop(-1))
 
-        x = x.reshape(b, n_src, ac * 2, fq, tf) * std[:, None] + mean[:, None]
-        xs = x.reshape(b, n_src, ac, 2, fq, tf)
-        wave_spec = _ispec(torch.complex(xs[:, :, :, 0], xs[:, :, :, 1]),
-                           length, self.nfft, self.hop)
-        xt = xt.reshape(b, n_src, ac, length) * stdt[:, None] + meant[:, None]
-        return xt + wave_spec
+            x = x.reshape(b, n_src, ac * 2, fq, tf) * std[:, None] + mean[:, None]
+            xs = x.reshape(b, n_src, ac, 2, fq, tf)
+            wave_spec = _ispec(torch.complex(xs[:, :, :, 0], xs[:, :, :, 1]),
+                               length, self.nfft, self.hop)
+            xt = xt.reshape(b, n_src, ac, length) * stdt[:, None] + meant[:, None]
+            return xt + wave_spec

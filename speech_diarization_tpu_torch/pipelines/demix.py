@@ -27,7 +27,7 @@ from ..io.audio import read_audio, write_wav
 from ..io.walk import expand_audios
 from ..models.demix import STEMS
 from ..utils.device import disable_tf32, resolve_device
-from ..utils.logging import get_logger
+from ..utils.logging import count, get_logger, stage_timer
 
 log = get_logger("demix")
 
@@ -113,7 +113,10 @@ class EnsembleDemixer:
             raise ValueError(f"input must be [2, T] stereo, got {wav.shape}")
         if sample_rate != DEMIX_SR:
             raise ValueError(f"sample rate must be {DEMIX_SR}, got {sample_rate}")
-        x = torch.from_numpy(np.ascontiguousarray(wav, np.float32)).to(self.device)
+        # a copy from pageable memory: the host waits for the stream
+        with stage_timer(log, "demix.upload", wait=True):
+            x = torch.from_numpy(np.ascontiguousarray(wav, np.float32)).to(self.device)
+            count("h2d_bytes", x.numel() * 4)
         with torch.inference_mode():
             if self.shifts == 1:
                 return self._separate_once(x, sample_rate)
@@ -130,13 +133,20 @@ class EnsembleDemixer:
             return acc / self.shifts
 
     def _forward(self, chunks: torch.Tensor) -> torch.Tensor:
-        """[n, 2, L] -> [n, 3, 2, L]: the ensemble mean."""
-        acc = None
-        for net in self.nets:
-            sep = torch.cat([net(chunks[i:i + self.CHUNK_BATCH])
-                             for i in range(0, chunks.shape[0], self.CHUNK_BATCH)])
-            acc = sep if acc is None else acc + sep
-        return acc / len(self.nets)
+        """[n, 2, L] -> [n, 3, 2, L]: the ensemble mean, in the span
+        ``demix.separate`` (counters ``nets``, ``chunks`` and ``batches``,
+        the nets' forwards)."""
+        n = chunks.shape[0]
+        with stage_timer(log, "demix.separate", device=chunks.is_cuda):
+            count("nets", len(self.nets))
+            count("chunks", n)
+            count("batches", len(self.nets) * -(-n // self.CHUNK_BATCH))
+            acc = None
+            for net in self.nets:
+                sep = torch.cat([net(chunks[i:i + self.CHUNK_BATCH])
+                                 for i in range(0, n, self.CHUNK_BATCH)])
+                acc = sep if acc is None else acc + sep
+            return acc / len(self.nets)
 
     def _separate_once(self, x: torch.Tensor, sample_rate: int) -> torch.Tensor:
         t = x.shape[-1]
@@ -147,11 +157,12 @@ class EnsembleDemixer:
         n = num_frames(t, chunk, hop, pad_tail=True)
         sep = self._forward(frame_signal(x, chunk, hop).transpose(0, 1))
         n_src, n_ch = sep.shape[1:3]
-        window = hann_window(chunk, periodic=False, device=x.device) + 1e-3
-        # every stem channel of every chunk in one overlap-add
-        frames = (sep * window).permute(1, 2, 0, 3).reshape(n_src * n_ch, n, chunk)
-        out = overlap_add(frames, hop) / ola_normalization(n, chunk, hop, window)
-        return out.reshape(n_src, n_ch, -1)[:, :, :t]
+        with stage_timer(log, "demix.ola", device=x.is_cuda):
+            window = hann_window(chunk, periodic=False, device=x.device) + 1e-3
+            # every stem channel of every chunk in one overlap-add
+            frames = (sep * window).permute(1, 2, 0, 3).reshape(n_src * n_ch, n, chunk)
+            out = overlap_add(frames, hop) / ola_normalization(n, chunk, hop, window)
+            return out.reshape(n_src, n_ch, -1)[:, :, :t]
 
 
 def separate_dialog(input_path: str | Path, output: str | Path | None = None,

@@ -32,7 +32,7 @@ from ..dsp.ola import ola_normalization, overlap_add
 from ..dsp.stft import hann_window, istft_ri, sqrt_hann_window, stft_ri
 from ..models.gtcrn import GTCRN
 from ..utils.device import disable_tf32, resolve_device
-from ..utils.logging import get_logger
+from ..utils.logging import count, get_logger, stage_timer
 
 log = get_logger("enhance")
 
@@ -175,7 +175,7 @@ def _zipenhancer_ref(weights):
     return seeded_init(ZipEnhancerRef(), 0)
 
 
-def make_enhance_fn(backend: str, weights=None, device=None, **kwargs):
+def make_enhance_fn(backend: str, weights=None, device=None, nets=None, **kwargs):
     """The pipeline's enhancer: ``[T]`` float32 tensor -> ``[T]`` tensor on
     ``device`` (``None``: the card; raises without CUDA).  ``weights``: a
     checkpoint path overriding the shipped one, or (gtcrn, zipenhancer,
@@ -184,9 +184,22 @@ def make_enhance_fn(backend: str, weights=None, device=None, **kwargs):
     ``params``).  ``kwargs`` go to the backend: ``chunk_s`` / ``overlap_s``
     (gtcrn), ``window_s`` / ``hop_ratio`` / ``batch_size`` (zipenhancer,
     zipenhancer-ref), and the :class:`~.demix.EnsembleDemixer` options
-    (demix-dialog)."""
+    (demix-dialog).  ``nets`` (demix-dialog only): the separators of the
+    ensemble as modules, in place of ``weights`` or the checkpoints on disk.
+
+    The demix-dialog enhancer's stages are spans under the caller's:
+    ``demix.download`` and ``demix.fetch`` (waits, ``d2h_bytes``),
+    ``demix.resample-in`` (``samples``) and ``demix.resample-out`` on the
+    host, the ensemble's ``demix.upload`` (a wait, ``h2d_bytes``),
+    ``demix.separate`` and ``demix.ola`` (:class:`~.demix.EnsembleDemixer`),
+    and ``demix.return`` (a wait, ``h2d_bytes``), the dialog stem's copy
+    back to the device."""
     if backend not in ("gtcrn", "zipenhancer", "zipenhancer-ref", "demix-dialog"):
         raise ValueError(f"unknown enhancement backend: {backend}")
+    if nets is not None and weights is not None:
+        raise ValueError(f"{backend}: pass weights= or nets=, not both")
+    if nets is not None and backend != "demix-dialog":
+        raise ValueError(f"{backend}: nets= is taken by the demix-dialog backend only")
     dev = resolve_device(device)
     if dev.type == "cuda":
         disable_tf32()
@@ -208,17 +221,28 @@ def make_enhance_fn(backend: str, weights=None, device=None, **kwargs):
     from ..dsp.resample import resample_host
     from .demix import DEMIX_SR, EnsembleDemixer
 
-    nets = None if weights is None else [load_demixer(_checkpoint(backend, weights))]
+    if weights is not None:
+        nets = [load_demixer(_checkpoint(backend, weights))]
     dmx = EnsembleDemixer(nets, device=dev, **kwargs)
     sr = 16000
 
     def demix_fn(y: torch.Tensor) -> torch.Tensor:
-        yn = y.detach().to("cpu", torch.float32).numpy()
-        up = resample_host(yn, sr, DEMIX_SR)
-        stems = dmx.separate_on_device(np.stack([up, up]), DEMIX_SR)
-        dialog = stems[2].mean(dim=0).cpu().numpy()
-        out = resample_host(dialog, DEMIX_SR, sr)
-        out = np.pad(out, (0, max(0, yn.shape[-1] - out.shape[-1])))[:yn.shape[-1]]
-        return torch.from_numpy(out).to(dev)
+        with stage_timer(log, "demix.download", wait=True):
+            yn = y.detach().to("cpu", torch.float32).numpy()
+            count("d2h_bytes", yn.nbytes)
+        with stage_timer(log, "demix.resample-in"):
+            up = resample_host(yn, sr, DEMIX_SR)
+            stereo = np.stack([up, up])
+            count("samples", up.shape[-1])
+        stems = dmx.separate_on_device(stereo, DEMIX_SR)
+        with stage_timer(log, "demix.fetch", wait=True):
+            dialog = stems[2].mean(dim=0).cpu().numpy()
+            count("d2h_bytes", dialog.nbytes)
+        with stage_timer(log, "demix.resample-out"):
+            out = resample_host(dialog, DEMIX_SR, sr)
+            out = np.pad(out, (0, max(0, yn.shape[-1] - out.shape[-1])))[:yn.shape[-1]]
+        with stage_timer(log, "demix.return", wait=True):
+            count("h2d_bytes", out.nbytes)
+            return torch.from_numpy(out).to(dev)
 
     return demix_fn

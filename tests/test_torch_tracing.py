@@ -6,14 +6,18 @@ call with one file id a file, per-thread stacks, and the profiler's clock.
 The pipeline is the shipped conv VAD and streaming ECAPA on the CPU at the
 default configuration (detector on), with 10 s chunks so a 10 s file is
 one chunk; the whole-file call is a noisy draw behind an injected
-enhancer, so the route runs without GTCRN's cost.
+enhancer, so the route runs without GTCRN's cost.  The demix-dialog
+front-end's spans come from the same noisy draw behind a two-net ensemble
+of small seeded HTDemucs nets (depth 4 at 8 channels, 4 s chunks).
 """
 from __future__ import annotations
 
 import importlib
 import logging
+import sys
 import threading
 from pathlib import Path
+from types import SimpleNamespace
 from unittest import mock
 
 import numpy as np
@@ -22,13 +26,17 @@ import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
 import speech_diarization_tpu_torch as port
+from speech_diarization_tpu_torch.models.demucs_ref import HTDemucsRef
 from speech_diarization_tpu_torch.models.port import load_speaker_encoder, load_vad
+from speech_diarization_tpu_torch.models.registry import seeded_init
 from speech_diarization_tpu_torch.pipelines.chunking import chunked_framewise
 from speech_diarization_tpu_torch.pipelines.corpus import corpus_diarize
 from speech_diarization_tpu_torch.pipelines.diarize import DiarizationPipeline
+from speech_diarization_tpu_torch.pipelines.enhance import make_enhance_fn
 from speech_diarization_tpu_torch.train.heldout import make_conversation_heldout
 from speech_diarization_tpu_torch.train.synthetic import make_conversation
 
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 # the module, not the ``logging`` package's name the port re-exports
 lg = importlib.import_module("speech_diarization_tpu_torch.utils.logging")
 
@@ -37,6 +45,8 @@ SR = 16000
 WEIGHTS = Path(__file__).resolve().parents[1] / "weights"
 TAIL = ("vad-post", "scd", "segment-embeddings", "cluster", "merge",
         "reassign", "overlap-rescue")
+DEMIX_NET = dict(channels=8, depth=4, nfft=512, bottom_channels=16, t_layers=2,
+                 t_heads=2)
 
 
 @pytest.fixture(scope="module")
@@ -274,3 +284,105 @@ def test_spans_lie_on_the_profilers_clock():
     assert sp.start_ns - 1_000_000 <= start <= end <= sp.end_ns + 1_000_000
     assert end - start > 0
     assert "a-stage" in events
+
+
+# -------------------------------------------------- demix-dialog front-end --
+DEMIX_TREE = {
+    ("demix.download", "enhance"), ("demix.resample-in", "enhance"),
+    ("demix.upload", "enhance"), ("demix.separate", "enhance"),
+    ("demix.encode", "demix.separate"), ("demix.transformer", "demix.separate"),
+    ("demix.decode", "demix.separate"), ("demix.ola", "enhance"),
+    ("demix.fetch", "enhance"), ("demix.resample-out", "enhance"),
+    ("demix.return", "enhance")}
+
+
+def _demix_fn():
+    nets = [seeded_init(HTDemucsRef(**DEMIX_NET), s) for s in (0, 1)]
+    return make_enhance_fn("demix-dialog", device="cpu", nets=nets, chunk_s=4.0)
+
+
+@pytest.fixture(scope="module")
+def demix_recorded(waves):
+    """The noisy draw through the demix-dialog front-end, whole-file route,
+    under a recorder: -> (recorder, its spans of the demixer, result)."""
+    cfg = port.config_from_dict({"enhance": {"backend": "demix-dialog"}})
+    p = DiarizationPipeline(cfg, encoder=load_speaker_encoder(WEIGHTS / "ecapa_robust_stream.npz"),
+                            vad=load_vad(WEIGHTS / "vad_conv_mc.npz"), enhance_fn=_demix_fn(),
+                            device="cpu")
+    p._PAD_BUCKET_S = 10.0
+    with lg.recording() as rec:
+        res = p(waves[1])
+    return rec, [s for s in rec.spans if s.name.startswith("demix.")], res
+
+
+def test_demix_span_tree_and_counters(demix_recorded):
+    rec, spans, res = demix_recorded
+    assert res.diagnostics["route"] == "legacy"
+    assert res.diagnostics["enhancer"] == "demix-dialog"
+    assert _tree(spans, rec) == DEMIX_TREE
+    by = {}
+    for s in spans:
+        by.setdefault(s.name, []).append(s)
+    # 10 s padded to its 10 s bucket: 441,000 samples at 44.1 kHz, 4 s
+    # chunks every 3 s: 3 chunks, one batch a net
+    t44 = 441000
+    assert [s.counts for s in by["demix.download"]] == [{"d2h_bytes": 10 * SR * 4}]
+    assert [s.counts for s in by["demix.resample-in"]] == [{"samples": t44}]
+    # the stereo wave up; the dialog stem at 16 kHz back under its own name
+    assert [s.counts for s in by["demix.upload"]] == [{"h2d_bytes": 2 * t44 * 4}]
+    assert [s.counts for s in by["demix.return"]] == [{"h2d_bytes": 10 * SR * 4}]
+    assert [s.counts for s in by["demix.separate"]] == [
+        {"nets": 2, "chunks": 3, "batches": 2}]
+    assert [s.counts for s in by["demix.fetch"]] == [{"d2h_bytes": t44 * 4}]
+    # per net and batch: encode, transformer, decode
+    assert [s.name for s in spans if s.parent == by["demix.separate"][0].id] == [
+        "demix.encode", "demix.transformer", "demix.decode"] * 2
+    # 3 chunks of 176,400 samples: 1,379 spectral frames of one bin, and
+    # 690 time steps, a chunk
+    assert {tuple(sorted(s.counts.items())) for s in by["demix.transformer"]} == {
+        (("spec_tokens", 3 * 1379), ("time_tokens", 3 * 690))}
+    assert by["demix.ola"][0].counts is None and by["demix.resample-out"][0].counts is None
+    (fid,) = {s.file for s in spans}
+    assert fid is not None
+
+
+def test_demix_waits_count_as_host_syncs(demix_recorded):
+    """The copies each way are waits that no wait holds (a copy from
+    pageable memory waits for the stream too): the rule of
+    ``host_syncs_per_file`` counts each once a file."""
+    from perfbench.metrics import _program_spans
+
+    rec, spans, _ = demix_recorded
+    ctx = SimpleNamespace(program_spans=rec)
+    waits = _program_spans.outer_waits(ctx, rec.spans)
+    copies = ["demix.download", "demix.upload", "demix.fetch", "demix.return"]
+    assert [s.name for s in waits if s.name.startswith("demix.")] == copies
+    assert all(s.wait == (s.name in copies) for s in spans)
+
+
+def test_demix_host_reader_reads_the_resampling_alone(demix_recorded):
+    """``demix_host_ms_per_min`` sums the two resampling spans' walls and
+    none of the copies, which are waits on the separation."""
+    from perfbench.metrics import demix_host_ms_per_min as reader
+
+    rec, spans, _ = demix_recorded
+    first = min(s.start_ns for s in rec.spans)
+    last = max(s.end_ns for s in rec.spans)
+    ctx = SimpleNamespace(program_spans=rec, t0=0.0, wall_minus_perf=first / 1e9 - 1.0,
+                          window_s=(last - first) / 1e9 + 2.0, audio_s=30.0,
+                          audio_min=lambda: 0.5)
+    walls = [s.wall_ms for s in spans if s.name in ("demix.resample-in", "demix.resample-out")]
+    assert len(walls) == 2
+    assert reader.read(ctx) == pytest.approx(sum(walls) / 0.5, rel=1e-12)
+
+
+def test_demix_without_a_recorder_makes_no_event_and_changes_no_bit(waves):
+    fn = _demix_fn()
+    y = torch.from_numpy(waves[1])
+    assert lg.RECORDER is None
+    with mock.patch.object(torch.cuda, "Event") as event:
+        off = fn(y)
+    assert event.call_count == 0
+    with lg.recording() as rec:
+        on = fn(y)
+    assert torch.equal(on, off) and rec.spans
