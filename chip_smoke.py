@@ -290,6 +290,9 @@ DER_SLACK_PCT = 1.0
 # activations to bf16, where a one-ulp difference in tanh can flip a bf16
 # rounding.
 TOL_REL = {"fused_log_mel": 1e-4, "asp_grid_stats": 2e-3}
+# the kernels of the diarizer's own path; K3 (resample_poly) runs on the
+# demix-dialog route alone
+K12 = ("asp_grid_stats", "fused_log_mel")
 # GTCRN on the card against the CPU (max abs error over the enhanced
 # waveform, relative to its peak): cuDNN's GRUs and convolutions sum in
 # another order, over ten recurrences of 626 steps on 10 s
@@ -747,7 +750,7 @@ def seeded_encoders_phase(dev, vad, bench_cfg, der_pct, wave600, truth600,
             raise AssertionError(f"{tag}: route {d.get('route')}, grid "
                                  f"{d.get('grid')} {grid.shape}")
         # the VAD's and the detector's batches, and the grid's 512 + 69 windows
-        want = {"asp_grid_stats": 0, "fused_log_mel": 4}
+        want = {"asp_grid_stats": 0, "fused_log_mel": 4, "resample_poly": 0}
         if n_launch != want or n_forms != {"fused_log_mel[B, T]": 4} or (
                 n_shapes.get(k2_w80) != 2):
             raise AssertionError(f"{tag}: launch counts {n_launch} {n_forms} {n_shapes}")
@@ -873,6 +876,198 @@ def graph_flops(net, *inputs) -> float:
         frames = 1 + t // net.hop
         total[0] += 2 * (2.0 * b * frames * net.n_fft * 2 * net.n_bins)
     return total[0]
+
+
+# K3 on the card against scipy's float64 resampling: at most one float32
+# ulp apart (both sum float64 products, in other orders, and round once)
+K3_MAX_ULPS = 1
+# K3 against its bound (bytes or float64 FMAs, the larger) at the
+# htdemucs.babble cell's shapes
+K3_MAX_OVER_BOUND = 10.0
+
+
+def _f32_ulps(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """Distance of two float32 arrays in units in the last place."""
+    def ordered(x):
+        i = np.ascontiguousarray(x, np.float32).view(np.int32).astype(np.int64)
+        return np.where(i < 0, -(i & 0x7FFFFFFF), i)
+
+    return np.abs(ordered(a) - ordered(b))
+
+
+def _zero_stuffed_resample(y, up: int, down: int):
+    """The port's former device resampling, kept here only as the yardstick
+    (``library_ms``): the wave zero-stuffed by ``up``, padded so that the
+    filter's centre tap sits on the first sample, and correlated with the
+    reversed filter at stride ``down`` by one float32 ``conv1d``."""
+    import torch
+    import torch.nn.functional as F
+
+    from speech_diarization_tpu_torch.dsp.resample import _poly_filter
+
+    h = torch.from_numpy(_poly_filter(up, down)[::-1].astype(np.float32)).to(y.device)
+    t = y.shape[-1]
+    n_out = -(-t * up // down)
+    stuffed = y.new_zeros((1, (t - 1) * up + 1))
+    stuffed[0, ::up] = y
+    lo = (h.numel() - 1) // 2
+    hi = max(0, (n_out - 1) * down + h.numel() - lo - stuffed.shape[1])
+    return F.conv1d(F.pad(stuffed, (lo, hi))[:, None], h[None, None],
+                    stride=down)[0, 0, :n_out]
+
+
+def resample_phase(dev) -> dict:
+    """K3 (``csrc/resample_poly.cu``) at the htdemucs.babble cell's shapes:
+    a 117 s babble draw padded to 120 s with zeros (as ``_load_waves``
+    pads to whole minutes) and a 300 s draw, each from 16 to 44.1 kHz, and
+    their 44.1 kHz resampled waves (the mono dialog stem's shape) back.
+    Each against scipy (``resample_host``, the plain version, timed on the
+    host): every sample within ``K3_MAX_ULPS``; its time (CUDA events)
+    within ``K3_MAX_OVER_BOUND`` of its bound; the former zero-stuffed
+    ``conv1d``'s time and peak memory at 120 s as the yardstick.  The
+    wrapper makes no host sync.  Then the demix-dialog enhancer (a small
+    seeded HTDemucs ensemble of two) on a 20 s and a 35 s file under a span
+    recorder: K3 launched twice a file (once each way, by ``up`` / ``down``),
+    the resampling spans timed on the card's clock, no demix span a wait and
+    none a copy, and its output against the same enhancer on the CPU
+    (scipy's resampling) within ``DEMIX_TOL_REL``."""
+    import copy
+
+    import torch
+
+    from speech_diarization_tpu_torch.dsp.resample import resample_host, resample_poly
+    from speech_diarization_tpu_torch.models.demucs_ref import HTDemucsRef
+    from speech_diarization_tpu_torch.models.registry import seeded_init
+    from speech_diarization_tpu_torch.ops import kernels
+    from speech_diarization_tpu_torch.ops.cost import resample_poly_work
+    from speech_diarization_tpu_torch.pipelines.enhance import make_enhance_fn
+    from speech_diarization_tpu_torch.train.heldout import make_conversation_heldout
+    from speech_diarization_tpu_torch.utils.logging import file_scope, recording
+
+    t_phase = time.perf_counter()
+    w117, _ = make_conversation_heldout(np.random.default_rng(24), 117.0, n_speakers=3,
+                                        sr=SR, snr_db=10.0, noise_kind="babble")
+    w300, _ = make_conversation_heldout(np.random.default_rng(25), 300.0, n_speakers=3,
+                                        sr=SR, snr_db=10.0, noise_kind="babble")
+    waves = {"120s": np.pad(np.clip(w117, -1, 1), (0, 120 * SR - len(w117))),
+             "300s": np.clip(w300, -1, 1)}
+    out = {"name": "resample_poly", "route": "cuda",
+           "source": "speech_diarization_tpu_torch/csrc/resample_poly.cu",
+           "replaces": "none (JAX: speech_diarization_tpu/dsp/resample.py::resample_poly_jax)",
+           "ms": {}, "plain_ms": {}, "bound_ms": {}, "bound_by": {}, "library_ms": {},
+           "library_peak_gb": {}, "max_ulps": {}, "max_abs_err": 0.0}
+    failed = []
+    for tag, w in waves.items():
+        w = w.astype(np.float32)
+        t0 = time.perf_counter()
+        up_ref = resample_host(w, SR, 44100)
+        up_host_ms = 1e3 * (time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        down_ref = resample_host(up_ref, 44100, SR)
+        down_host_ms = 1e3 * (time.perf_counter() - t0)
+        for leg, x, ref, sr_in, sr_out, host_ms in (
+                ("up", w, up_ref, SR, 44100, up_host_ms),
+                ("down", up_ref, down_ref, 44100, SR, down_host_ms)):
+            key = f"{leg} {tag}"
+            xd = torch.from_numpy(x).to(dev)
+            got = resample_poly(xd, sr_in, sr_out).cpu().numpy()
+            ulps = int(_f32_ulps(got, ref).max()) if got.shape == ref.shape else -1
+            err = float(np.abs(got - ref).max()) if got.shape == ref.shape else float("inf")
+            ms = cuda_time_ms(lambda: resample_poly(xd, sr_in, sr_out), 20)
+            up, down = (441, 160) if leg == "up" else (160, 441)
+            work = resample_poly_work(1, x.size, ref.size, up, down)
+            b_ms, b_by = bound(work["bytes"], work["ops"])
+            out["ms"][key], out["plain_ms"][key] = ms, host_ms
+            out["bound_ms"][key], out["bound_by"][key] = b_ms, b_by
+            out["max_ulps"][key] = ulps
+            out["max_abs_err"] = max(out["max_abs_err"], err)
+            log(f"[3r] K3 {key} ({x.size} -> {ref.size} samples, peak "
+                f"{np.abs(ref).max():.3f}): max {ulps} ulp, max abs err {err:.3e} "
+                f"from scipy; {ms:.4f} ms on the card, bound {b_ms:.4f} ms "
+                f"({b_by}; {ms / b_ms:.2f}x), scipy on the host {host_ms:.1f} ms")
+            if not 0 <= ulps <= K3_MAX_ULPS:
+                failed.append(f"{key}: {ulps} ulp from scipy (shape {got.shape})")
+            if not ms <= K3_MAX_OVER_BOUND * b_ms:
+                failed.append(f"{key}: {ms:.4f} ms, over {K3_MAX_OVER_BOUND}x the "
+                              f"bound {b_ms:.4f} ms")
+            if tag == "120s":
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                try:
+                    lib_ms = cuda_time_ms(lambda: _zero_stuffed_resample(xd, up, down), 3)
+                    lib_peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+                    lib_err = float(np.abs(
+                        _zero_stuffed_resample(xd, up, down).cpu().numpy() - ref).max())
+                    out["library_ms"][key], out["library_peak_gb"][key] = lib_ms, lib_peak
+                    log(f"[3r] zero-stuffed conv1d {key} (the yardstick, off the "
+                        f"path): {lib_ms:.3f} ms, {lib_peak:.2f} GB above the "
+                        f"resident set, max abs err {lib_err:.3e} from scipy")
+                except RuntimeError as e:
+                    out["library_ms"][key] = None
+                    log(f"[3r] zero-stuffed conv1d {key}: not measured ({e})")
+                torch.cuda.empty_cache()
+            del xd
+    # the wrapper, its bank cached, never waits on the card
+    y = torch.from_numpy(waves["120s"].astype(np.float32)).to(dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        resample_poly(resample_poly(y, SR, 44100), 44100, SR)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    # the demix-dialog enhancer: two launches a file, nothing waits
+    small = dict(channels=8, depth=4, nfft=512, bottom_channels=16, t_layers=2,
+                 t_heads=2)
+    nets = [seeded_init(HTDemucsRef(**small), s).eval() for s in (0, 1)]
+    card_fn = make_enhance_fn("demix-dialog", device=dev,
+                              nets=[copy.deepcopy(n) for n in nets], chunk_s=4.0)
+    cpu_fn = make_enhance_fn("demix-dialog", device="cpu", nets=nets, chunk_s=4.0)
+    files = [w117[:20 * SR].astype(np.float32), w300[:35 * SR].astype(np.float32)]
+    card_fn(torch.from_numpy(files[0]).to(dev))     # the bank and the nets warm
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    with recording() as rec, torch.inference_mode():
+        outs = []
+        for i, f in enumerate(files):
+            with file_scope(i):
+                outs.append(card_fn(torch.from_numpy(f).to(dev)))
+        torch.cuda.synchronize()
+        rec.resolve()
+    launches, shapes = dict(kernels.LAUNCHES), dict(kernels.LAUNCH_SHAPES)
+    spans = [sp for sp in rec.spans if sp.name.startswith("demix.")]
+    rs = [sp for sp in spans if sp.name.startswith("demix.resample")]
+    diffs = []
+    with torch.inference_mode():
+        for f, o in zip(files, outs):
+            ref = cpu_fn(torch.from_numpy(f)).numpy()
+            diffs.append(float(np.abs(o.cpu().numpy() - ref).max() / np.abs(ref).max()))
+    out["launches_demix_file"] = launches["resample_poly"] / len(files)
+    out["demix_resample_device_ms"] = [round(sp.device_ms, 4) for sp in rs
+                                       if sp.device_ms is not None]
+    log(f"[3r] demix-dialog enhancer on 20 s and 35 s: K3 launches {launches} "
+        f"{ {k: v for k, v in shapes.items() if k.startswith('resample_poly')} }; "
+        f"resampling spans on the card's clock "
+        f"{[(sp.name, sp.device_ms and round(sp.device_ms, 4), round(sp.wall_ms, 4)) for sp in rs]} "
+        f"(device ms, host ms); demix spans {sorted({sp.name for sp in spans})}; "
+        f"card vs CPU max rel err {[f'{d:.2e}' for d in diffs]} (bar {DEMIX_TOL_REL:.0e})")
+    if launches["resample_poly"] != 2 * len(files) or {
+            k: v for k, v in shapes.items() if k.startswith("resample_poly")} != {
+            "resample_poly up 441 down 160": len(files),
+            "resample_poly up 160 down 441": len(files)}:
+        failed.append(f"demix-dialog: K3 launches {launches} {shapes}")
+    if len(rs) != 2 * len(files) or any(sp.device_ms is None for sp in rs):
+        failed.append("demix-dialog: a resampling span is not on the card's clock")
+    if any(sp.wait for sp in spans) or {"demix.download", "demix.upload", "demix.fetch",
+                                         "demix.return"} & {sp.name for sp in spans}:
+        failed.append("demix-dialog: the front-end copies or waits")
+    if not max(diffs) <= DEMIX_TOL_REL:
+        failed.append(f"demix-dialog: card vs CPU {max(diffs):.3e}")
+    out["wall"] = time.perf_counter() - t_phase
+    log(f"[3r] K3 phase took {out['wall']:.1f} s")
+    if failed:
+        raise AssertionError("[3r] " + "; ".join(failed))
+    return out
 
 
 def published_graphs_phase(dev, enc, vad, bench_cfg, noisy_route, noisy600, y10) -> dict:
@@ -1533,7 +1728,7 @@ def call_forms_step(dev, wave, enc_dev, enc_cpu, vad_dev, vad_cpu) -> dict:
         raise AssertionError(f"[7g] K2 at {k2_key} disagrees with its plain version")
     if not all(d <= bar for d, bar in diffs.values()) or not cos > CALL_FORM_GRID_COS:
         raise AssertionError("[7g] a call form on the card disagrees with the CPU")
-    if m["launches"] != want_k2 or not all(out["launches"].values()):
+    if m["launches"] != want_k2 or not all(out["launches"][k] for k in K12):
         raise AssertionError(f"[7g] launches {out['launches']} {out['shapes']}: "
                              f"want {want_k2} of {k2_key} and K1")
     return out
@@ -1589,7 +1784,7 @@ def surface_phase(dev, enc) -> dict:
         out["launches_by_run"][tag] = dict(kernels.LAUNCHES)
         for k, v in kernels.LAUNCHES.items():
             out["launches"][k] += v
-        if not all(kernels.LAUNCHES.values()):
+        if not all(kernels.LAUNCHES[k] for k in K12):
             raise AssertionError(f"[7] {tag}: a kernel was not launched: "
                                  f"{kernels.LAUNCHES}")
         return res
@@ -2069,7 +2264,7 @@ def parallel_phase(dev, smi, enc, vad, bench_cfg, der_pct, cards=None) -> dict:
     log(f"[8] parallel phase took {out['wall']:.1f} s; launches {out['launches']}")
     if failed:
         raise AssertionError("[8] " + "; ".join(failed))
-    if not all(out["launches"].values()):
+    if not all(out["launches"][k] for k in K12):
         raise AssertionError(f"[8] a kernel was not launched: {out['launches']}")
     return out
 
@@ -2211,7 +2406,7 @@ def tools_phase(dev) -> dict:
         f"by shape {out['shapes']}")
     if failed:
         raise AssertionError("[9] " + "; ".join(failed))
-    if not all(out["launches"].values()):
+    if not all(out["launches"][k] for k in K12):
         raise AssertionError(f"[9] a kernel was not launched: {out['launches']}")
     return out
 
@@ -2565,6 +2760,8 @@ def main() -> int:
     log(f"[3] host resampling of the 600 s file: 16 -> 44.1 kHz {up_s:.3f} s, "
         f"44.1 -> 16 kHz {down_s:.3f} s")
     del x80, up600
+    # K3, the demix-dialog front-end's resampling on the card
+    rows.append(resample_phase(dev))
 
     # ---------------------------------------------------------- phase 4 ----
     def bench_cfg(overlap: bool, **kw):
@@ -2611,7 +2808,8 @@ def main() -> int:
                 raise AssertionError(f"bad shapes {probs.shape} {grid.shape}")
             n_chunks = dur // 60
             want = {"asp_grid_stats": n_chunks,
-                    "fused_log_mel": (2 if overlap else 1) * n_chunks}
+                    "fused_log_mel": (2 if overlap else 1) * n_chunks,
+                    "resample_poly": 0}
             want_forms = {"fused_log_mel[T]": n_chunks}
             if overlap:
                 want_forms["fused_log_mel[B, T]"] = n_chunks
@@ -2703,8 +2901,13 @@ def main() -> int:
         n_v = 1 if t <= 240000 else -(-(t - 240000) // 224000) + 1
         n_w = num_frames(t, 32000, 1600)
         n_g = -(-n_w // min(600, 1 << max(6, (n_w - 1).bit_length())))
-        want = {"asp_grid_stats": n_g, "fused_log_mel": -(-n_v // 64) + n_g}
+        # K3 twice a demixed file: 16 -> 44.1 kHz and the stem back
+        n_k3 = 2 if backend == "demix-dialog" else 0
+        want = {"asp_grid_stats": n_g, "fused_log_mel": -(-n_v // 64) + n_g,
+                "resample_poly": n_k3}
         want_forms = {"fused_log_mel[B, T]": -(-n_v // 64), "fused_log_mel[T]": n_g}
+        if n_k3:
+            want_forms["resample_poly[T]"] = n_k3
         log(f"[{phase}] {backend}, {noise}{snr:g}, {dur} s: route {d.get('route')}, "
             f"enhancer {d.get('enhancer')}, est SNR "
             f"{d.get('snr_db', float('nan')):.2f} dB, floor HF "
@@ -2775,7 +2978,7 @@ def main() -> int:
         # tag: (encoder, VAD, method, grid backend, route, grid, launches,
         #       launch forms, launches of the shapes read below)
         "full_stream": (encs["full_stream"], vad, "spectral", "auto", "streamed",
-                        None, {"asp_grid_stats": 1, "fused_log_mel": 3},
+                        None, {"asp_grid_stats": 1, "fused_log_mel": 3, "resample_poly": 0},
                         {"fused_log_mel[T]": 2, "fused_log_mel[B, T]": 1},
                         {k1_a128: 1, k2_t80: 1, k2_t40: 1}),
         # the windowed grid: one batch launch for the VAD's 15 s chunks
@@ -2784,23 +2987,23 @@ def main() -> int:
         # detector's 23 windows
         "full_stream_windowed": (encs["full_stream"], vad, "spectral",
                                  "windowed", "legacy", "windowed",
-                                 {"asp_grid_stats": 0, "fused_log_mel": 4},
+                                 {"asp_grid_stats": 0, "fused_log_mel": 4, "resample_poly": 0},
                                  {"fused_log_mel[B, T]": 4}, {k2_w80: 2}),
         "proto_small": (encs["proto_small"], vad, "spectral", "auto", "streamed",
-                        None, {"asp_grid_stats": 1, "fused_log_mel": 2},
+                        None, {"asp_grid_stats": 1, "fused_log_mel": 2, "resample_poly": 0},
                         {"fused_log_mel[T]": 1, "fused_log_mel[B, T]": 1},
                         {k1_a64_384: 1, k2_t40: 1}),
         "windowed_gru": (encs["windowed"], gru, "spectral", "auto", "legacy",
-                         "windowed", {"asp_grid_stats": 0, "fused_log_mel": 4},
+                         "windowed", {"asp_grid_stats": 0, "fused_log_mel": 4, "resample_poly": 0},
                          {"fused_log_mel[B, T]": 4}, {k2_w40: 2}),
         "windowed_energy": (encs["windowed"], None, "spectral", "auto", "legacy",
-                            "windowed", {"asp_grid_stats": 0, "fused_log_mel": 3},
+                            "windowed", {"asp_grid_stats": 0, "fused_log_mel": 3, "resample_poly": 0},
                             {"fused_log_mel[B, T]": 3}, {k2_w40: 2}),
         "ahc": (enc, vad, "ahc", "auto", "streamed", None,
-                {"asp_grid_stats": 1, "fused_log_mel": 2},
+                {"asp_grid_stats": 1, "fused_log_mel": 2, "resample_poly": 0},
                 {"fused_log_mel[T]": 1, "fused_log_mel[B, T]": 1}, {}),
         "hdbscan": (enc, vad, "hdbscan", "auto", "streamed", None,
-                    {"asp_grid_stats": 1, "fused_log_mel": 2},
+                    {"asp_grid_stats": 1, "fused_log_mel": 2, "resample_poly": 0},
                     {"fused_log_mel[T]": 1, "fused_log_mel[B, T]": 1}, {}),
     }
     opt_launches, opt_shapes = {}, {}
@@ -2866,7 +3069,7 @@ def main() -> int:
     log(f"[4e] windowed_energy, 600 s: warm {warm:.3f} s, timed {wall:.4f} s; "
         f"DER {der_pct(truth600, res.segments):.4f} % (no JAX bar); launches "
         f"{n_launch} {n_shapes}")
-    if n_launch != {"asp_grid_stats": 0, "fused_log_mel": 22} or (
+    if n_launch != {"asp_grid_stats": 0, "fused_log_mel": 22, "resample_poly": 0} or (
             n_shapes.get(k2_w40) != 12):
         raise AssertionError(f"windowed 600 s: launch counts {n_launch} {n_shapes}")
     opt_launches["windowed_600"], opt_shapes["windowed_600"] = n_launch, n_shapes
@@ -2968,7 +3171,8 @@ def main() -> int:
         jax_der = JAX_CPU_DER_PCT_ENGINE[f"{net}_{tag}"]
         dur = len(wave) / SR
         n_w = num_frames(len(wave), 16000, 1600, pad_tail=True)
-        want = {"asp_grid_stats": 0, "fused_log_mel": 1 + -(-n_w // 512)}
+        want = {"asp_grid_stats": 0, "fused_log_mel": 1 + -(-n_w // 512),
+                "resample_poly": 0}
         want_shapes = {k2_chunks: 1, k2_grid1: -(-n_w // 512)}
         engine[net, tag] = {"wall": min(walls), "der": der, "peak_gb": peak_gb,
                             "launches": n_launch, "shapes": n_shapes}

@@ -24,8 +24,8 @@ waveform: GTCRN by module (CUDA events around each encoder block, DPGRNN
 and decoder block, and around each of its GRUs apart) and the STFT / iSTFT
 around the net; ZipEnhancer split into its linears, the attention proper
 (the attention modules less their linears and norms) and the rest, with
-peak device memory, by batch of 64 windows; the demixer as host
-resampling each way and the separator's host wall and device time.
+peak device memory, by batch of 64 windows; the demixer as K3's
+resampling each way and the separator, each on the card's clock.
 
 ``--engine`` profiles the segmentation engine instead, at its defaults
 (``segmentation_conv.npz``, the bf16 encoder, spectral clustering) on the
@@ -314,35 +314,33 @@ def zipenhancer_by_part(y) -> dict:
 
 def demix_by_part(y) -> dict:
     """The demix-dialog enhancer's legs on ``y`` (the pipeline's default
-    demixer): host resampling each way, and the separator's host wall and
-    its span on the card's clock (events around it: the upload, the
-    separator and the dialog stem's copy back)."""
-    import numpy as np
+    demixer), each on the card's clock (events between them): K3 from 16 to
+    44.1 kHz, the separator, and the dialog stem's mean with K3 back; and
+    the host wall of the three."""
     import torch
 
-    from speech_diarization_tpu_torch.dsp.resample import resample_host
+    from speech_diarization_tpu_torch.dsp.resample import resample_poly
     from speech_diarization_tpu_torch.pipelines.demix import EnsembleDemixer
 
     dmx = EnsembleDemixer()
-    yn = y.cpu().numpy()
-    dmx.separate(np.zeros((2, 44100 * 25), np.float32), 44100)     # warm-up
-    t0 = time.perf_counter()
-    up = resample_host(yn, SR, 44100)
-    up_s = time.perf_counter() - t0
+    y = y.to(dmx.device, torch.float32).contiguous()
+    dmx.separate_on_device(torch.zeros((2, 44100 * 25), device=dmx.device), 44100)
+    resample_poly(resample_poly(y, SR, 44100), 44100, SR)           # warm-up
     torch.cuda.synchronize()
-    e0 = torch.cuda.Event(enable_timing=True)
-    e1 = torch.cuda.Event(enable_timing=True)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
     t0 = time.perf_counter()
-    e0.record()
-    dialog = dmx.separate_on_device(np.stack([up, up]), 44100)[2].mean(dim=0).cpu()
-    e1.record()
+    ev[0].record()
+    up = resample_poly(y, SR, 44100)
+    ev[1].record()
+    stems = dmx.separate_on_device(up.expand(2, -1), 44100)
+    ev[2].record()
+    resample_poly(stems[2].mean(dim=0), 44100, SR)
+    ev[3].record()
     torch.cuda.synchronize()
-    sep_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    resample_host(dialog.numpy(), 44100, SR)
-    down_s = time.perf_counter() - t0
-    return {"resample_up_s": up_s, "separate_wall_s": sep_s,
-            "separate_span_ms": e0.elapsed_time(e1), "resample_down_s": down_s,
+    wall = time.perf_counter() - t0
+    return {"resample_up_ms": ev[0].elapsed_time(ev[1]),
+            "separate_span_ms": ev[1].elapsed_time(ev[2]),
+            "resample_down_ms": ev[2].elapsed_time(ev[3]), "wall_s": wall,
             "samples_44k": int(up.shape[-1])}
 
 

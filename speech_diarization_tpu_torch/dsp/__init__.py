@@ -1,7 +1,7 @@
 """The DSP front end on the tensor's device: framing, preprocessing,
-STFT / iSTFT, log-mel (kernel K2 and its plain version), resampling,
-loudness and overlap-add.  The kernel is built at its first launch, never
-at import."""
+STFT / iSTFT, log-mel (kernel K2 and its plain version), resampling
+(kernel K3 and scipy's host version), loudness and overlap-add.  Each
+kernel is built at its first launch, never at import."""
 from .framing import frame_signal, num_frames
 from .loudness import integrated_loudness, loudness_normalize
 from .mel import fbank_batch, log_mel_spectrogram, mel_filterbank

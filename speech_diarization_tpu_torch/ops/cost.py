@@ -1,4 +1,4 @@
-"""The card's peaks and the analytic work of the two kernels.
+"""The card's peaks and the analytic work of the kernels.
 
 The kernels are launched through ``ctypes`` (``ops/kernels.py``), so no
 PyTorch counter sees their products.  :func:`asp_grid_work` and
@@ -26,7 +26,8 @@ import numpy as np
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit): HBM
 # bytes/s and rates by operation type
 PEAK_BYTES_S = 3.35e12
-PEAK_FLOPS = {"bf16_tensor": 989e12, "tf32_tensor": 495e12, "f32": 67e12}
+PEAK_FLOPS = {"bf16_tensor": 989e12, "tf32_tensor": 495e12, "f32": 67e12,
+              "f64": 33.5e12}
 
 
 def bound(bytes_moved: float, ops: dict[str, float]) -> tuple[float, str]:
@@ -84,3 +85,15 @@ def fused_log_mel_work(n_frames: int, n_mels: int, n_samples: int,
     f32 = n_frames * (2 * (n_fft // 2 - 1) + 3 * n_bins + 2 * fb_nnz + 2 * n_mels)
     return {"flops": products, "bytes": nbytes,
             "ops": {"tf32_tensor": 3 * dft, "f32": f32}}
+
+
+def resample_poly_work(n_ch: int, n_in: int, n_out: int, up: int, down: int) -> dict:
+    """K3 resampling ``n_ch`` rows of ``n_in`` samples to ``n_out`` by
+    ``up / down``: every output sums, in float64, the taps of scipy's
+    ``2 * 10 * max(up, down) + 1``-tap filter that fall on input samples
+    (about ``len(h) / up`` of them; the zero extension at either end adds
+    none), two operations a tap."""
+    n_taps = 20 * max(up, down) + 1
+    products = 2 * n_ch * n_out * n_taps // up
+    nbytes = 4 * n_ch * (n_in + n_out) + 8 * up * -(-n_taps // up)
+    return {"flops": products, "bytes": nbytes, "ops": {"f64": products}}

@@ -19,8 +19,8 @@ counts the same launches by the form of the call where a wrapper names one
 (the log-mel's ``[T]`` and ``[B, T]`` entries), and ``LAUNCH_SHAPES`` by
 the geometry the wrapper names at the point of launch (the log-mel's row
 length, row stride and mel count, K1's padded attention width and
-channels), which
-tells apart the callers that share one form.  The counters are bumped
+channels, K3's ``up`` and ``down``), which tells apart the callers that
+share one form.  The counters are bumped
 under a lock: the shards of a mesh step launch from threads.
 """
 from __future__ import annotations
@@ -54,6 +54,10 @@ KERNELS = {
                       # stream
                       [_P, _I, _L, _I, _P, _I, _P, _P, _I, _I, _I, _I, _F, _P,
                        _I, _P]),
+    "resample_poly": ("resample_poly.cu", "sdt_resample_poly",
+                      # x, n_ch, t, bank, up, down, n_taps, half, out, n_out,
+                      # stream
+                      [_P, _I, _L, _P, _I, _I, _I, _I, _P, _L, _P]),
 }
 
 LAUNCHES: dict[str, int] = {name: 0 for name in KERNELS}

@@ -5,8 +5,9 @@ weight sets, overlapped 10 s chunks merged by a windowed overlap-add, and a
 batch walk that writes ``<out>/<stem>/<file>.wav`` trees.
 
 The chunks, the separator and the overlap-add of all six stem channels run
-on the nets' device; the waveform is copied there once and the stems (or
-the one stem a caller needs) back once.  The separator is an ensemble of
+on the nets' device; the waveform is copied there once (a tensor already
+there, as the demix-dialog enhancer's, not at all) and the stems (or the
+one stem a caller needs) back once.  The separator is an ensemble of
 HTDemucs ``.th`` checkpoints (``SDTPU_DEMUCS_CKPTS``, ``:``-separated, or
 ``weights/*.th``) when any exists, as in the JAX package, else the shipped
 U-Net.
@@ -106,17 +107,23 @@ class EnsembleDemixer:
         spread evenly below ``max_shift_s``, re-aligned and averaged."""
         return self.separate_on_device(wav, sample_rate).cpu().numpy()
 
-    def separate_on_device(self, wav: np.ndarray, sample_rate: int) -> torch.Tensor:
+    def separate_on_device(self, wav: np.ndarray | torch.Tensor,
+                           sample_rate: int) -> torch.Tensor:
         """:meth:`separate`, its stems left on the nets' device (a caller
-        that needs one stem copies only that one)."""
+        that needs one stem copies only that one).  ``wav`` may also be a
+        ``[2, T]`` float32 tensor: on the nets' device it is used in place,
+        with no copy and no wait."""
         if wav.ndim != 2 or wav.shape[0] != 2:
-            raise ValueError(f"input must be [2, T] stereo, got {wav.shape}")
+            raise ValueError(f"input must be [2, T] stereo, got {tuple(wav.shape)}")
         if sample_rate != DEMIX_SR:
             raise ValueError(f"sample rate must be {DEMIX_SR}, got {sample_rate}")
-        # a copy from pageable memory: the host waits for the stream
-        with stage_timer(log, "demix.upload", wait=True):
-            x = torch.from_numpy(np.ascontiguousarray(wav, np.float32)).to(self.device)
-            count("h2d_bytes", x.numel() * 4)
+        if isinstance(wav, torch.Tensor):
+            x = wav.to(self.device, torch.float32)
+        else:
+            # a copy from pageable memory: the host waits for the stream
+            with stage_timer(log, "demix.upload", wait=True):
+                x = torch.from_numpy(np.ascontiguousarray(wav, np.float32)).to(self.device)
+                count("h2d_bytes", x.numel() * 4)
         with torch.inference_mode():
             if self.shifts == 1:
                 return self._separate_once(x, sample_rate)

@@ -23,7 +23,6 @@ from __future__ import annotations
 
 from collections.abc import Mapping
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -187,13 +186,12 @@ def make_enhance_fn(backend: str, weights=None, device=None, nets=None, **kwargs
     (demix-dialog).  ``nets`` (demix-dialog only): the separators of the
     ensemble as modules, in place of ``weights`` or the checkpoints on disk.
 
-    The demix-dialog enhancer's stages are spans under the caller's:
-    ``demix.download`` and ``demix.fetch`` (waits, ``d2h_bytes``),
-    ``demix.resample-in`` (``samples``) and ``demix.resample-out`` on the
-    host, the ensemble's ``demix.upload`` (a wait, ``h2d_bytes``),
+    The demix-dialog enhancer's stages are spans under the caller's, all
+    on the card's clock (``device=True``) for a wave on the card, none a
+    wait: ``demix.resample-in`` (``samples``), K3 from 16 to 44.1 kHz,
     ``demix.separate`` and ``demix.ola`` (:class:`~.demix.EnsembleDemixer`),
-    and ``demix.return`` (a wait, ``h2d_bytes``), the dialog stem's copy
-    back to the device."""
+    and ``demix.resample-out``, the dialog stem's channel mean and K3 back
+    to 16 kHz.  The wave stays on the enhancer's device throughout."""
     if backend not in ("gtcrn", "zipenhancer", "zipenhancer-ref", "demix-dialog"):
         raise ValueError(f"unknown enhancement backend: {backend}")
     if nets is not None and weights is not None:
@@ -218,7 +216,7 @@ def make_enhance_fn(backend: str, weights=None, device=None, nets=None, **kwargs
         return zip_fn
     # demix-dialog: the default demixer is the ensemble's own choice
     # (ported .th checkpoints, then demix_mc.npz, then demix_synthetic.npz)
-    from ..dsp.resample import resample_host
+    from ..dsp.resample import resample_poly
     from .demix import DEMIX_SR, EnsembleDemixer
 
     if weights is not None:
@@ -227,22 +225,15 @@ def make_enhance_fn(backend: str, weights=None, device=None, nets=None, **kwargs
     sr = 16000
 
     def demix_fn(y: torch.Tensor) -> torch.Tensor:
-        with stage_timer(log, "demix.download", wait=True):
-            yn = y.detach().to("cpu", torch.float32).numpy()
-            count("d2h_bytes", yn.nbytes)
-        with stage_timer(log, "demix.resample-in"):
-            up = resample_host(yn, sr, DEMIX_SR)
-            stereo = np.stack([up, up])
+        y = y.detach().to(dev, torch.float32).contiguous()
+        t = y.shape[-1]
+        with stage_timer(log, "demix.resample-in", device=y.is_cuda):
+            up = resample_poly(y, sr, DEMIX_SR)
             count("samples", up.shape[-1])
-        stems = dmx.separate_on_device(stereo, DEMIX_SR)
-        with stage_timer(log, "demix.fetch", wait=True):
-            dialog = stems[2].mean(dim=0).cpu().numpy()
-            count("d2h_bytes", dialog.nbytes)
-        with stage_timer(log, "demix.resample-out"):
-            out = resample_host(dialog, DEMIX_SR, sr)
-            out = np.pad(out, (0, max(0, yn.shape[-1] - out.shape[-1])))[:yn.shape[-1]]
-        with stage_timer(log, "demix.return", wait=True):
-            count("h2d_bytes", out.nbytes)
-            return torch.from_numpy(out).to(dev)
+        # the separator takes the mono wave as two identical channels
+        stems = dmx.separate_on_device(up.expand(2, -1), DEMIX_SR)
+        with stage_timer(log, "demix.resample-out", device=y.is_cuda):
+            out = resample_poly(stems[2].mean(dim=0), DEMIX_SR, sr)
+            return F.pad(out, (0, max(0, t - out.shape[-1])))[:t]
 
     return demix_fn

@@ -87,6 +87,18 @@ def test_kernel_sources_carry_their_note(name):
     assert "Design" in head
 
 
+def test_k3_source_carries_its_note():
+    """K3 replaces no Pallas kernel: its note names its JAX counterpart,
+    why it was added, what bounds it and its design."""
+    text = (PORT / "csrc" / "resample_poly.cu").read_text()
+    head = text[:text.index("#include")]
+    assert "Replaces no Pallas kernel" in head
+    assert "dsp/resample.py::resample_poly_jax" in head
+    assert "htdemucs.babble" in head
+    assert "What bounds it on the H100: bytes" in head
+    assert "Design" in head
+
+
 def test_launch_counters_do_not_move_on_the_cpu():
     from speech_diarization_tpu_torch.dsp.mel import fused_log_mel
     from speech_diarization_tpu_torch.ops import kernels
@@ -94,7 +106,8 @@ def test_launch_counters_do_not_move_on_the_cpu():
     kernels.reset_launches()
     fused_log_mel(torch.randn(4000), n_mels=40)
     fused_log_mel(torch.randn(3, 4000), n_mels=40)
-    assert kernels.LAUNCHES == {"asp_grid_stats": 0, "fused_log_mel": 0}
+    assert kernels.LAUNCHES == {"asp_grid_stats": 0, "fused_log_mel": 0,
+                                "resample_poly": 0}
     assert kernels.LAUNCH_FORMS == {}
     assert kernels.LAUNCH_SHAPES == {}
 
@@ -117,7 +130,8 @@ def test_launch_counts_by_name_form_and_shape(monkeypatch):
     rc[0] = 1
     with pytest.raises(RuntimeError, match="failed to launch"):
         kernels.launch("fused_log_mel", form="[T]", shape="[T] 40 mels")
-    assert kernels.LAUNCHES == {"asp_grid_stats": 0, "fused_log_mel": 3}
+    assert kernels.LAUNCHES == {"asp_grid_stats": 0, "fused_log_mel": 3,
+                                "resample_poly": 0}
     assert kernels.LAUNCH_FORMS == {"fused_log_mel[T]": 2,
                                     "fused_log_mel[B, T]": 1}
     assert kernels.LAUNCH_SHAPES == {

@@ -249,7 +249,8 @@ def test_launch_runs_with_its_device_current(monkeypatch):
     kernels.launch("asp_grid_stats", device=torch.device("cuda", 3))
     kernels.launch("fused_log_mel")
     assert seen == ["cuda:1", "cuda:3", "cuda:0"] and current == ["cuda:0"]
-    assert kernels.LAUNCHES == {"asp_grid_stats": 1, "fused_log_mel": 2}
+    assert kernels.LAUNCHES == {"asp_grid_stats": 1, "fused_log_mel": 2,
+                                "resample_poly": 0}
     kernels.reset_launches()
 
 
@@ -262,7 +263,7 @@ def test_every_kernel_launch_names_its_device():
                     and node.func.attr == "launch"
                     and getattr(node.func.value, "id", None) == "kernels"):
                 calls.append((path.name, {k.arg for k in node.keywords}))
-    assert sorted(n for n, _ in calls) == ["ecapa.py", "mel.py"]
+    assert sorted(n for n, _ in calls) == ["ecapa.py", "mel.py", "resample.py"]
     assert all("device" in kw for _, kw in calls)
 
 

@@ -288,12 +288,10 @@ def test_spans_lie_on_the_profilers_clock():
 
 # -------------------------------------------------- demix-dialog front-end --
 DEMIX_TREE = {
-    ("demix.download", "enhance"), ("demix.resample-in", "enhance"),
-    ("demix.upload", "enhance"), ("demix.separate", "enhance"),
+    ("demix.resample-in", "enhance"), ("demix.separate", "enhance"),
     ("demix.encode", "demix.separate"), ("demix.transformer", "demix.separate"),
     ("demix.decode", "demix.separate"), ("demix.ola", "enhance"),
-    ("demix.fetch", "enhance"), ("demix.resample-out", "enhance"),
-    ("demix.return", "enhance")}
+    ("demix.resample-out", "enhance")}
 
 
 def _demix_fn():
@@ -310,8 +308,16 @@ def demix_recorded(waves):
                             vad=load_vad(WEIGHTS / "vad_conv_mc.npz"), enhance_fn=_demix_fn(),
                             device="cpu")
     p._PAD_BUCKET_S = 10.0
-    with lg.recording() as rec:
+    opened = {}
+    real_open = lg.SpanRecorder.open
+
+    def spy(self, name, t0, wait, device):
+        opened.setdefault(name, set()).add(device)
+        return real_open(self, name, t0, wait, device)
+
+    with lg.recording() as rec, mock.patch.object(lg.SpanRecorder, "open", spy):
         res = p(waves[1])
+    rec.opened = opened
     return rec, [s for s in rec.spans if s.name.startswith("demix.")], res
 
 
@@ -326,14 +332,11 @@ def test_demix_span_tree_and_counters(demix_recorded):
     # 10 s padded to its 10 s bucket: 441,000 samples at 44.1 kHz, 4 s
     # chunks every 3 s: 3 chunks, one batch a net
     t44 = 441000
-    assert [s.counts for s in by["demix.download"]] == [{"d2h_bytes": 10 * SR * 4}]
     assert [s.counts for s in by["demix.resample-in"]] == [{"samples": t44}]
-    # the stereo wave up; the dialog stem at 16 kHz back under its own name
-    assert [s.counts for s in by["demix.upload"]] == [{"h2d_bytes": 2 * t44 * 4}]
-    assert [s.counts for s in by["demix.return"]] == [{"h2d_bytes": 10 * SR * 4}]
+    # the wave stays on the enhancer's device: no copy either way
+    assert not {"demix.download", "demix.upload", "demix.fetch", "demix.return"} & set(by)
     assert [s.counts for s in by["demix.separate"]] == [
         {"nets": 2, "chunks": 3, "batches": 2}]
-    assert [s.counts for s in by["demix.fetch"]] == [{"d2h_bytes": t44 * 4}]
     # per net and batch: encode, transformer, decode
     assert [s.name for s in spans if s.parent == by["demix.separate"][0].id] == [
         "demix.encode", "demix.transformer", "demix.decode"] * 2
@@ -344,25 +347,48 @@ def test_demix_span_tree_and_counters(demix_recorded):
     assert by["demix.ola"][0].counts is None and by["demix.resample-out"][0].counts is None
     (fid,) = {s.file for s in spans}
     assert fid is not None
+    # the resampling is device work, timed on the card's clock exactly where
+    # the separation is: CUDA events for a wave on the card, none here
+    assert rec.opened["demix.resample-in"] == rec.opened["demix.resample-out"] == {False}
+    assert rec.opened["demix.resample-in"] == rec.opened["demix.separate"] == rec.opened["demix.ola"]
+
+
+def test_demix_resampling_spans_take_the_cards_clock_for_a_card_wave():
+    """``device=`` of both resampling spans is the wave's ``is_cuda``, the
+    rule of the separator's spans: events on the card, none on the CPU."""
+    import ast
+    import inspect
+
+    from speech_diarization_tpu_torch.pipelines import enhance
+
+    tree = ast.parse(inspect.getsource(enhance.make_enhance_fn))
+    flags = {}
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Call) and getattr(node.func, "id", None) == "stage_timer"
+                and isinstance(node.args[1], ast.Constant)
+                and node.args[1].value.startswith("demix.")):
+            flags[node.args[1].value] = {k.arg: ast.unparse(k.value) for k in node.keywords}
+    assert flags == {"demix.resample-in": {"device": "y.is_cuda"},
+                     "demix.resample-out": {"device": "y.is_cuda"}}
 
 
 def test_demix_waits_count_as_host_syncs(demix_recorded):
-    """The copies each way are waits that no wait holds (a copy from
-    pageable memory waits for the stream too): the rule of
-    ``host_syncs_per_file`` counts each once a file."""
+    """The front-end waits on nothing: the wave stays on the device from
+    the resampling in to the resampling out, so the rule of
+    ``host_syncs_per_file`` finds no wait among its spans, and the route's
+    waits are the whole-file path's own."""
     from perfbench.metrics import _program_spans
 
     rec, spans, _ = demix_recorded
     ctx = SimpleNamespace(program_spans=rec)
     waits = _program_spans.outer_waits(ctx, rec.spans)
-    copies = ["demix.download", "demix.upload", "demix.fetch", "demix.return"]
-    assert [s.name for s in waits if s.name.startswith("demix.")] == copies
-    assert all(s.wait == (s.name in copies) for s in spans)
+    assert waits and not [s.name for s in waits if s.name.startswith("demix.")]
+    assert not any(s.wait for s in spans)
 
 
 def test_demix_host_reader_reads_the_resampling_alone(demix_recorded):
-    """``demix_host_ms_per_min`` sums the two resampling spans' walls and
-    none of the copies, which are waits on the separation."""
+    """``demix_host_ms_per_min`` sums the two resampling spans' walls (on
+    the card, the enqueue of K3 and the stem's mean) and nothing else."""
     from perfbench.metrics import demix_host_ms_per_min as reader
 
     rec, spans, _ = demix_recorded
